@@ -14,15 +14,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernel_fanin   kernel B vs fanin_fill_plain: 454-style K3/3 graphs at
                16 x 2047, over-cap ancestor graphs, a windowed case;
                codes and snapshots bit-equal
+  kernel_banded  kernel C vs banded_fill_plain: a 3,500 bp pair with its
+               narrow anchored band, a window of more than 128 rows, a
+               band with the pair-end break scalars set, a band that
+               dead-ends (no finite corner score) and a window too wide
+               for shared memory; codes and corner scores bit-equal
   small_oracle the device path against the host oracle on small pairs
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
                and kernel B launched, an anchored fan-in fill ran, no
                plain version ran; then the same input with the plain
                versions forced on CUDA must give byte-identical FASTA
-  timing       each kernel and its plain version on the inputs the main
-               path gave it: bit-equal, ms per launch (CUDA events) and
-               the lower bound
+  long_family  4 x 4,000 bp family (the same generator, seed 5) through
+               the CLI: 2 banded fills on kernel C, an anchored fan-in
+               fill on kernel B, no plain version; then the plain
+               versions forced: byte-identical FASTA
+  megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
+               np.random.default_rng(0)) through the CLI with default
+               flags: both rows intact, 1 banded fill on kernel C, no
+               plain version; the host phase times
+  timing       each kernel and its plain version on the inputs its path
+               gave it: bit-equal, ms per launch (CUDA events) and the
+               lower bound (kernel C: bit-equal on the long_family calls;
+               kernel, plain version and bound on the megabase call cut
+               to its first 16,384 diagonals; the kernel and its bound
+               on the whole megabase call)
   trace        the main path once more under torch.profiler: the
                device's busy share and time by kernel
 
@@ -88,6 +104,35 @@ def mutate(rng, base, p=0.1):
     return "".join(mut)
 
 
+def long_pair(n=3500, seed=1):
+    """A 3,500 bp pair: 5% substitutions and a 12-bp deletion."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.choice(list("ACGT"), size=n)
+    mut = base.copy()
+    idx = rng.random(n) < 0.05
+    mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+    s2 = "".join(mut)
+    return "".join(base), s2[:n // 2] + s2[n // 2 + 12:]
+
+
+def write_input(work, name, seqs, tree):
+    """FASTA and Newick files of one CLI input; returns their paths."""
+    fas = os.path.join(work, name + ".fas")
+    with open(fas, "w") as f:
+        for n, s in seqs:
+            f.write(">%s\n%s\n" % (n, s))
+    nh = os.path.join(work, name + ".nh")
+    with open(nh, "w") as f:
+        f.write(tree + "\n")
+    return fas, nh
+
+
+def read_fasta(path):
+    rows = open(path).read().split(">")[1:]
+    return [(r.splitlines()[0], "".join(r.splitlines()[1:])) for r in rows]
+
+
 def same_floats(a, b):
     """Bit-equality of two f32 tensors (-inf included)."""
     import torch
@@ -136,6 +181,7 @@ def main():
     from pagan2_tpu_torch import kernels
     from pagan2_tpu_torch.align import viterbi_linear as VL
     from pagan2_tpu_torch.align import viterbi_fanin as VF
+    from pagan2_tpu_torch.align import viterbi_banded as VB
     from pagan2_tpu_torch.align import AlignSettings, align_pair, plan_band
     from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
     from pagan2_tpu_torch.graph import build_leaf_graph
@@ -150,8 +196,9 @@ def main():
                                           torch.version.cuda))
 
     # ---- build ----
+    t_start = time.time()
     t0 = time.time()
-    kernels.build("viterbi_linear", "viterbi_fanin")
+    kernels.build("viterbi_linear", "viterbi_fanin", "viterbi_banded")
     log("build: %.1f s" % (time.time() - t0))
     for name, out in kernels.BUILD_LOG.items():
         for line in out.splitlines():
@@ -268,6 +315,79 @@ def main():
     fan_err = max(fan_err, fanin_check([x], "windowed", W=int(Wreal),
                                        ilo=ilo))
 
+    # ---- kernel_banded ----
+    from dataclasses import replace
+    from pagan2_tpu_torch.align.oracle import mark_no_gap_penalty_sites
+
+    def banded_check(s1, s2, what, s=settings, band=None, qual="",
+                     dead_end=False):
+        g1 = build_leaf_graph(s1, alph.DNA)
+        g2 = build_leaf_graph(s2, alph.DNA, quality=qual)
+        if s.pair_end_reads:
+            s = replace(s, x_read1_length=mark_no_gap_penalty_sites(g1),
+                        y_read1_length=mark_no_gap_penalty_sites(g2))
+        L, R = g1.num_sites() - 1, g2.num_sites() - 1
+        if band is None:
+            band = plan_band(g1, g2, s)[0]
+        else:
+            band = band(L, R)
+        args, meta = VB.banded_args(g1, g2, model, s, band[0], band[1],
+                                    dev)
+        codes, corner = VB.banded_fill(**args)
+        pc, pk = VB.banded_fill_plain(**args)
+        torch.cuda.synchronize()
+        if not torch.equal(codes, pc):
+            fail("kernel_banded %s: %d codes differ from the plain version"
+                 % (what, int((codes != pc).sum())))
+        if not same_floats(corner, pk):
+            fail("kernel_banded %s: corner scores differ: %s vs %s"
+                 % (what, corner.tolist(), pk.tolist()))
+        if bool(torch.isfinite(corner).any()) == dead_end:
+            fail("kernel_banded %s: corner %s" % (what, corner.tolist()))
+        Dn, Wk = args["ms"].shape
+        k_ms = cuda_ms(lambda: VB.banded_fill(**args), 3)
+        log("kernel_banded %s: L %d, R %d, w.max() %d, Wk %d, D-1 %d, "
+            "staged %d diagonals: bit-equal, corner %s; kernel %.3f ms "
+            "(%.3f us per diagonal)"
+            % (what, L, R, meta["w"].max(), Wk, Dn,
+               VB._stage_diagonals(Wk), corner.tolist(), k_ms,
+               1e3 * k_ms / Dn))
+        return max_abs_err(corner, pk), meta, args
+
+    ban_err = 0.0
+    s1, s2 = long_pair()
+    e, meta, _ = banded_check(s1, s2, "3500 bp anchored")
+    ban_err = max(ban_err, e)
+    seqs4, _ = family(4, 4000)
+    e, meta, _ = banded_check(seqs4[0][1], seqs4[1][1], "10% subs")
+    if meta["w"].max() <= 128:
+        fail("kernel_banded: the 10%% pair's window is %d rows"
+             % meta["w"].max())
+    ban_err = max(ban_err, e)
+    r1, r2, mid = ("".join(rng.choice(list("ACGT"), k))
+                   for k in (200, 200, 300))
+    e, meta, args = banded_check(
+        r1 + mid + r2, r1 + "0" + r2, "pair-end breaks",
+        s=replace(settings, pair_end_reads=True),
+        band=lambda L, R: (np.zeros(L, np.int64), np.full(L, R - 1)),
+        qual="I" * (len(r1) + len(r2) + 1))
+    if int(args["iscal"][3]) < 0:
+        fail("kernel_banded: the pair-end break scalar ybrk is not set")
+    ban_err = max(ban_err, e)
+    base = "".join(rng.choice(list("ACGT"), 800))
+    banded_check(base, "ACGT" * 5 + base, "dead end",
+                 band=lambda L, R: (np.zeros(L, np.int64),
+                                    np.full(L, 3, np.int64)),
+                 dead_end=True)
+    # past the shared-memory budget: the ring in global scratch
+    base = rng.choice(list("ACGT"), size=5400)
+    e, meta, args = banded_check(
+        "".join(base), mutate(rng, base), "global ring",
+        band=lambda L, R: (np.zeros(L, np.int64), np.full(L, R - 1)))
+    if VB._stage_diagonals(args["ms"].shape[1]):
+        fail("kernel_banded: the wide case did not take the global ring")
+    ban_err = max(ban_err, e)
+
     # ---- small_oracle ----
     def sig(path):
         return [(p.mp.matrix, p.mp.x_ind, p.mp.y_ind, p.mp.x_edge_ind,
@@ -295,80 +415,190 @@ def main():
     log("small_oracle: 3 linear + 3 fan-in pairs match the host oracle")
 
     # ---- main_path ----
-    from pagan2_tpu_torch.cli import main as cli_main
+    from pagan2_tpu_torch import cli as CLI
+    from pagan2_tpu_torch import align as ALIGN
+    from pagan2_tpu_torch.align import anchors as ANCH
+    from pagan2_tpu_torch.pipeline import progressive as PROG
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    seqs, tree = family(16, 1535)
-    fas = os.path.join(work, "family.fas")
-    with open(fas, "w") as f:
-        for name, s in seqs:
-            f.write(">%s\n%s\n" % (name, s))
-    nh = os.path.join(work, "family.nh")
-    with open(nh, "w") as f:
-        f.write(tree + "\n")
 
-    recorded = {"linear": [], "fanin": []}
-    real_linear, real_fanin = VL.linear_fill, VF.fanin_fill
+    # each kernel's module and the name of its wrapper
+    KERNELS = {"linear": (VL, "linear_fill"), "fanin": (VF, "fanin_fill"),
+               "banded": (VB, "banded_fill")}
+    real = {k: getattr(m, n) for k, (m, n) in KERNELS.items()}
+    plain = {k: getattr(m, n + "_plain") for k, (m, n) in KERNELS.items()}
 
-    def rec_linear(**kw):
-        recorded["linear"].append(kw)
-        return real_linear(**kw)
+    def recording(rec):
+        """The wrappers, each appending its calls' arguments to rec."""
+        def make(k):
+            def fill(**kw):
+                rec[k].append(kw)
+                return real[k](**kw)
+            return fill
+        return {k: make(k) for k in KERNELS}
 
-    def rec_fanin(**kw):
-        recorded["fanin"].append(kw)
-        return real_fanin(**kw)
-
-    def run_cli(out):
+    def run_cli(what, fas, nh, out, fills, extra=()):
+        """One CLI run with `fills` in the wrappers' places and every
+        count set to 0 just before it; returns (wall s, launches per
+        kernel, plain-version calls, EXEC_STATS) read just after."""
         EX.reset_stats()
-        VL.LAUNCHES = VF.LAUNCHES = 0
-        VL.PLAIN_CALLS = VF.PLAIN_CALLS = 0
+        for m, _n in KERNELS.values():
+            m.LAUNCHES = m.PLAIN_CALLS = 0
+        for k, (m, n) in KERNELS.items():
+            setattr(m, n, fills[k])
         t = time.time()
-        rc = cli_main(["-s", fas, "-t", nh, "-o", out, "--silent",
-                       "--time"])
-        torch.cuda.synchronize()
+        try:
+            rc = CLI.main(["-s", fas, "-t", nh, "-o", out, "--silent",
+                           "--time"] + list(extra))
+            torch.cuda.synchronize()
+        finally:
+            for k, (m, n) in KERNELS.items():
+                setattr(m, n, real[k])
         if rc != 0:
-            fail("main_path: CLI returned %d" % rc)
-        return time.time() - t
+            fail("%s: CLI returned %d" % (what, rc))
+        return (time.time() - t, {k: m.LAUNCHES for k, (m, _n)
+                                  in KERNELS.items()},
+                sum(m.PLAIN_CALLS for m, _n in KERNELS.values()),
+                dict(EX.EXEC_STATS))
 
-    VL.linear_fill, VF.fanin_fill = rec_linear, rec_fanin
-    try:
-        wall = run_cli(os.path.join(work, "out_kernel"))
-    finally:
-        VL.linear_fill, VF.fanin_fill = real_linear, real_fanin
-    counts = {"linear": VL.LAUNCHES, "fanin": VF.LAUNCHES}
-    plain_calls = VL.PLAIN_CALLS + VF.PLAIN_CALLS
-    stats = dict(EX.EXEC_STATS)
-    rows = open(os.path.join(work, "out_kernel.fas")).read().split(">")[1:]
-    lens = {len("".join(r.splitlines()[1:])) for r in rows}
-    log("main_path: %d rows x %s cols in %.1f s; launches A=%d B=%d; "
-        "stats %s" % (len(rows), sorted(lens), wall, counts["linear"],
+    def check_rows(what, out, seqs):
+        """The output's rows are the inputs with gaps added, all of one
+        length; returns that length."""
+        rows = read_fasta(out + ".fas")
+        lens = {len(r) for _n, r in rows}
+        if [n for n, _r in rows] != [n for n, _s in seqs] or \
+                len(lens) != 1:
+            fail("%s: %d rows of lengths %s" % (what, len(rows),
+                                                sorted(lens)))
+        for (n, r), (_n, s) in zip(rows, seqs):
+            if r.replace("-", "") != s:
+                fail("%s: row %s is not its input once gaps are removed"
+                     % (what, n))
+        return lens.pop()
+
+    def same_output(what, kernel_out, seqs, fas, nh):
+        """The same input with the plain versions in the wrappers'
+        places, on the same CUDA tensors, gives byte-identical output."""
+        out = os.path.join(work, what + "_plain")
+        wall, counts, _p, _s = run_cli(what, fas, nh, out, plain)
+        if any(counts.values()):
+            fail("%s: kernels launched in the forced-plain run" % what)
+        if open(kernel_out + ".fas", "rb").read() != \
+                open(out + ".fas", "rb").read():
+            fail("%s: kernel and plain FASTA differ" % what)
+        log("%s: plain versions on CUDA (%.1f s) give byte-identical FASTA"
+            % (what, wall))
+
+    seqs, tree = family(16, 1535)
+    fas, nh = write_input(work, "family", seqs, tree)
+    recorded = {k: [] for k in KERNELS}
+    out_kernel = os.path.join(work, "out_kernel")
+    wall, counts, plain_calls, stats = run_cli(
+        "main_path", fas, nh, out_kernel, recording(recorded))
+    cols = check_rows("main_path", out_kernel, seqs)
+    log("main_path: %d rows x %d cols in %.1f s; launches A=%d B=%d; "
+        "stats %s" % (len(seqs), cols, wall, counts["linear"],
                       counts["fanin"], json.dumps(stats)))
-    if len(rows) != 16 or lens != {1535}:
-        fail("main_path: expected 16 rows x 1535 columns, got %d x %s"
-             % (len(rows), sorted(lens)))
+    if cols != 1535:
+        fail("main_path: expected 1535 columns, got %d" % cols)
     if counts["linear"] < 1 or counts["fanin"] < 1:
         fail("main_path: a kernel was never launched (%s)" % counts)
     if plain_calls:
         fail("main_path: %d plain-version calls on CUDA" % plain_calls)
     if stats["fanin_windowed"] + stats["fanin_banded_full"] < 1:
         fail("main_path: no anchored fan-in fill ran")
+    same_output("main_path", out_kernel, seqs, fas, nh)
+    a = open(out_kernel + ".fas", "rb").read()
 
-    # the plain versions in the wrappers' place, on the same CUDA tensors
-    VL.linear_fill, VF.fanin_fill = VL.linear_fill_plain, VF.fanin_fill_plain
+    # ---- long_family: anchored long leaf pairs on kernel C ----
+    seqs4, tree4 = family(4, 4000)
+    fas4, nh4 = write_input(work, "long_family", seqs4, tree4)
+    rec_long = {k: [] for k in KERNELS}
+    out_long = os.path.join(work, "long_kernel")
+    wall, counts_long, plain_calls, stats = run_cli(
+        "long_family", fas4, nh4, out_long, recording(rec_long))
+    cols = check_rows("long_family", out_long, seqs4)
+    log("long_family: 4 rows x %d cols in %.1f s; launches A=%d B=%d "
+        "C=%d; stats %s" % (cols, wall, counts_long["linear"],
+                            counts_long["fanin"], counts_long["banded"],
+                            json.dumps(stats)))
+    if counts_long["banded"] != 2 or stats["banded_fills"] != 2:
+        fail("long_family: expected 2 banded fills on kernel C, got %d "
+             "launches (%d fills)" % (counts_long["banded"],
+                                     stats["banded_fills"]))
+    if counts_long["fanin"] < 1 or \
+            stats["fanin_windowed"] + stats["fanin_banded_full"] < 1:
+        fail("long_family: no anchored fan-in fill on kernel B")
+    if plain_calls:
+        fail("long_family: %d plain-version calls on CUDA" % plain_calls)
+    same_output("long_family", out_long, seqs4, fas4, nh4)
+
+    # ---- megabase: the slice at full width ----
+    # bench.py's bench_megabase pair, seeded by default_rng(0) alone
+    rng0 = np.random.default_rng(0)
+    N = 1048575
+    base = rng0.choice(list("ACGT"), size=N)
+    mut = base.copy()
+    idx = rng0.random(N) < 0.01
+    mut[idx] = rng0.choice(list("ACGT"), size=int(idx.sum()))
+    mega = [("a", "".join(base)), ("b", "".join(mut))]
+    fasm, nhm = write_input(work, "megabase", mega, "(a:0.1,b:0.1);")
+    phases = {}
+
+    def timed(fn, key, sync=False):
+        def run(*a, **kw):
+            t = time.time()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            phases[key] = phases.get(key, 0.0) + time.time() - t
+            return out
+        return run
+
+    # host phases, each timed where the CLI calls it
+    patches = [(PROG, "build_leaf_graph", "graph build", False),
+               (VB, "banded_args", "banded_args (prep, schedule, fold)",
+                True),
+               (VB, "fold_banded_stripe", "fold", True),
+               (VB, "_host_fold", "fold", True),
+               (VB, "_backtrack_arrays", "backtrack", False),
+               (ALIGN, "build_ancestral_graph", "ancestral build", False),
+               (PROG, "extract_alignment", "extract alignment", False),
+               (CLI, "write_outputs", "write", False)]
+    rec_mega = {k: [] for k in KERNELS}
+    fills = recording(rec_mega)
+    fills["banded"] = timed(fills["banded"], "fill", sync=True)
+    saved = [(m, n, getattr(m, n)) for m, n, _k, _s in patches]
+    for m, n, key, sync in patches:
+        setattr(m, n, timed(getattr(m, n), key, sync))
+    out_mega = os.path.join(work, "megabase_kernel")
     try:
-        wall_plain = run_cli(os.path.join(work, "out_plain"))
+        mrun = run_cli("megabase", fasm, nhm, out_mega, fills)
     finally:
-        VL.linear_fill, VF.fanin_fill = real_linear, real_fanin
-    if VL.LAUNCHES or VF.LAUNCHES:
-        fail("main_path: kernels launched in the forced-plain run")
-    a = open(os.path.join(work, "out_kernel.fas"), "rb").read()
-    b = open(os.path.join(work, "out_plain.fas"), "rb").read()
-    if a != b:
-        fail("main_path: kernel and plain FASTA differ")
-    log("main_path: plain versions on CUDA (%.1f s) give byte-identical "
-        "FASTA" % wall_plain)
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    wall, counts_mega, plain_calls, stats = mrun
+    cols = check_rows("megabase", out_mega, mega)
+    if counts_mega["banded"] != 1 or stats["banded_fills"] != 1:
+        fail("megabase: expected 1 banded fill on kernel C, got %d "
+             "launches" % counts_mega["banded"])
+    if plain_calls:
+        fail("megabase: %d plain-version calls on CUDA" % plain_calls)
+    msched = rec_mega["banded"][0]["sched"].cpu().numpy()
+    log("megabase: 2 rows x %d cols in %.1f s; launches A=%d B=%d C=%d; "
+        "w.max() %d, Wk %d, %d diagonals, %d window cells, %d in-band "
+        "cells" % (cols, wall, counts_mega["linear"], counts_mega["fanin"],
+                   counts_mega["banded"], msched[:, 1].max(),
+                   rec_mega["banded"][0]["ms"].shape[1], len(msched),
+                   msched[:, 1].astype(np.int64).sum(),
+                   stats["batched_cells"]))
+    for key in ("anchor_scan_s", "band_smooth_s"):
+        log("megabase host phase %-36s %8.3f s (anchors.PREP_TIMINGS)"
+            % (key, ANCH.PREP_TIMINGS.get(key, 0.0)))
+    for key, v in phases.items():
+        log("megabase host phase %-36s %8.3f s" % (key, v))
 
-    # ---- timing on the main path's own inputs ----
+    # ---- timing on each path's own inputs ----
     # The bounds count only what the function needs for this run's data:
     # the cells it must fill (in the matrix, in the band, in the window),
     # each job's inputs read once and its outputs written once; padding
@@ -415,26 +645,43 @@ def main():
                        + 4 * D + 4 * nf * nf + 4 * 4)
         return nbytes, ops
 
+    def banded_bound(kw):
+        """Kernel C: per in-band cell its folded score read (4 B) and its
+        code written (1 B); per diagonal its window start and width (8 B:
+        the source offsets follow from the starts, the rest of a
+        schedule row is padding); fscal, iscal and the corner."""
+        cells = float(kw["sched"][:, 1].sum())
+        nbytes = 5 * cells + 8 * kw["sched"].shape[0] + 2 * 8 * 4 + 3 * 4
+        return nbytes, LINEAR_OPS_PER_CELL * cells
+
     def shape(kw):
+        if "sched" in kw:
+            return "D-1, Wk = %s" % (tuple(kw["ms"].shape),)
         if "ms" in kw:
             return "B, D, Lp = %s" % (tuple(kw["ms"].shape),)
         return "B %d, D %d, W %d, G %d" % (kw["ilo"].shape + (kw["W"],
                                                                kw["G"]))
 
     def time_kernel(calls, real, plain, bound, same, reps):
-        """Per-launch means over the main path's recorded calls: kernel
-        ms, plain ms, bound ms and what bounds it; each call's kernel
-        output is held bit-equal to the plain version's."""
+        """Per-launch means over a path's recorded calls: kernel ms,
+        plain ms, bound ms and what bounds it; each call's kernel output
+        is held bit-equal to the plain version's."""
         k_ms = p_ms = b_ms = err = by_bytes = by_ops = 0.0
         for n, kw in enumerate(calls):
-            out, ref = real(**kw), plain(**kw)
+            # the plain version timed on the call that is compared
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = plain(**kw)
+            t1.record()
+            out = real(**kw)
             torch.cuda.synchronize()
             if not (torch.equal(out[0], ref[0]) and same(out[1], ref[1])):
-                fail("timing: main-path call %d of %s differs from its "
+                fail("timing: recorded call %d of %s differs from its "
                      "plain version" % (n, real.__name__))
             err = max(err, max_abs_err(out[1], ref[1]))
+            p = t0.elapsed_time(t1)
             k = cuda_ms(lambda: real(**kw), reps)
-            p = cuda_ms(lambda: plain(**kw), 1)
             nbytes, ops = bound(kw)
             tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             log("timing %s call %d (%s): kernel %.3f ms, plain %.1f ms, "
@@ -457,12 +704,50 @@ def main():
         log("timing %s: kernel %.3f ms/launch, plain %.1f ms, bound "
             "%.5f ms (%s), over %d main-path calls, bit-equal"
             % (name, t[0], t[1], t[2], t[3], len(recorded[name])))
+    # kernel C: bit-equal to its plain version on the long_family calls
+    # and on the megabase call cut to its first NPRE diagonals (the fill
+    # is causal, so the prefix is the same work at the same width; the
+    # corner moves to the prefix's last in-window cell); the kernel line
+    # takes kernel, plain and bound on that prefix. The whole megabase
+    # call is timed on the kernel alone (its plain version would take
+    # about half an hour).
+    long_t = time_kernel(rec_long["banded"], VB.banded_fill,
+                         VB.banded_fill_plain, banded_bound, same_floats, 3)
+    ban_err = max(ban_err, long_t[4])
+    log("timing banded: on the %d long_family calls kernel %.3f ms/launch, "
+        "plain %.1f ms, bound %.5f ms (%s), bit-equal"
+        % (len(rec_long["banded"]), long_t[0], long_t[1], long_t[2],
+           long_t[3]))
+    mkw = rec_mega["banded"][0]
+    NPRE = 16384
+    pre = {"fscal": mkw["fscal"], "sched": mkw["sched"][:NPRE],
+           "ms": mkw["ms"][:NPRE], "iscal": mkw["iscal"].clone()}
+    pre["iscal"][4] = NPRE
+    pre["iscal"][5] = pre["sched"][-1, 1] - 1
+    ban_t = time_kernel([pre], VB.banded_fill, VB.banded_fill_plain,
+                        banded_bound, same_floats, 5)
+    ban_err = max(ban_err, ban_t[4])
+    log("timing banded: on the megabase call's first %d diagonals kernel "
+        "%.3f ms (%.3f us per diagonal), plain %.1f ms, bound %.5f ms "
+        "(%s), bit-equal" % (NPRE, ban_t[0], 1e3 * ban_t[0] / NPRE,
+                             ban_t[1], ban_t[2], ban_t[3]))
+    mega_ms = cuda_ms(lambda: VB.banded_fill(**mkw), 2)
+    nbytes, ops = banded_bound(mkw)
+    tbb, tbo = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    mega_bound = 1e3 * max(tbb, tbo)
+    mega_by = "bytes" if tbb >= tbo else "operations"
+    log("timing banded: on the whole megabase call (%s) kernel %.3f "
+        "ms/launch (%.3f us per diagonal), bound %.5f ms (%s: %.0f bytes, "
+        "%.0f operations)" % (shape(mkw), mega_ms,
+                              1e3 * mega_ms / mkw["ms"].shape[0],
+                              mega_bound, mega_by, nbytes, ops))
 
     # ---- trace: device busy share of the main path ----
     from torch.profiler import profile, ProfilerActivity
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_trace = run_cli(os.path.join(work, "out_trace"))
+        wall_trace = run_cli("trace", fas, nh,
+                             os.path.join(work, "out_trace"), real)[0]
     if open(os.path.join(work, "out_trace.fas"), "rb").read() != a:
         fail("trace: the traced main-path run gave other FASTA")
 
@@ -499,7 +784,16 @@ def main():
          "launches": counts["fanin"], "max_abs_err": fan_err,
          "ms": fan_t[0], "plain_ms": fan_t[1], "bound_ms": fan_t[2],
          "bound_by": fan_t[3], "library_ms": None},
+        {"name": "viterbi_banded", "route": "cuda",
+         "source": "pagan2_tpu_torch/csrc/viterbi_banded.cu",
+         "replaces": "pagan2_tpu/align/viterbi_pallas_banded.py:79",
+         "launches": counts_long["banded"] + counts_mega["banded"],
+         "max_abs_err": ban_err, "ms": ban_t[0], "plain_ms": ban_t[1],
+         "bound_ms": ban_t[2], "bound_by": ban_t[3], "library_ms": None,
+         "timed_on": "megabase call, first %d diagonals" % NPRE,
+         "whole_call_ms": mega_ms, "whole_call_bound_ms": mega_bound},
     ]}
+    log("total %.1f s" % (time.time() - t_start))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

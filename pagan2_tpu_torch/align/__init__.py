@@ -2,8 +2,9 @@
 
 Ported from pagan2_tpu/align/__init__.py (`plan_band`, `_band_cells`,
 `_acct` and the Viterbi branches of `align_pair`). Linear-chain pairs
-fill on kernel A (viterbi_linear), fan-in graph pairs on kernel B
-(viterbi_fanin), pairs of two empty sequences on the host oracle. What
+fill on kernel A (viterbi_linear), or on kernel C (viterbi_banded) when
+their anchored band is thin; fan-in graph pairs on kernel B
+(viterbi_fanin); pairs of two empty sequences on the host oracle. What
 is not ported yet raises NotImplementedError naming its ROADMAP item.
 """
 from .settings import AlignSettings, X_MAT, Y_MAT, M_MAT
@@ -134,8 +135,7 @@ def align_pair(left, right, model, settings=None, left_branch_length=0.0,
     matrices are cheaper than anchor discovery).
     Returns (ancestral_graph, end_pointer).
     """
-    from ..pending import (not_ported, BANDED_LINEAR, FULL_PROBABILITY,
-                           PAIR_END)
+    from ..pending import not_ported, FULL_PROBABILITY, PAIR_END
     settings = settings or AlignSettings()
     if is_reads_sequence or settings.keep_all_edges:
         # --keep-all-edges widens the skip limits for ordinary
@@ -170,21 +170,33 @@ def align_pair(left, right, model, settings=None, left_branch_length=0.0,
             if band is None and use_anchors and \
                     min(left.num_sites(), right.num_sites()) > \
                     anchor_min_sites:
-                raise not_ported("an anchored linear pair (%d x %d sites)"
-                                 % (L, R), BANDED_LINEAR)
+                band, skipped = plan_band(left, right, settings)
+                if skipped:
+                    return None, None
             if band is not None:
                 from .viterbi_banded import band_windows
                 _ilo, Wreal = band_windows(band[0], band[1], L, R)
                 if _bucket(Wreal) * 2 <= _bucket(R):
-                    raise not_ported("the windowed banded linear fill",
-                                     BANDED_LINEAR)
-            from .viterbi_linear import linear_align_path
-            _t0 = _time.perf_counter()
-            path, end = linear_align_path(
-                left, right, model, settings,
-                left_branch_length, right_branch_length, band=band,
-                device=device)
-            _acct(_t0, _band_cells(band, L, R))
+                    # thin band: the windowed banded fill (kernel C)
+                    from ..parallel.executor import EXEC_STATS
+                    from .viterbi_banded import banded_align_path
+                    log_out("banded DP: window %d of %d cols" % (Wreal, R),
+                            2)
+                    EXEC_STATS["banded_fills"] += 1
+                    _t0 = _time.perf_counter()
+                    path, end = banded_align_path(
+                        left, right, model, settings, band[0], band[1],
+                        left_branch_length, right_branch_length,
+                        device=device)
+                    _acct(_t0, _band_cells(band, L, R))
+            if path is None:
+                from .viterbi_linear import linear_align_path
+                _t0 = _time.perf_counter()
+                path, end = linear_align_path(
+                    left, right, model, settings,
+                    left_branch_length, right_branch_length, band=band,
+                    device=device)
+                _acct(_t0, _band_cells(band, L, R))
         else:
             # graph fan-in: ring-of-diagonals kernel for ANY fan-in,
             # banded/windowed like the reference tunnels every pair

@@ -3,21 +3,25 @@ kernel arguments, so both packages can be fed identical inputs.
 
 The JAX package prepares every fill on the host in numpy
 (pagan2_tpu.align.viterbi_sheared.prepare_sheared,
-viterbi_fanin.prepare_fanin, viterbi_pallas.pallas_job_arrays). Those
-dicts hold only numpy arrays and Python scalars, so they cross over
-as they are; this module never imports the JAX package.
+viterbi_fanin.prepare_fanin, viterbi_pallas.pallas_job_arrays,
+viterbi_pallas_banded.pallas_banded_args). Those dicts hold numpy
+arrays, Python scalars, or device arrays that numpy reads, so they cross
+over as they are; this module never imports the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .viterbi_banded import band_sched, stripe_width
 from .viterbi_fanin import fanin_batch_args
 from .viterbi_linear import (_add_scalar_params, batch_rows,
                              linear_job_arrays, linear_batch_args)
 
 
 def _kind(d: dict) -> str:
+    if "sched" in d and "ilo" in d and "ms" in d:
+        return "pallas_banded"
     if "ms_sh" in d and "vlox" in d:
         return "pallas_job"
     if "open_r_shifted" in d and "gext_j" in d:
@@ -25,7 +29,8 @@ def _kind(d: dict) -> str:
     if "loff" in d and "roff" in d:
         return "fanin"
     raise ValueError("not a prepare_sheared / prepare_fanin / "
-                     "pallas_job_arrays dict (keys %s)" % sorted(d))
+                     "pallas_job_arrays / pallas_banded_args dict (keys %s)"
+                     % sorted(d))
 
 
 def inputs_from_reference(d, device="cpu", **kw):
@@ -38,10 +43,16 @@ def inputs_from_reference(d, device="cpu", **kw):
     - pallas_job_arrays dicts (their ms_sh stream is already folded and
       holds diagonal d at row d - 1) -> linear_fill kwargs;
     - prepare_fanin dicts (f32) -> fanin_fill kwargs; kw as
-      viterbi_fanin.fanin_batch_args (W, ilo, G, KL, KR, D).
+      viterbi_fanin.fanin_batch_args (W, ilo, G, KL, KR, D);
+    - one pallas_banded_args result, its args and meta merged
+      (`dict(meta, **args)`: fscal, iscal, ms and the schedule's ilo, w)
+      -> banded_fill kwargs: the stripe cut to the port's width Wk, the
+      schedule rebuilt for it.
     """
     ds = list(d) if isinstance(d, (list, tuple)) else [d]
     kind = _kind(ds[0])
+    if kind == "pallas_banded":
+        return _banded_from_reference(ds[0], device)
     if kind == "sheared":
         Lp = kw.get("Lp") or batch_rows(ds)
         bands = kw.get("bands") or [None] * len(ds)
@@ -70,3 +81,22 @@ def inputs_from_reference(d, device="cpu", **kw):
                 vlox=t("vlox", np.int32), vloy=t("vloy", np.int32),
                 vhi=t("vhi", np.int32), fscal=t("fscal", np.float32),
                 iscal=torch.from_numpy(iscal).to(dev))
+
+
+def _banded_from_reference(d: dict, device):
+    """banded_fill kwargs from the reference's banded prep: its stripe
+    is (Dpk, S, Wl) with row d - 1 = diagonal d and zeros past each
+    window, so its first D - 1 rows and Wk columns are the port's."""
+    dev = torch.device(device)
+    ilo, w = np.asarray(d["ilo"]), np.asarray(d["w"])
+    Dn = len(ilo) - 1
+    Wk = stripe_width(w.max())
+    ms = np.asarray(d["ms"], np.float32)
+    ms = ms.reshape(ms.shape[0], -1)[:Dn, :Wk]
+
+    def t(a, dt):
+        return torch.from_numpy(np.array(a, dt).reshape(-1)).to(dev)
+    return dict(fscal=t(d["fscal"], np.float32),
+                iscal=t(d["iscal"], np.int32),
+                sched=torch.from_numpy(band_sched(ilo, w, Wk)).to(dev),
+                ms=torch.from_numpy(np.array(ms)).to(dev))

@@ -130,8 +130,12 @@ class _ShearedCells:
         self.left = left
         self.right = right
 
+    def _code(self, i, j) -> int:
+        """6-bit step code of cell (i, j): bm | bx << 2 | by << 4."""
+        return int(self.bp[i + j, i])
+
     def cell(self, which, i, j) -> MatrixPtr:
-        code = int(self.bp[i + j, i])
+        code = self._code(i, j)
         mp = MatrixPtr()
         if which == M_MAT:
             mv = code & 3

@@ -721,10 +721,11 @@ def main(argv=None) -> int:
                      EXEC_STATS.get("single_fills", 0)),
                   file=sys.stderr)
         print("TIME %-24s %d batched fan-in launches; %d windowed + %d "
-              "full-width anchored fan-in fills"
-              % ("fanin-routes", EXEC_STATS["fanin_batches"],
+              "full-width anchored fan-in fills; %d banded linear fills"
+              % ("routes", EXEC_STATS["fanin_batches"],
                  EXEC_STATS["fanin_windowed"],
-                 EXEC_STATS["fanin_banded_full"]), file=sys.stderr)
+                 EXEC_STATS["fanin_banded_full"],
+                 EXEC_STATS["banded_fills"]), file=sys.stderr)
 
     if args.raxml_tree or args.bppdist_tree:
         print("note: --raxml-tree/--bppdist-tree select the guide-tree "

@@ -5,9 +5,10 @@ independent guide-tree nodes concurrently on CPU threads (boost queue
 node.cpp:273-345, OpenMP waves node.cpp:227-269); here one generation's
 independent pairwise jobs are stacked into one launch per shape bucket:
 linear-chain pairs on kernel A (align/viterbi_linear.py), fan-in graph
-pairs on kernel B (align/viterbi_fanin.py), each on `device`. Backtrack
-and ancestral-graph construction stay per job on the host (O(path)
-work).
+pairs on kernel B (align/viterbi_fanin.py), each on `device`; a
+thin-band anchored linear pair runs alone on kernel C
+(align/viterbi_banded.py). Backtrack and ancestral-graph construction
+stay per job on the host (O(path) work).
 
 Routing reproduces the reference's decisions (`_plan_job`): the
 anchoring gates (3000 sites, 200 for scan-core-bound fan-in pairs), the
@@ -28,11 +29,13 @@ from ..utils import log_out
 # launch+readback wall time so the CLI's --time report can derive a
 # real-run GCUPS figure; single-job fills account for themselves via
 # align._acct. fanin_windowed / fanin_banded_full count anchored fan-in
-# fills that ran windowed or masked at full width.
+# fills that ran windowed or masked at full width, banded_fills the
+# windowed banded fills of thin-band linear pairs (kernel C).
 EXEC_STATS = {"launches": 0, "batched_jobs": 0, "single_jobs": 0,
               "batched_cells": 0, "fill_seconds": 0.0,
               "single_fills": 0, "fanin_batches": 0,
-              "fanin_windowed": 0, "fanin_banded_full": 0}
+              "fanin_windowed": 0, "fanin_banded_full": 0,
+              "banded_fills": 0}
 
 
 def reset_stats():
@@ -62,11 +65,11 @@ class PairJob:
 def _plan_job(job: PairJob):
     """Anchor/band planning mirroring align_pair's gate: returns
     'batch' (shared kernel A launch), 'fanin' (shared kernel B launch),
-    'single' (align_pair one by one) or 'skipped'."""
+    'banded' (one kernel C fill of a thin-band linear pair), 'single'
+    (align_pair one by one) or 'skipped'."""
     from ..align import plan_band
     from ..align.viterbi_sheared import is_linear_chain, _bucket
-    from ..pending import (not_ported, BANDED_LINEAR, FULL_PROBABILITY,
-                           PAIR_END)
+    from ..pending import not_ported, FULL_PROBABILITY, PAIR_END
 
     s = job.settings
     linear = is_linear_chain(job.left) and is_linear_chain(job.right)
@@ -91,11 +94,6 @@ def _plan_job(job: PairJob):
             gate = min(gate, SCAN_ANCHOR_MIN_SITES)
     if job.band is None and s.use_anchors and \
             min(job.left.num_sites(), job.right.num_sites()) > gate:
-        if linear:
-            raise not_ported(
-                "an anchored linear pair (%d x %d sites)"
-                % (job.left.num_sites() - 2, job.right.num_sites() - 2),
-                BANDED_LINEAR)
         job.band, job.skipped = plan_band(job.left, job.right, s)
         if job.skipped:
             return "skipped"
@@ -105,10 +103,7 @@ def _plan_job(job: PairJob):
         R = job.right.num_sites() - 1
         _ilo, Wreal = band_windows(job.band[0], job.band[1], L, R)
         if _bucket(Wreal) * 2 <= _bucket(R):
-            if linear:
-                raise not_ported("the windowed banded linear fill",
-                                 BANDED_LINEAR)
-            return "single"
+            return "banded" if linear else "single"
     return "batch" if linear else "fanin"
 
 
@@ -161,7 +156,7 @@ def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
         kind = _plan_job(job)
         if kind == "skipped":
             results[i] = (None, None)
-        elif kind == "single":
+        elif kind in ("single", "banded"):
             results[i] = _run_single(job, engine, device)
         else:
             L = job.left.num_sites() - 1

@@ -2,7 +2,6 @@
 caller asks for that belongs to one of them raises `not_ported(...)`:
 the port never ignores such a request silently."""
 
-BANDED_LINEAR = "ROADMAP Queue 1 item 6 (anchored and banded linear pairs)"
 PILEUP = "ROADMAP Queue 1 item 7 (pileup)"
 FULL_PROBABILITY = "ROADMAP Queue 1 item 8 (full probability and sampling)"
 PLACEMENT = "ROADMAP Queue 1 item 9 (placement and reference reads)"

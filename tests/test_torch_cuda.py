@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from pagan2_tpu_torch.align import AlignSettings
+from pagan2_tpu_torch.align import viterbi_banded as tb
 from pagan2_tpu_torch.align import viterbi_fanin as tf
 from pagan2_tpu_torch.align import viterbi_linear as tl
 from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
@@ -91,6 +92,28 @@ def test_fanin_kernel_matches_plain(cuda, windowed):
     assert tf.LAUNCHES == n0 + 1
     assert torch.equal(bp, pb)
     assert torch.equal(_bits(snap), _bits(ps))
+
+
+@pytest.mark.parametrize("half", [20, 300])
+def test_banded_kernel_matches_plain(cuda, half):
+    """Kernel C on a narrow window (one warp) and a window of more than
+    128 rows (several warps, block barriers)."""
+    rng = np.random.default_rng(7)
+    g1, g2 = _related(rng, 1500)
+    L, R = g1.num_sites() - 1, g2.num_sites() - 1
+    c = np.arange(L) * R // L
+    args, meta = tb.banded_args(g1, g2, MODEL, AlignSettings(),
+                                np.maximum(c - half, 0),
+                                np.minimum(c + half, R - 1), cuda)
+    assert (meta["w"].max() > 128) == (half == 300)
+    n0 = tb.LAUNCHES
+    codes, corner = tb.banded_fill(**args)
+    pc, pk = tb.banded_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES == n0 + 1
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
+    assert bool(torch.isfinite(corner).any())
 
 
 def test_cli_cuda_matches_cpu(cuda, tmp_path):
