@@ -2,7 +2,8 @@
 """Quickest proof that the PyTorch/CUDA port (pagan2_tpu_torch) runs on
 an NVIDIA GPU: builds the hand-written CUDA kernels from csrc/, holds
 each against its plain PyTorch version on the card, and drives the
-progressive-alignment main path end to end through the port's CLI.
+progressive-alignment main path, the long-pair paths and the
+full-probability and sampling path end to end through the port's CLI.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -19,12 +20,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                band with the pair-end break scalars set, a band that
                dead-ends (no finite corner score) and a window too wide
                for shared memory; codes and corner scores bit-equal
+  kernel_fullprob  kernels D and E vs their plain versions: linear, 8
+               jobs at 2047 x 2047 and a ragged batch; fan-in, 454-style
+               K3/3 graphs, over-cap ancestor pairs and a deep ring
+               (40-bp deletion edges); planes bit-equal, cum within
+               D * eps * max(1, |cum|); posteriors of a small linear and a
+               small fan-in pair against the f64 host oracle
   small_oracle the device path against the host oracle on small pairs
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
                and kernel B launched, an anchored fan-in fill ran, no
-               plain version ran; then the same input with the plain
-               versions forced on CUDA must give byte-identical FASTA
+               plain version ran; then an 8 x 767 family of the same
+               generator with the kernels and with the plain versions
+               forced on CUDA must give byte-identical FASTA
+  fullprob_path  the 16 x 1535 family through the CLI with
+               --full-probability on CUDA: 1535 columns, kernels D and E
+               launched on linear and on fan-in jobs, kernels A and B for
+               the Viterbi fills, no plain version, posterior support of
+               the root's sites in (0, 1] (1.02 with f32 rounding); then --sample-path --seed 7:
+               every row intact; then both flags on an 8 x 767 family
+               with the kernels and with the plain versions forced on
+               CUDA: byte-identical FASTA, posterior support within 1e-5
   long_family  4 x 4,000 bp family (the same generator, seed 5) through
                the CLI: 2 banded fills on kernel C, an anchored fan-in
                fill on kernel B, no plain version; then the plain
@@ -38,9 +54,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                lower bound (kernel C: bit-equal on the long_family calls;
                kernel, plain version and bound on the megabase call cut
                to its first 16,384 diagonals; the kernel and its bound
-               on the whole megabase call)
-  trace        the main path once more under torch.profiler: the
-               device's busy share and time by kernel
+               on the whole megabase call; kernels D and E per entry
+               point on the calls of the --full-probability run, planes
+               bit-equal)
+  trace        the main path and the --full-probability path once more
+               under torch.profiler: the device's busy share and time by
+               kernel
 
 Prints a {"kernels": [...]} line, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}.
@@ -61,6 +80,18 @@ F32_OPS_PER_S = 67e12
 # kernel A 10 adds, 6 maxima, 6 code compares, 3 masks; kernel B per
 # candidate 1-2 adds and a compare/select, per cell the masks)
 LINEAR_OPS_PER_CELL = 25
+# f32 multiply/add/maximum operations per cell of kernels D and E
+# (counted from the sources). Linear: 9 multiplies and 4 adds for X and
+# Y, 7 multiplies and 2 adds for M, 3 scalings, 3 maxima (E: the same
+# count with q in place of the rescaled d-2 state). Fan-in: 10 per cell
+# (scalings, maxima, masks, the match product), 8 per edge slot, 12 per
+# slot pair.
+FULLPROB_OPS_PER_CELL = 28
+FANIN_FP_OPS = (10, 8, 12)
+# posteriors are f32 planes against the f64 host oracle
+POSTERIOR_TOL = 1e-4
+# upper limit of a site's posterior support on a 1535-site pair in f32
+SUPPORT_MAX = 1.02
 
 
 def fail(msg):
@@ -182,6 +213,8 @@ def main():
     from pagan2_tpu_torch.align import viterbi_linear as VL
     from pagan2_tpu_torch.align import viterbi_fanin as VF
     from pagan2_tpu_torch.align import viterbi_banded as VB
+    from pagan2_tpu_torch.align import fullprob as FP
+    from pagan2_tpu_torch.align import fullprob_fill as FF
     from pagan2_tpu_torch.align import AlignSettings, align_pair, plan_band
     from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
     from pagan2_tpu_torch.graph import build_leaf_graph
@@ -198,7 +231,8 @@ def main():
     # ---- build ----
     t_start = time.time()
     t0 = time.time()
-    kernels.build("viterbi_linear", "viterbi_fanin", "viterbi_banded")
+    kernels.build("viterbi_linear", "viterbi_fanin", "viterbi_banded",
+                  "fullprob_fwd", "fullprob_bwd")
     log("build: %.1f s" % (time.time() - t0))
     for name, out in kernels.BUILD_LOG.items():
         for line in out.splitlines():
@@ -388,6 +422,127 @@ def main():
         fail("kernel_banded: the wide case did not take the global ring")
     ban_err = max(ban_err, e)
 
+    # ---- kernel_fullprob ----
+    EPS32 = 1.1920929e-07
+
+    def same_fills(out, ref):
+        """Planes bit-equal, cum within D * eps * max(1, max|cum|)."""
+        D = ref[1].shape[1]
+        tol = D * EPS32 * max(1.0, float(ref[1].abs().max()))
+        return same_floats(out[0], ref[0]) and \
+            float((out[1] - ref[1]).abs().max()) <= tol
+
+    def fills_err(out, ref):
+        return max(max_abs_err(out[0], ref[0]), max_abs_err(out[1], ref[1]))
+
+    fp_err = {"fwd": 0.0, "bwd": 0.0}
+
+    def fullprob_check(what, calls):
+        """calls: [(direction, wrapper, plain version, kwargs)]."""
+        for direction, fn, plain_fn, kw in calls:
+            out = fn(**kw)
+            ref = plain_fn(**kw)
+            torch.cuda.synchronize()
+            if not same_fills(out, ref):
+                fail("kernel_fullprob %s: %s differs from its plain version "
+                     "(planes max |err| %g, cum max |err| %g)"
+                     % (what, fn.__name__, max_abs_err(out[0], ref[0]),
+                        max_abs_err(out[1], ref[1])))
+            if float(out[0].max()) != 1.0 or \
+                    not bool(torch.isfinite(out[1]).all()):
+                fail("kernel_fullprob %s: %s planes are not scaled to 1"
+                     % (what, fn.__name__))
+            fp_err[direction] = max(fp_err[direction], fills_err(out, ref))
+            log("kernel_fullprob %s: %s B, 3, D, Lp = %s%s: planes "
+                "bit-equal, cum max |err| %g"
+                % (what, fn.__name__, tuple(out[0].shape),
+                   ", G %d" % kw["G"] if "G" in kw else "",
+                   max_abs_err(out[1], ref[1])))
+
+    def linear_fp_calls(pairs):
+        kw = FF.linear_batch_args(
+            [FP.linear_fullprob_inputs(a, b, model) for a, b in pairs], dev)
+        return [("fwd", FF.fullprob_fwd, FF.fullprob_fwd_plain, kw),
+                ("bwd", FF.fullprob_bwd, FF.fullprob_bwd_plain, kw)]
+
+    def fanin_fp_calls(pairs):
+        fkw, bkw = FF.fanin_batch_args(
+            [FP.fanin_fullprob_inputs(a, b, model) for a, b in pairs], dev)
+        return [("fwd", FF.fullprob_fwd_fanin, FF.fullprob_fwd_fanin_plain,
+                 fkw),
+                ("bwd", FF.fullprob_bwd_fanin, FF.fullprob_bwd_fanin_plain,
+                 bkw)]
+
+    pairs = []
+    for _ in range(8):
+        base = rng.choice(list("ACGT"), size=2047)
+        pairs.append((build_leaf_graph("".join(base), alph.DNA),
+                      build_leaf_graph(mutate(rng, base), alph.DNA)))
+    fullprob_check("linear 8x2047", linear_fp_calls(pairs))
+    pairs = []
+    for n in (300, 777, 1200, 1531):
+        base = rng.choice(list("ACGT"), size=n)
+        pairs.append((build_leaf_graph("".join(base), alph.DNA),
+                      build_leaf_graph(mutate(rng, base)[: n - n // 17],
+                                       alph.DNA)))
+    fullprob_check("linear ragged", linear_fp_calls(pairs))
+    pairs = []
+    for _ in range(4):
+        base = rng.choice(list("ACGT"), size=2047)
+        base[2047 // 3:2047 // 3 + 6] = "A"
+        base[2 * 2047 // 3:2 * 2047 // 3 + 5] = "T"
+        pairs.append((build_leaf_graph("".join(base), alph.DNA,
+                                       mode454=True),
+                      build_leaf_graph(mutate(rng, base), alph.DNA,
+                                       mode454=True)))
+    fullprob_check("fan-in 454 4x2047", fanin_fp_calls(pairs))
+    fullprob_check("fan-in over-cap ancestors",
+                   fanin_fp_calls([(ancs[0], ancs[1]), (ancs[1], ancs[2])]))
+    # a deep ring: ancestors whose skip edges pass a 40-bp deletion
+    base = rng.choice(list("ACGT"), size=500)
+    deep = []
+    for k in range(4):
+        s = mutate(rng, base)
+        if k % 2:
+            s = s[:200] + s[240:]
+        deep.append(build_leaf_graph(s, alph.DNA))
+    deep = [align_pair(deep[k], deep[k + 1], model, settings,
+                       device=dev)[0] for k in (0, 2)]
+    calls = fanin_fp_calls([(deep[0], deep[1])])
+    if calls[0][3]["G"] < 42:
+        fail("kernel_fullprob: the deep-ring pair has ring depth %d"
+             % calls[0][3]["G"])
+    fullprob_check("fan-in deep ring", calls)
+
+    # posteriors and totals against the f64 host oracle
+    from dataclasses import replace as _replace
+    from pagan2_tpu_torch.align.oracle import PairAligner as _Oracle
+    from pagan2_tpu_torch.align.settings import X_MAT, Y_MAT, M_MAT
+    fs_settings = _replace(settings, compute_full_score=True)
+    for kw in ({}, {"homopolymer": True}):
+        base = rng.choice(list("ACGT"), size=60)
+        g1 = build_leaf_graph("".join(base), alph.DNA, **kw)
+        g2 = build_leaf_graph(mutate(rng, base)[4:], alph.DNA, **kw)
+        planes = FP.FullProbPlanes(g1, g2, model, fs_settings, device=dev)
+        orc = _Oracle(g1, g2, model, fs_settings)
+        orc.fill()
+        worst = 0.0
+        for mat, arr in ((M_MAT, orc.M), (X_MAT, orc.X), (Y_MAT, orc.Y)):
+            for i in range(planes.L):
+                for j in range(planes.R):
+                    worst = max(worst, abs(planes.posterior(mat, i, j)
+                                           - arr[i][j].full_score))
+        dlog = abs(planes.log_total - planes.log_total_bwd)
+        if worst > POSTERIOR_TOL or dlog > 1e-3:
+            fail("kernel_fullprob: %s pair against the host oracle: "
+                 "posterior max |err| %g, |log fwd - log bwd| %g"
+                 % ("fan-in" if planes.fanin else "linear", worst, dlog))
+        log("kernel_fullprob %s pair against the f64 host oracle: "
+            "posterior max |err| %.3g (tolerance %g), log total %.4f, "
+            "|log fwd - log bwd| %.3g"
+            % ("fan-in" if planes.fanin else "linear", worst, POSTERIOR_TOL,
+               planes.log_total, dlog))
+
     # ---- small_oracle ----
     def sig(path):
         return [(p.mp.matrix, p.mp.x_ind, p.mp.y_ind, p.mp.x_edge_ind,
@@ -422,11 +577,28 @@ def main():
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
 
-    # each kernel's module and the name of its wrapper
+    from pagan2_tpu_torch import pipeline as PIPE
+    # each wrapper's module and name; A, B and C count in module-level
+    # integers, the four entry points of D and E in dicts by name
     KERNELS = {"linear": (VL, "linear_fill"), "fanin": (VF, "fanin_fill"),
-               "banded": (VB, "banded_fill")}
+               "banded": (VB, "banded_fill"),
+               "fp_fwd": (FF, "fullprob_fwd"),
+               "fp_bwd": (FF, "fullprob_bwd"),
+               "fp_fwd_fanin": (FF, "fullprob_fwd_fanin"),
+               "fp_bwd_fanin": (FF, "fullprob_bwd_fanin")}
     real = {k: getattr(m, n) for k, (m, n) in KERNELS.items()}
     plain = {k: getattr(m, n + "_plain") for k, (m, n) in KERNELS.items()}
+
+    def zero_counts():
+        for m, n in KERNELS.values():
+            if isinstance(m.LAUNCHES, dict):
+                m.LAUNCHES[n] = m.PLAIN_CALLS[n] = 0
+            else:
+                m.LAUNCHES = m.PLAIN_CALLS = 0
+
+    def read_count(m, n, which):
+        c = getattr(m, which)
+        return c[n] if isinstance(c, dict) else c
 
     def recording(rec):
         """The wrappers, each appending its calls' arguments to rec."""
@@ -442,24 +614,36 @@ def main():
         count set to 0 just before it; returns (wall s, launches per
         kernel, plain-version calls, EXEC_STATS) read just after."""
         EX.reset_stats()
-        for m, _n in KERNELS.values():
-            m.LAUNCHES = m.PLAIN_CALLS = 0
+        zero_counts()
         for k, (m, n) in KERNELS.items():
             setattr(m, n, fills[k])
+        align_progressive = PIPE.align_progressive
+
+        def capture(*a, **kw):
+            last_result[0] = align_progressive(*a, **kw)
+            return last_result[0]
+        PIPE.align_progressive = capture
         t = time.time()
         try:
             rc = CLI.main(["-s", fas, "-t", nh, "-o", out, "--silent",
                            "--time"] + list(extra))
             torch.cuda.synchronize()
         finally:
+            PIPE.align_progressive = align_progressive
             for k, (m, n) in KERNELS.items():
                 setattr(m, n, real[k])
         if rc != 0:
             fail("%s: CLI returned %d" % (what, rc))
-        return (time.time() - t, {k: m.LAUNCHES for k, (m, _n)
-                                  in KERNELS.items()},
-                sum(m.PLAIN_CALLS for m, _n in KERNELS.values()),
+        return (time.time() - t,
+                {k: read_count(m, n, "LAUNCHES")
+                 for k, (m, n) in KERNELS.items()},
+                sum(read_count(m, n, "PLAIN_CALLS")
+                    for m, n in KERNELS.values()),
                 dict(EX.EXEC_STATS))
+
+    # the ProgressiveResult of the last run_cli (its root graph carries
+    # the posterior support of a --full-probability run)
+    last_result = [None]
 
     def check_rows(what, out, seqs):
         """The output's rows are the inputs with gaps added, all of one
@@ -476,11 +660,11 @@ def main():
                      % (what, n))
         return lens.pop()
 
-    def same_output(what, kernel_out, seqs, fas, nh):
+    def same_output(what, kernel_out, seqs, fas, nh, extra=()):
         """The same input with the plain versions in the wrappers'
         places, on the same CUDA tensors, gives byte-identical output."""
         out = os.path.join(work, what + "_plain")
-        wall, counts, _p, _s = run_cli(what, fas, nh, out, plain)
+        wall, counts, _p, _s = run_cli(what, fas, nh, out, plain, extra)
         if any(counts.values()):
             fail("%s: kernels launched in the forced-plain run" % what)
         if open(kernel_out + ".fas", "rb").read() != \
@@ -507,8 +691,91 @@ def main():
         fail("main_path: %d plain-version calls on CUDA" % plain_calls)
     if stats["fanin_windowed"] + stats["fanin_banded_full"] < 1:
         fail("main_path: no anchored fan-in fill ran")
-    same_output("main_path", out_kernel, seqs, fas, nh)
     a = open(out_kernel + ".fas", "rb").read()
+    # the forced-plain comparisons run on an 8 x 767 family of the same
+    # generator: the plain versions take over a minute at 16 x 1535
+    seqs8, tree8 = family(8, 767)
+    fas8, nh8 = write_input(work, "family8", seqs8, tree8)
+    out8 = os.path.join(work, "main8_kernel")
+    _w, c8, plain_calls, stats8 = run_cli("main8", fas8, nh8, out8, real)
+    check_rows("main8", out8, seqs8)
+    if c8["linear"] < 1 or c8["fanin"] < 1 or plain_calls or \
+            stats8["fanin_windowed"] + stats8["fanin_banded_full"] < 1:
+        fail("main8: launches %s, %d plain-version calls, stats %s"
+             % (c8, plain_calls, stats8))
+    same_output("main8", out8, seqs8, fas8, nh8)
+
+    # ---- fullprob_path: --full-probability and --sample-path ----
+    def support():
+        """Posterior support of the root graph's real sites."""
+        g = last_result[0].tree.graph
+        return np.asarray(g.posterior_support[1:g.num_sites() - 1],
+                          np.float64)
+
+    FP_KEYS = ("fp_fwd", "fp_bwd", "fp_fwd_fanin", "fp_bwd_fanin")
+    rec_fp = {k: [] for k in KERNELS}
+    out_fp = os.path.join(work, "out_fullprob")
+    wall, counts_fp, plain_calls, stats = run_cli(
+        "fullprob_path", fas, nh, out_fp, recording(rec_fp),
+        ["--full-probability"])
+    cols = check_rows("fullprob_path", out_fp, seqs)
+    sup = support()
+    log("fullprob_path: %d rows x %d cols in %.1f s; launches D=%d+%d "
+        "E=%d+%d (linear + fan-in) A=%d B=%d; posterior support of %d root "
+        "sites in [%.6f, %.6f]; FASTA %s main_path's; stats %s"
+        % (len(seqs), cols, wall, counts_fp["fp_fwd"],
+           counts_fp["fp_fwd_fanin"], counts_fp["fp_bwd"],
+           counts_fp["fp_bwd_fanin"], counts_fp["linear"],
+           counts_fp["fanin"], len(sup), sup.min(), sup.max(),
+           "equals" if open(out_fp + ".fas", "rb").read() == a
+           else "differs from", json.dumps(stats)))
+    if cols != 1535:
+        fail("fullprob_path: expected 1535 columns, got %d" % cols)
+    if min(counts_fp[k] for k in FP_KEYS + ("linear", "fanin")) < 1:
+        fail("fullprob_path: a kernel was never launched (%s)" % counts_fp)
+    if plain_calls:
+        fail("fullprob_path: %d plain-version calls on CUDA" % plain_calls)
+    # A support is exp(fcum + bcum - log_total) times a plane product.
+    # At this width the three logarithms are thousands of nats in f32
+    # (spacing 1.2e-4 to 4.9e-4), so a certain site may pass 1 by their
+    # rounding: the upper limit allows 2%.
+    if not (np.isfinite(sup).all() and sup.min() > 0
+            and sup.max() <= SUPPORT_MAX):
+        fail("fullprob_path: posterior support outside (0, %g]"
+             % SUPPORT_MAX)
+
+    out_sp = os.path.join(work, "out_sampled")
+    wall, counts_sp, plain_calls, stats = run_cli(
+        "fullprob_path sampled", fas, nh, out_sp, real,
+        ["--sample-path", "--seed", "7"])
+    cols = check_rows("fullprob_path sampled", out_sp, seqs)
+    log("fullprob_path: --sample-path --seed 7: %d rows x %d cols in %.1f "
+        "s, every row intact; launches D=%d+%d E=%d+%d A=%d B=%d"
+        % (len(seqs), cols, wall, counts_sp["fp_fwd"],
+           counts_sp["fp_fwd_fanin"], counts_sp["fp_bwd"],
+           counts_sp["fp_bwd_fanin"], counts_sp["linear"],
+           counts_sp["fanin"]))
+    if min(counts_sp[k] for k in FP_KEYS) < 1 or plain_calls:
+        fail("fullprob_path sampled: launches %s, %d plain-version calls"
+             % (counts_sp, plain_calls))
+    if counts_sp["linear"] or counts_sp["fanin"]:
+        fail("fullprob_path sampled: a Viterbi fill ran for a sampled path")
+
+    # kernels against forced plain versions, both flags, on 8 x 767
+    for tag, extra in (("fullprob8", ["--full-probability"]),
+                       ("sampled8", ["--sample-path", "--seed", "7"])):
+        out8 = os.path.join(work, tag + "_kernel")
+        _w, c8, plain_calls, _s = run_cli(tag, fas8, nh8, out8, real, extra)
+        check_rows(tag, out8, seqs8)
+        if min(c8[k] for k in FP_KEYS) < 1 or plain_calls:
+            fail("%s: launches %s, %d plain-version calls"
+                 % (tag, c8, plain_calls))
+        sup_kernel = support()
+        same_output(tag, out8, seqs8, fas8, nh8, extra)
+        d = float(np.abs(sup_kernel - support()).max())
+        log("%s: posterior support kernel vs plain max |err| %.3g" % (tag, d))
+        if d > 1e-5:
+            fail("%s: posterior support differs from the plain run's" % tag)
 
     # ---- long_family: anchored long leaf pairs on kernel C ----
     seqs4, tree4 = family(4, 4000)
@@ -654,7 +921,39 @@ def main():
         nbytes = 5 * cells + 8 * kw["sched"].shape[0] + 2 * 8 * 4 + 3 * 4
         return nbytes, LINEAR_OPS_PER_CELL * cells
 
+    def fullprob_bound(kw):
+        """Kernels D and E: per needed cell its match value read (4 B)
+        and M, X, Y written (12 B); per diagonal cum (4 B); per job its
+        scalars, and for the fan-in entry points the slot arrays of its
+        L rows and R columns and the seed rows."""
+        iscal = kw["iscal"].cpu().numpy().astype(np.int64)
+        nbytes = ops = 0.0
+        for b, (L, R) in enumerate(iscal):
+            cells = float(L * R)
+            nbytes += 16 * cells + 4 * (L + R - 1) + 8 * 4 + 2 * 4
+            if "ms2" in kw:
+                ops += FULLPROB_OPS_PER_CELL * cells
+                continue
+            lo = kw["loff" if "loff" in kw else "lfoff"][b, :L]
+            ro = kw["roff" if "roff" in kw else "rfoff"][b, :R]
+            kl = float((lo > 0).sum())       # edge slots in use, all rows
+            kr = float((ro > 0).sum())
+            c0, c1, c2 = FANIN_FP_OPS
+            ops += c0 * cells + c1 * (R * kl + L * kr) + c2 * kl * kr
+            nbytes += 8 * (L * lo.shape[1] + R * ro.shape[1])
+            if "seed" in kw:
+                nbytes += 4 * L * kw["seed"].shape[1]
+        return nbytes, ops
+
     def shape(kw):
+        if "ms2" in kw or "msp" in kw:
+            t = kw["ms2"] if "ms2" in kw else kw["msp"]
+            slots = [kw[k].shape[2] for k in ("loff", "roff", "lfoff",
+                                              "rfoff") if k in kw]
+            return "B, D, Lp = %s%s" % (
+                tuple(t.shape), ", K %d/%d, G %d" % (slots[0], slots[1],
+                                                     kw["G"])
+                if "G" in kw else "")
         if "sched" in kw:
             return "D-1, Wk = %s" % (tuple(kw["ms"].shape),)
         if "ms" in kw:
@@ -680,6 +979,7 @@ def main():
                 fail("timing: recorded call %d of %s differs from its "
                      "plain version" % (n, real.__name__))
             err = max(err, max_abs_err(out[1], ref[1]))
+            del out, ref
             p = t0.elapsed_time(t1)
             k = cuda_ms(lambda: real(**kw), reps)
             nbytes, ops = bound(kw)
@@ -692,7 +992,8 @@ def main():
             by_bytes, by_ops = by_bytes + tb, by_ops + to
         n = len(calls)
         return (k_ms / n, p_ms / n, b_ms / n,
-                "bytes" if by_bytes >= by_ops else "operations", err)
+                "bytes" if by_bytes >= by_ops else "operations", err,
+                by_bytes, by_ops)
 
     lin_t = time_kernel(recorded["linear"], VL.linear_fill,
                         VL.linear_fill_plain, linear_bound, same_floats, 5)
@@ -704,6 +1005,47 @@ def main():
         log("timing %s: kernel %.3f ms/launch, plain %.1f ms, bound "
             "%.5f ms (%s), over %d main-path calls, bit-equal"
             % (name, t[0], t[1], t[2], t[3], len(recorded[name])))
+    # kernels D and E on the calls the --full-probability run made:
+    # each entry point timed on its own calls (planes bit-equal, cum
+    # within D * eps * max(1, |cum|)); a kernel's line takes the mean
+    # over all its launches, linear and fan-in
+    def cum_close(a, b):
+        return float((a - b).abs().max()) <= \
+            a.shape[1] * EPS32 * max(1.0, float(b.abs().max()))
+
+    fp_t = {}
+    for k in FP_KEYS:
+        m, n = KERNELS[k]
+        fp_t[k] = time_kernel(rec_fp[k], getattr(m, n),
+                              getattr(m, n + "_plain"), fullprob_bound,
+                              cum_close, 3)
+        log("timing %s: kernel %.3f ms/launch, plain %.1f ms, bound %.5f "
+            "ms (%s), over %d fullprob_path calls, planes bit-equal, cum "
+            "max |err| %g" % (n, fp_t[k][0], fp_t[k][1], fp_t[k][2],
+                              fp_t[k][3], len(rec_fp[k]), fp_t[k][4]))
+
+    def kernel_entry(name, source, replaces, direction):
+        """The kernels-line entry of D or E: per-launch means over its
+        linear and fan-in calls on the fullprob_path run."""
+        keys = ["fp_" + direction, "fp_%s_fanin" % direction]
+        n = {k: len(rec_fp[k]) for k in keys}
+        tot = sum(n.values())
+
+        def mean(col):
+            return sum(fp_t[k][col] * n[k] for k in keys) / tot
+        by_bytes = sum(fp_t[k][5] for k in keys)
+        by_ops = sum(fp_t[k][6] for k in keys)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(counts_fp[k] for k in keys),
+                "max_abs_err": max([fp_err[direction]]
+                                   + [fp_t[k][4] for k in keys]),
+                "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
+                "bound_by": "bytes" if by_bytes >= by_ops
+                else "operations", "library_ms": None,
+                "linear_ms": fp_t[keys[0]][0],
+                "fanin_ms": fp_t[keys[1]][0]}
+
     # kernel C: bit-equal to its plain version on the long_family calls
     # and on the megabase call cut to its first NPRE diagonals (the fill
     # is causal, so the prefix is the same work at the same width; the
@@ -742,34 +1084,42 @@ def main():
                               1e3 * mega_ms / mkw["ms"].shape[0],
                               mega_bound, mega_by, nbytes, ops))
 
-    # ---- trace: device busy share of the main path ----
+    # ---- trace: device busy share of the main path and of the
+    # --full-probability path ----
     from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_trace = run_cli("trace", fas, nh,
-                             os.path.join(work, "out_trace"), real)[0]
-    if open(os.path.join(work, "out_trace.fas"), "rb").read() != a:
-        fail("trace: the traced main-path run gave other FASTA")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    # device-side activities only (kernels, copies, sets): the host ops
-    # that issued them carry the same time again
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) ==
-              torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-              and not e.key.startswith("Activity Buffer")]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    if busy_ms > 0:
-        log("trace: main path %.3f s wall, device busy %.1f ms (%.1f%%)"
-            % (wall_trace, busy_ms, 100 * busy_ms / (1e3 * wall_trace)))
-        for e in sorted(events, key=dev_us, reverse=True)[:8]:
-            log("trace:   %10.3f ms  %6d calls  %s"
-                % (dev_us(e) / 1e3, e.count, e.key[:90]))
-    else:
-        log("trace: the profiler recorded no device time (busy share "
-            "not measured)")
+
+    for what, extra, want in (
+            ("main path", [], a),
+            ("fullprob path", ["--full-probability"],
+             open(out_fp + ".fas", "rb").read())):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_trace = run_cli("trace", fas, nh,
+                                 os.path.join(work, "out_trace"), real,
+                                 extra)[0]
+        if open(os.path.join(work, "out_trace.fas"), "rb").read() != want:
+            fail("trace: the traced %s run gave other FASTA" % what)
+        # device-side activities only (kernels, copies, sets): the host
+        # ops that issued them carry the same time again
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) ==
+                  torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+                  and not e.key.startswith("Activity Buffer")]
+        busy_ms = sum(dev_us(e) for e in events) / 1e3
+        if busy_ms > 0:
+            log("trace: %s %.3f s wall, device busy %.1f ms (%.1f%%)"
+                % (what, wall_trace, busy_ms,
+                   100 * busy_ms / (1e3 * wall_trace)))
+            for e in sorted(events, key=dev_us, reverse=True)[:8]:
+                log("trace:   %10.3f ms  %6d calls  %s"
+                    % (dev_us(e) / 1e3, e.count, e.key[:90]))
+        else:
+            log("trace: the profiler recorded no device time for the %s "
+                "(busy share not measured)" % what)
 
     kernels_line = {"kernels": [
         {"name": "viterbi_linear", "route": "cuda",
@@ -792,6 +1142,12 @@ def main():
          "bound_ms": ban_t[2], "bound_by": ban_t[3], "library_ms": None,
          "timed_on": "megabase call, first %d diagonals" % NPRE,
          "whole_call_ms": mega_ms, "whole_call_bound_ms": mega_bound},
+        kernel_entry("fullprob_fwd",
+                     "pagan2_tpu_torch/csrc/fullprob_fwd.cu",
+                     "pagan2_tpu/align/fullprob_pallas.py:45", "fwd"),
+        kernel_entry("fullprob_bwd",
+                     "pagan2_tpu_torch/csrc/fullprob_bwd.cu",
+                     "pagan2_tpu/align/fullprob_pallas.py:108", "bwd"),
     ]}
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps(kernels_line))

@@ -1,16 +1,29 @@
-"""Pairwise alignment: anchoring/band planning and the Viterbi dispatch.
+"""Pairwise alignment: anchoring/band planning, the Viterbi dispatch and
+the full-probability / path-sampling branch.
 
 Ported from pagan2_tpu/align/__init__.py (`plan_band`, `_band_cells`,
-`_acct` and the Viterbi branches of `align_pair`). Linear-chain pairs
-fill on kernel A (viterbi_linear), or on kernel C (viterbi_banded) when
-their anchored band is thin; fan-in graph pairs on kernel B
-(viterbi_fanin); pairs of two empty sequences on the host oracle. What
-is not ported yet raises NotImplementedError naming its ROADMAP item.
+`_acct`, `set_sampling_seed` and `align_pair`). Linear-chain pairs fill
+on kernel A (viterbi_linear), or on kernel C (viterbi_banded) when their
+anchored band is thin; fan-in graph pairs on kernel B (viterbi_fanin);
+full-probability and sampling pairs add the forward/backward plane fills
+of kernels D and E (fullprob, fullprob_fill); pairs of two empty
+sequences run on the host oracle. What is not ported yet raises
+NotImplementedError naming its ROADMAP item.
 """
 from .settings import AlignSettings, X_MAT, Y_MAT, M_MAT
 from .oracle import PairAligner, PathPtr, MatrixPtr
 from .ancestral import build_ancestral_graph
 from ..utils import log_out
+
+_RNG = None
+
+
+def set_sampling_seed(seed):
+    """Seed the path-sampling RNG (the reference seeds rand() with
+    time(0), main.cpp:92; a fixed seed makes runs reproducible)."""
+    global _RNG
+    import numpy as np
+    _RNG = np.random.default_rng(seed)
 
 
 def plan_band(left, right, settings):
@@ -124,7 +137,8 @@ def _debug_dump_matrices(aligner, left, right, model, settings,
 def align_pair(left, right, model, settings=None, left_branch_length=0.0,
                right_branch_length=0.0, is_reads_sequence=False,
                engine="auto", compute_consensus=False, band=None,
-               use_anchors=None, anchor_min_sites=None, device="cuda"):
+               use_anchors=None, anchor_min_sites=None, rng=None,
+               device="cuda"):
     """Align two sequence graphs and build the ancestral graph.
 
     engine: "oracle" (host loops, ground truth) or "auto"/"jax" (the
@@ -135,7 +149,7 @@ def align_pair(left, right, model, settings=None, left_branch_length=0.0,
     matrices are cheaper than anchor discovery).
     Returns (ancestral_graph, end_pointer).
     """
-    from ..pending import not_ported, FULL_PROBABILITY, PAIR_END
+    from ..pending import not_ported, PAIR_END
     settings = settings or AlignSettings()
     if is_reads_sequence or settings.keep_all_edges:
         # --keep-all-edges widens the skip limits for ordinary
@@ -143,10 +157,82 @@ def align_pair(left, right, model, settings=None, left_branch_length=0.0,
         settings = settings.for_reads()
     if settings.pair_end_reads:
         raise not_ported("pair-end read alignment", PAIR_END)
-    if settings.compute_full_score or settings.sample_path or \
-            settings.sample_additional_paths > 0:
-        raise not_ported("full probability and path sampling",
-                         FULL_PROBABILITY)
+
+    sampling = settings.sample_path or settings.sample_additional_paths > 0
+    if sampling and not settings.compute_full_score:
+        # sampling draws from fwd probabilities (basic_alignment.h:621-625)
+        from dataclasses import replace
+        settings = replace(settings, compute_full_score=True)
+    if sampling or settings.compute_full_score:
+        import numpy as np
+        from .viterbi_sheared import is_linear_chain
+        if sampling:
+            rng = rng or _RNG or np.random.default_rng()
+        linear_pair = is_linear_chain(left) and is_linear_chain(right)
+        # every pair the device can hold takes the device fills, whatever
+        # its fan-in or edge offsets (kernels D and E take runtime K, G)
+        use_device = (engine != "oracle"
+                      and left.num_sites() + right.num_sites() > 4)
+        from ..io import plots
+        import time as _time
+        _t0 = _time.perf_counter()
+        _Lc = left.num_sites() - 1
+        _Rc = right.num_sites() - 1
+        if use_device:
+            # device fwd/bwd probability planes replace the oracle's
+            # O(L*R) host loops
+            from ..device import resolve_device
+            from .fullprob import (FullProbPlanes, fullprob_viterbi_path,
+                                   sample_path_planes)
+            device = resolve_device(device)
+            planes = FullProbPlanes(left, right, model, settings,
+                                    fanin=not linear_pair, device=device)
+            if plots.posterior_sink_active():
+                plots.add_posterior_figure_planes(planes)
+            if settings.sample_path:
+                path, end = sample_path_planes(planes, settings, rng,
+                                               left_branch_length,
+                                               right_branch_length)
+            else:
+                path, end, planes = fullprob_viterbi_path(
+                    left, right, model, settings,
+                    left_branch_length, right_branch_length,
+                    planes=planes, linear=linear_pair, device=device)
+
+            def draw_extra():
+                return sample_path_planes(planes, settings, rng,
+                                          left_branch_length,
+                                          right_branch_length)[0]
+        else:
+            aligner = PairAligner(left, right, model, settings,
+                                  left_branch_length, right_branch_length)
+            end = aligner.fill()
+            if plots.posterior_sink_active():
+                plots.add_posterior_figure(aligner)
+            if settings.sample_path:
+                path, _send = aligner.sample_path(rng)
+            else:
+                path = aligner._backtrack(PathPtr(end, True))
+
+            def draw_extra():
+                return aligner.sample_path(rng)[0]
+        _acct(_t0, _Lc * _Rc)
+        _debug_dump_matrices(None if use_device else aligner,
+                             left, right, model, settings,
+                             left_branch_length, right_branch_length)
+        anc = build_ancestral_graph(left, right, path, model, settings,
+                                    left_branch_length, right_branch_length,
+                                    is_reads_sequence,
+                                    compute_consensus=compute_consensus)
+        if settings.sample_additional_paths > 0:
+            from .sampling import merge_sampled_graph
+            for _ in range(settings.sample_additional_paths):
+                sg = build_ancestral_graph(
+                    left, right, draw_extra(), model, settings,
+                    left_branch_length, right_branch_length,
+                    is_reads_sequence)
+                merge_sampled_graph(anc, sg)
+        return anc, end
 
     if use_anchors is None:
         use_anchors = settings.use_anchors

@@ -1,0 +1,567 @@
+"""Kernels D and E: the scaled forward and backward probability plane
+fills (csrc/fullprob_fwd.cu, csrc/fullprob_bwd.cu), their plain PyTorch
+versions, and the functions that stack the arguments of both.
+
+Replaces pagan2_tpu/align/fullprob_pallas.py (`_fwd_kernel`,
+`_bwd_kernel` via `fullprob_fwd_pallas` / `fullprob_bwd_pallas`, and
+`_fold_ms2`) for linear-chain pairs, AND the XLA scan cores of
+pagan2_tpu/align/fullprob.py for fan-in graph pairs
+(`_build_fwd_fanin_gather` / `_build_bwd_fanin_gather` and the one-hot
+`_build_fwd_fanin` / `_build_bwd_fanin`): each source holds a linear and
+a fan-in entry point with runtime edge slots K, ring depth G and seed
+depth Gs.
+
+Every diagonal of the three matrices is divided by its maximum and the
+logarithm of that maximum accumulated, so a plane value times
+exp(cum[d]) is the true probability. The arithmetic keeps the Pallas
+kernels' expression order, one IEEE f32 operation at a time (the CUDA
+sources are built without FMA contraction), sums over edge slots run in
+slot order (k, then kl-major over pairs), and the ring of earlier
+diagonals is rescaled by every later diagonal's 1/max in turn.
+
+Layouts (row d = anti-diagonal d = i + j, lane i = left site):
+  planes (B, 3, D, Lp) f32: M, X, Y;  cum (B, D) f32
+  consts (B, 8) f32: ext, gc*go, ng*go, ng*ng, gc*ng, corner seed
+         (linear backward), exp clip limit (fan-in backward)
+  iscal  (B, 2) int32: L, R (sites without the stop site)
+
+Device rule: a CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .viterbi_linear import batch_rows, shear_table
+
+# kernel launches and plain-version calls made by each wrapper
+LAUNCHES = {"fullprob_fwd": 0, "fullprob_bwd": 0,
+            "fullprob_fwd_fanin": 0, "fullprob_bwd_fanin": 0}
+PLAIN_CALLS = dict(LAUNCHES)
+
+# rows whose diagonals (9 rows forward, 7 backward, 4 bytes a lane) fit
+# shared memory; longer left sides keep them in a global scratch
+SHARED_ROWS = 4096
+# a fan-in ring of up to this many bytes stays in shared memory
+SHARED_RING_BYTES = 200 * 1024
+
+# exp() argument clip of the fan-in backward seed (the reference's
+# log(f32 max) - 2, rounded to f32)
+EXP_CLIP = float(np.float32(np.log(np.finfo(np.float32).max) - 2.0))
+
+
+def _match_table(inp, dev):
+    """(L, R) f32 match probabilities of one job on `dev`, gathered from
+    the model's score table by the two state vectors."""
+    score = torch.from_numpy(np.ascontiguousarray(inp["score"],
+                                                  np.float32)).to(dev)
+    nf = score.shape[0]
+    # the start site's state is -1: index the table as numpy does
+    ls = torch.from_numpy(np.mod(inp["lstates"], nf).astype(np.int64))
+    rs = torch.from_numpy(np.mod(inp["rstates"], nf).astype(np.int64))
+    return score[ls.to(dev)][:, rs.to(dev)]
+
+
+def _consts(inputs, dev, seed_key=None):
+    c = np.zeros((len(inputs), 8), np.float32)
+    for b, inp in enumerate(inputs):
+        c[b, :5] = inp["consts"]
+        if seed_key is not None:
+            c[b, 5] = inp[seed_key]
+        c[b, 6] = EXP_CLIP
+    return torch.from_numpy(c).to(dev)
+
+
+def _iscal(inputs, dev):
+    return torch.from_numpy(np.array([[p["L"], p["R"]] for p in inputs],
+                                     np.int32)).to(dev)
+
+
+def linear_batch_args(inputs: list, device, Lp: int | None = None,
+                      D: int | None = None):
+    """Arguments of the linear entry points for a batch of
+    fullprob.linear_fullprob_inputs dicts: the match probabilities
+    folded once for both fills as (msp * wl[i]) * wr[j] and sheared on
+    the device."""
+    dev = torch.device(device)
+    Lp = Lp or batch_rows(inputs)
+    D = max(D or max(p["L"] + p["R"] - 1 for p in inputs), 2)
+    ms2 = torch.empty((len(inputs), D, Lp), dtype=torch.float32, device=dev)
+    for b, inp in enumerate(inputs):
+        wl = torch.from_numpy(np.asarray(inp["wl"], np.float32)).to(dev)
+        wr = torch.from_numpy(np.asarray(inp["wr"], np.float32)).to(dev)
+        tab = (_match_table(inp, dev) * wl[:, None]) * wr[None, :]
+        ms2[b] = shear_table(tab, Lp, D)
+    return dict(ms2=ms2, consts=_consts(inputs, dev, "seed"),
+                iscal=_iscal(inputs, dev))
+
+
+def fanin_batch_args(inputs: list, device, Lp: int | None = None,
+                     D: int | None = None, G: int | None = None):
+    """(forward kwargs, backward kwargs) of the fan-in entry points for a
+    batch of fullprob.fanin_fullprob_inputs dicts. Edge-slot axes, the
+    seed depth and the ring depth pad to the batch maxima with inert
+    zero slots. The right side's slot arrays stay indexed by site j: the
+    fills read them at j = d - i. A dict that already holds its sheared
+    match table as "msp_sh" (D, Lp) is taken as it is."""
+    dev = torch.device(device)
+    B = len(inputs)
+    Lp = Lp or batch_rows(inputs)
+    Rr = max(p["R"] for p in inputs)
+    D = max(D or max(p["L"] + p["R"] - 1 for p in inputs), 2)
+    G = G or max(p["OLm"] + p["ORm"] for p in inputs)
+    Gs = max(p["seed_block"].shape[0] for p in inputs)
+
+    def slots(off_key, w_key, n_key, rows):
+        K = max(p[off_key].shape[1] for p in inputs)
+        off = np.zeros((B, rows, K), np.int32)
+        w = np.zeros((B, rows, K), np.float32)
+        for b, p in enumerate(inputs):
+            n, k = p[n_key], p[off_key].shape[1]
+            off[b, :n, :k] = p[off_key][:n]
+            w[b, :n, :k] = p[w_key][:n]
+        return torch.from_numpy(off).to(dev), torch.from_numpy(w).to(dev)
+
+    msp = torch.empty((B, D, Lp), dtype=torch.float32, device=dev)
+    seed = np.zeros((B, Gs, Lp), np.float32)
+    for b, p in enumerate(inputs):
+        msp[b] = torch.from_numpy(np.asarray(p["msp_sh"], np.float32)) \
+            if "msp_sh" in p else shear_table(_match_table(p, dev), Lp, D)
+        sb = p["seed_block"]
+        seed[b, :sb.shape[0], :sb.shape[1]] = sb
+    consts = _consts(inputs, dev)
+    iscal = _iscal(inputs, dev)
+    loff, lw = slots("loffp", "lwp", "L", Lp)
+    roff, rw = slots("roffp", "rwp", "R", Rr)
+    lfoff, lfw = slots("lfoff", "lfw", "L", Lp)
+    rfoff, rfw = slots("rfoff", "rfw", "R", Rr)
+    fwd = dict(msp=msp, loff=loff, lw=lw, roff=roff, rw=rw, consts=consts,
+               iscal=iscal, G=int(G))
+    bwd = dict(msp=msp, lfoff=lfoff, lfw=lfw, rfoff=rfoff, rfw=rfw,
+               consts=consts, iscal=iscal,
+               seed=torch.from_numpy(seed).to(dev), G=int(G))
+    return fwd, bwd
+
+
+# ----------------------------------------------------------------------
+def _check(named, ref_name):
+    """dtype, shape, contiguity and device of every argument; named is
+    [(name, tensor, dtype, shape)]."""
+    ref = dict((n, t) for n, t, _d, _s in named)[ref_name]
+    for name, t, dt, shape in named:
+        if t.dtype != dt:
+            raise TypeError("%s must be %s, got %s" % (name, dt, t.dtype))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("%s must have shape %s, got %s"
+                             % (name, tuple(shape), tuple(t.shape)))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+        if t.device != ref.device:
+            raise ValueError("%s is on %s, %s on %s"
+                             % (name, t.device, ref_name, ref.device))
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device %s" % ref.device)
+
+
+def _check_linear(ms2, consts, iscal):
+    if ms2.dim() != 3:
+        raise ValueError("ms2 must be (B, D, Lp)")
+    B, D, Lp = ms2.shape
+    _check([("ms2", ms2, torch.float32, (B, D, Lp)),
+            ("consts", consts, torch.float32, (B, 8)),
+            ("iscal", iscal, torch.int32, (B, 2))], "ms2")
+    return B, D, Lp
+
+
+def _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G, seed=None):
+    if msp.dim() != 3 or loff.dim() != 3 or roff.dim() != 3:
+        raise ValueError("msp must be (B, D, Lp), the slot arrays "
+                         "(B, rows, K)")
+    B, D, Lp = msp.shape
+    KL, Rr, KR = loff.shape[2], roff.shape[1], roff.shape[2]
+    named = [("msp", msp, torch.float32, (B, D, Lp)),
+             ("loff", loff, torch.int32, (B, Lp, KL)),
+             ("lw", lw, torch.float32, (B, Lp, KL)),
+             ("roff", roff, torch.int32, (B, Rr, KR)),
+             ("rw", rw, torch.float32, (B, Rr, KR)),
+             ("consts", consts, torch.float32, (B, 8)),
+             ("iscal", iscal, torch.int32, (B, 2))]
+    if seed is not None:
+        if seed.dim() != 3:
+            raise ValueError("seed must be (B, Gs, Lp)")
+        named.append(("seed", seed, torch.float32,
+                      (B, seed.shape[1], Lp)))
+    _check(named, "msp")
+    if G < 1:
+        raise ValueError("G must be positive (G=%d)" % G)
+    return B, D, Lp, Rr, KL, KR
+
+
+def _threads(Lp: int) -> int:
+    return min(1024, -(-Lp // 32) * 32)
+
+
+def _launch_linear(name, rows, ms2, consts, iscal):
+    """One launch of a linear entry point; rows is the kernel's count of
+    state rows (what the global scratch holds past SHARED_ROWS)."""
+    B, D, Lp = ms2.shape
+    lib = kernels.load(name)
+    fn = getattr(lib, name + "_linear_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
+                         device=ms2.device)
+    cum = torch.empty((B, D), dtype=torch.float32, device=ms2.device)
+    use_shared = Lp <= SHARED_ROWS
+    gbuf = None if use_shared else torch.empty(
+        (B, rows, Lp), dtype=torch.float32, device=ms2.device)
+    with torch.cuda.device(ms2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ms2.data_ptr(), consts.data_ptr(), iscal.data_ptr(),
+                 planes.data_ptr(), cum.data_ptr(),
+                 0 if gbuf is None else gbuf.data_ptr(),
+                 B, D, Lp, int(use_shared), _threads(Lp), stream)
+    kernels.check(err, name)
+    return planes, cum
+
+
+def fullprob_fwd(ms2, consts, iscal):
+    """Scaled forward planes of a batch of linear-chain pairs. ms2
+    (B, D, Lp) f32: (msp * wl) * wr on diagonal d at row d. Returns
+    (planes (B, 3, D, Lp), cum (B, D))."""
+    _check_linear(ms2, consts, iscal)
+    if ms2.device.type == "cpu":
+        PLAIN_CALLS["fullprob_fwd"] += 1
+        return fullprob_fwd_plain(ms2, consts, iscal)
+    out = _launch_linear("fullprob_fwd", 9, ms2, consts, iscal)
+    LAUNCHES["fullprob_fwd"] += 1
+    return out
+
+
+def fullprob_bwd(ms2, consts, iscal):
+    """Scaled backward planes of a batch of linear-chain pairs; the
+    corner seed consts[:, 5] enters M at diagonal L + R - 2, lane L - 1.
+    Returns (planes (B, 3, D, Lp), cum (B, D))."""
+    _check_linear(ms2, consts, iscal)
+    if ms2.device.type == "cpu":
+        PLAIN_CALLS["fullprob_bwd"] += 1
+        return fullprob_bwd_plain(ms2, consts, iscal)
+    out = _launch_linear("fullprob_bwd", 7, ms2, consts, iscal)
+    LAUNCHES["fullprob_bwd"] += 1
+    return out
+
+
+def _launch_fanin(name, msp, loff, lw, roff, rw, consts, iscal, G, seed):
+    B, D, Lp = msp.shape
+    Rr, KL, KR = roff.shape[1], loff.shape[2], roff.shape[2]
+    lib = kernels.load(name)
+    fn = getattr(lib, name + "_fanin_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
+                         device=msp.device)
+    cum = torch.empty((B, D), dtype=torch.float32, device=msp.device)
+    use_shared = 3 * (G + 1) * Lp * 4 <= SHARED_RING_BYTES
+    gring = None if use_shared else torch.empty(
+        (B, 3, G + 1, Lp), dtype=torch.float32, device=msp.device)
+    with torch.cuda.device(msp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(msp.data_ptr(), loff.data_ptr(), lw.data_ptr(),
+                 roff.data_ptr(), rw.data_ptr(), consts.data_ptr(),
+                 iscal.data_ptr(),
+                 0 if seed is None else seed.data_ptr(),
+                 planes.data_ptr(), cum.data_ptr(),
+                 0 if gring is None else gring.data_ptr(),
+                 B, D, Lp, Rr, KL, KR, G,
+                 0 if seed is None else seed.shape[1],
+                 int(use_shared), _threads(Lp), stream)
+    kernels.check(err, name + " (fan-in)")
+    return planes, cum
+
+
+def fullprob_fwd_fanin(msp, loff, lw, roff, rw, consts, iscal, G: int):
+    """Scaled forward planes of a batch of fan-in graph pairs. msp
+    (B, D, Lp) sheared match probabilities; loff/lw (B, Lp, KL) and
+    roff/rw (B, Rr, KR): per site the offsets (0 = empty slot) and
+    weights of its backward edges; G the ring depth (no offset sum past
+    it is followed). Returns (planes (B, 3, D, Lp), cum (B, D))."""
+    _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G)
+    if msp.device.type == "cpu":
+        PLAIN_CALLS["fullprob_fwd_fanin"] += 1
+        return fullprob_fwd_fanin_plain(msp, loff, lw, roff, rw, consts,
+                                        iscal, G)
+    out = _launch_fanin("fullprob_fwd", msp, loff, lw, roff, rw, consts,
+                        iscal, G, None)
+    LAUNCHES["fullprob_fwd_fanin"] += 1
+    return out
+
+
+def fullprob_bwd_fanin(msp, lfoff, lfw, rfoff, rfw, consts, iscal, seed,
+                       G: int):
+    """Scaled backward planes of a batch of fan-in graph pairs.
+    lfoff/lfw (B, Lp, KFL) and rfoff/rfw (B, Rr, KFR): per site the
+    offsets and weights of its FORWARD edges (those into the stop site
+    left out); seed (B, Gs, Lp): row g holds the corner seeds of
+    diagonal L + R - 2 - g in true units. Returns (planes, cum)."""
+    _check_fanin(msp, lfoff, lfw, rfoff, rfw, consts, iscal, G, seed)
+    if msp.device.type == "cpu":
+        PLAIN_CALLS["fullprob_bwd_fanin"] += 1
+        return fullprob_bwd_fanin_plain(msp, lfoff, lfw, rfoff, rfw,
+                                        consts, iscal, seed, G)
+    out = _launch_fanin("fullprob_bwd", msp, lfoff, lfw, rfoff, rfw,
+                        consts, iscal, G, seed)
+    LAUNCHES["fullprob_bwd_fanin"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions: a loop over diagonals of (B, Lp) operations
+# ----------------------------------------------------------------------
+def _setup(t, consts, iscal):
+    B, D, Lp = t.shape
+    dev = t.device
+    c = [consts[:, k:k + 1] for k in range(5)]
+    L = iscal[:, 0:1].long()
+    R = iscal[:, 1:2].long()
+    ii = torch.arange(Lp, device=dev)[None, :]
+    planes = torch.zeros((B, 3, D, Lp), dtype=torch.float32, device=dev)
+    cums = torch.zeros((B, D), dtype=torch.float32, device=dev)
+    zero = torch.zeros((B, Lp), dtype=torch.float32, device=dev)
+    return B, D, Lp, c, L, R, ii, planes, cums, zero
+
+
+def _rescale(M, X, Y):
+    """Divide a diagonal by its maximum (1 where that is 0); returns the
+    scaled rows, 1/max and log(max)."""
+    sc = torch.maximum(torch.maximum(M, X), Y).amax(dim=1, keepdim=True)
+    sc = torch.where(sc > 0, sc, torch.ones_like(sc))
+    inv = torch.reciprocal(sc)
+    return M * inv, X * inv, Y * inv, inv, torch.log(sc)
+
+
+def _shift_r(v):
+    """Lane i reads lane i - 1; lane 0 reads 0."""
+    return torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
+
+
+def _shift_l(v):
+    """Lane i reads lane i + 1; the last lane reads 0."""
+    return torch.cat([v[:, 1:], torch.zeros_like(v[:, :1])], dim=1)
+
+
+def fullprob_fwd_plain(ms2, consts, iscal):
+    """Plain PyTorch version of kernel D's linear entry point."""
+    B, D, Lp, (ext, gcgo, nggo, ng2, gcng), L, R, ii, planes, cums, zero \
+        = _setup(ms2, consts, iscal)
+    m1 = zero.clone()
+    m1[:, 0] = 1.0
+    x1, y1, m2, x2, y2 = zero, zero, zero, zero, zero
+    planes[:, 0, 0] = m1
+    cum = torch.zeros((B, 1), dtype=torch.float32, device=ms2.device)
+    for d in range(1, D):
+        jj = d - ii
+        valid = (jj >= 0) & (jj < R) & (ii < L)
+        X = ext * _shift_r(x1) + gcgo * _shift_r(y1) + nggo * _shift_r(m1)
+        X = torch.where(valid & (ii > 0), X, zero)
+        Y = ext * y1 + gcgo * x1 + nggo * m1
+        Y = torch.where(valid & (jj > 0), Y, zero)
+        M = ms2[:, d] * (ng2 * _shift_r(m2) + gcng * _shift_r(x2)
+                         + gcng * _shift_r(y2))
+        M = torch.where(valid & (ii > 0) & (jj > 0), M, zero)
+        M, X, Y, inv, lg = _rescale(M, X, Y)
+        cum = cum + lg
+        planes[:, 0, d], planes[:, 1, d], planes[:, 2, d] = M, X, Y
+        cums[:, d] = cum[:, 0]
+        m2, x2, y2 = m1 * inv, x1 * inv, y1 * inv
+        m1, x1, y1 = M, X, Y
+    return planes, cums
+
+
+def fullprob_bwd_plain(ms2, consts, iscal):
+    """Plain PyTorch version of kernel E's linear entry point."""
+    B, D, Lp, (ext, gcgo, nggo, ng2, gcng), L, R, ii, planes, cums, zero \
+        = _setup(ms2, consts, iscal)
+    seed = consts[:, 5:6]
+    corner_d = L + R - 2
+    x1, y1, q1, q2 = zero, zero, zero, zero
+    cum = torch.zeros((B, 1), dtype=torch.float32, device=ms2.device)
+    for d in range(D - 1, -1, -1):
+        jj = d - ii
+        valid = (jj >= 0) & (jj < R) & (ii < L)
+        xnb = _shift_l(x1)                 # bX at (i + 1, j)
+        ynb = y1                           # bY at (i, j + 1)
+        T = _shift_l(q2)                   # bM * ms2 at (i + 1, j + 1)
+        X = ext * xnb + gcgo * ynb + gcng * T
+        Y = ext * ynb + gcgo * xnb + gcng * T
+        M = nggo * xnb + nggo * ynb + ng2 * T
+        # corner seed in true units: cum is exactly 0 above the corner
+        M = M + torch.where((corner_d == d) & (ii == L - 1), seed, zero)
+        X = torch.where(valid, X, zero)
+        Y = torch.where(valid, Y, zero)
+        M = torch.where(valid, M, zero)
+        M, X, Y, inv, lg = _rescale(M, X, Y)
+        q = M * ms2[:, d]
+        cum = cum + lg
+        planes[:, 0, d], planes[:, 1, d], planes[:, 2, d] = M, X, Y
+        cums[:, d] = cum[:, 0]
+        q2 = q1 * inv
+        q1 = q
+        x1, y1 = X, Y
+    return planes, cums
+
+
+def _ring_read(ring, g, lane, ok):
+    """Rows (B, 3, Lp) of a (B, 3, G, Lp) ring at ring slot g, lane
+    `lane` (both (B, Lp), read where ok; 0 elsewhere)."""
+    B, _three, G, Lp = ring.shape
+    flat = g.clamp(0, G - 1) * Lp + lane.clamp(0, Lp - 1)
+    vals = ring.reshape(B, 3, G * Lp).gather(
+        2, flat[:, None, :].expand(B, 3, Lp))
+    return torch.where(ok[:, None, :], vals, torch.zeros_like(vals))
+
+
+def _ring_push(ring, rows, inv):
+    """The newest diagonal enters slot 0; the older ones move back one
+    slot, rescaled to the newest one's units."""
+    return torch.cat([torch.stack(rows, dim=1)[:, :, None],
+                      ring[:, :, :-1] * inv[:, :, None, None]], dim=2)
+
+
+def _site_slots(off, w, rows):
+    """Per-lane slot arrays (B, Lp, K) of the right side on one
+    diagonal: site j = rows (B, Lp), clamped (callers mask)."""
+    bidx = torch.arange(off.shape[0], device=off.device)[:, None]
+    jc = rows.clamp(0, off.shape[1] - 1)
+    return off[bidx, jc].long(), w[bidx, jc]
+
+
+def fullprob_fwd_fanin_plain(msp, loff, lw, roff, rw, consts, iscal,
+                             G: int):
+    """Plain PyTorch version of kernel D's fan-in entry point: ring[g]
+    holds diagonal d - 1 - g in the units of diagonal d - 1."""
+    B, D, Lp, (ext, gcgo, nggo, ng2, gcng), L, R, ii, planes, cums, zero \
+        = _setup(msp, consts, iscal)
+    KL, KR = loff.shape[2], roff.shape[2]
+    oL = loff.long()
+    ring = torch.zeros((B, 3, G, Lp), dtype=torch.float32,
+                       device=msp.device)
+    ring[:, 0, 0, 0] = 1.0
+    planes[:, 0, 0, 0] = 1.0
+    cum = torch.zeros((B, 1), dtype=torch.float32, device=msp.device)
+    for d in range(1, D):
+        jj = d - ii
+        inside = (jj >= 0) & (jj < R)
+        valid = inside & (ii < L)
+        oR, wR = _site_slots(roff, rw, jj)
+        X = zero
+        for k in range(KL):
+            o = oL[:, :, k]
+            ok = (o > 0) & (o <= G) & (ii - o >= 0)
+            v = _ring_read(ring, o - 1, ii - o, ok)
+            X = X + (ext * v[:, 1] + gcgo * v[:, 2] + nggo * v[:, 0])
+        Y = zero
+        for k in range(KR):
+            o = oR[:, :, k]
+            ok = inside & (o > 0) & (o <= G)
+            v = _ring_read(ring, o - 1, ii.expand(B, Lp), ok)
+            Y = Y + (ext * v[:, 2] + gcgo * v[:, 1] + nggo * v[:, 0])
+        S = zero
+        for kl in range(KL):
+            ol = oL[:, :, kl]
+            for kr in range(KR):
+                ot = ol + oR[:, :, kr]
+                ok = inside & (ol > 0) & (oR[:, :, kr] > 0) & (ot <= G) \
+                    & (ii - ol >= 0)
+                v = _ring_read(ring, ot - 1, ii - ol, ok)
+                combo = ng2 * v[:, 0] + gcng * v[:, 1] + gcng * v[:, 2]
+                S = S + combo * lw[:, :, kl] * wR[:, :, kr]
+        M = msp[:, d] * S
+        X = torch.where(valid & (ii > 0), X, zero)
+        Y = torch.where(valid & (jj > 0), Y, zero)
+        M = torch.where(valid & (ii > 0) & (jj > 0), M, zero)
+        M, X, Y, inv, lg = _rescale(M, X, Y)
+        ring = _ring_push(ring, (M, X, Y), inv)
+        cum = cum + lg
+        planes[:, 0, d], planes[:, 1, d], planes[:, 2, d] = M, X, Y
+        cums[:, d] = cum[:, 0]
+    return planes, cums
+
+
+def fullprob_bwd_fanin_plain(msp, lfoff, lfw, rfoff, rfw, consts, iscal,
+                             seed, G: int):
+    """Plain PyTorch version of kernel E's fan-in entry point: ring[g]
+    holds (q = bM * msp, bX, bY) of diagonal d + 1 + g in the units of
+    diagonal d + 1."""
+    B, D, Lp, (ext, gcgo, nggo, ng2, gcng), L, R, ii, planes, cums, zero \
+        = _setup(msp, consts, iscal)
+    KFL, KFR = lfoff.shape[2], rfoff.shape[2]
+    Gs = seed.shape[1]
+    clim = consts[:, 6:7]
+    corner_d = L + R - 2
+    oL = lfoff.long()
+    bidx = torch.arange(B, device=msp.device)[:, None]
+    ring = torch.zeros((B, 3, G, Lp), dtype=torch.float32,
+                       device=msp.device)
+    cum = torch.zeros((B, 1), dtype=torch.float32, device=msp.device)
+    for d in range(D - 1, -1, -1):
+        jj = d - ii
+        inside = (jj >= 0) & (jj < R)
+        valid = inside & (ii < L)
+        oR, wR = _site_slots(rfoff, rfw, jj)
+        A = zero                           # bX at (i + o, j)
+        for k in range(KFL):
+            o = oL[:, :, k]
+            ok = (o > 0) & (o <= G) & (ii + o < Lp)
+            A = A + _ring_read(ring, o - 1, ii + o, ok)[:, 1]
+        Bs = zero                          # bY at (i, j + o)
+        for k in range(KFR):
+            o = oR[:, :, k]
+            ok = inside & (o > 0) & (o <= G)
+            Bs = Bs + _ring_read(ring, o - 1, ii.expand(B, Lp), ok)[:, 2]
+        T = zero                           # q at (i + s, j + r), weighted
+        for kl in range(KFL):
+            ol = oL[:, :, kl]
+            for kr in range(KFR):
+                ot = ol + oR[:, :, kr]
+                ok = inside & (ol > 0) & (oR[:, :, kr] > 0) & (ot <= G) \
+                    & (ii + ol < Lp)
+                v = _ring_read(ring, ot - 1, ii + ol, ok)[:, 0]
+                T = T + v * lfw[:, :, kl] * wR[:, :, kr]
+        X = ext * A + gcgo * Bs + gcng * T
+        Y = ext * Bs + gcgo * A + gcng * T
+        M = nggo * A + nggo * Bs + ng2 * T
+        # seeds are in true units; below the corner diagonal the running
+        # scale is no longer 0, so convert
+        idx = corner_d - d                                   # (B, 1)
+        srow = seed[bidx, idx.clamp(0, Gs - 1)][:, 0]        # (B, Lp)
+        srow = torch.where((idx >= 0) & (idx < Gs), srow, zero)
+        M = M + srow * torch.exp(-torch.minimum(torch.maximum(cum, -clim),
+                                                clim))
+        X = torch.where(valid, X, zero)
+        Y = torch.where(valid, Y, zero)
+        M = torch.where(valid, M, zero)
+        M, X, Y, inv, lg = _rescale(M, X, Y)
+        ring = _ring_push(ring, (M * msp[:, d], X, Y), inv)
+        cum = cum + lg
+        planes[:, 0, d], planes[:, 1, d], planes[:, 2, d] = M, X, Y
+        cums[:, d] = cum[:, 0]
+    return planes, cums
+
+
+# ----------------------------------------------------------------------
+def linear_plane_fills(ms2, consts, iscal):
+    """Forward and backward fills of one linear batch:
+    ((f_planes, fcum), (b_planes, bcum))."""
+    kw = dict(ms2=ms2, consts=consts, iscal=iscal)
+    return fullprob_fwd(**kw), fullprob_bwd(**kw)
+
+
+def fanin_plane_fills(fwd_kw, bwd_kw):
+    """Forward and backward fills of one fan-in batch."""
+    return fullprob_fwd_fanin(**fwd_kw), fullprob_bwd_fanin(**bwd_kw)

@@ -4,7 +4,9 @@ kernel arguments, so both packages can be fed identical inputs.
 The JAX package prepares every fill on the host in numpy
 (pagan2_tpu.align.viterbi_sheared.prepare_sheared,
 viterbi_fanin.prepare_fanin, viterbi_pallas.pallas_job_arrays,
-viterbi_pallas_banded.pallas_banded_args). Those dicts hold numpy
+viterbi_pallas_banded.pallas_banded_args,
+fullprob.linear_fullprob_inputs, fullprob.fanin_fullprob_inputs). Those
+dicts hold numpy
 arrays, Python scalars, or device arrays that numpy reads, so they cross
 over as they are; this module never imports the JAX package.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import fullprob_fill as ff
 from .viterbi_banded import band_sched, stripe_width
 from .viterbi_fanin import fanin_batch_args
 from .viterbi_linear import (_add_scalar_params, batch_rows,
@@ -20,6 +23,10 @@ from .viterbi_linear import (_add_scalar_params, batch_rows,
 
 
 def _kind(d: dict) -> str:
+    if "msp_sh" in d and "wr_rext" in d:
+        return "linear_fullprob"
+    if "msp_sh" in d and "seed_block" in d:
+        return "fanin_fullprob"
     if "sched" in d and "ilo" in d and "ms" in d:
         return "pallas_banded"
     if "ms_sh" in d and "vlox" in d:
@@ -29,8 +36,9 @@ def _kind(d: dict) -> str:
     if "loff" in d and "roff" in d:
         return "fanin"
     raise ValueError("not a prepare_sheared / prepare_fanin / "
-                     "pallas_job_arrays / pallas_banded_args dict (keys %s)"
-                     % sorted(d))
+                     "pallas_job_arrays / pallas_banded_args / "
+                     "linear_fullprob_inputs / fanin_fullprob_inputs dict "
+                     "(keys %s)" % sorted(d))
 
 
 def inputs_from_reference(d, device="cpu", **kw):
@@ -47,10 +55,24 @@ def inputs_from_reference(d, device="cpu", **kw):
     - one pallas_banded_args result, its args and meta merged
       (`dict(meta, **args)`: fscal, iscal, ms and the schedule's ilo, w)
       -> banded_fill kwargs: the stripe cut to the port's width Wk, the
-      schedule rebuilt for it.
+      schedule rebuilt for it;
+    - linear_fullprob_inputs dicts (f32, all of one Lp and Rp)
+      -> fullprob_fwd / fullprob_bwd kwargs: the match stream folded as
+      the reference's _fold_ms2 folds it, (msp * wl) * wr, the right
+      weights read back out of their reversed extended layout;
+    - fanin_fullprob_inputs dicts (f32, all of one Lp and Rp) -> the pair
+      (fullprob_fwd_fanin kwargs, fullprob_bwd_fanin kwargs); kw: G (ring
+      depth, default the largest OLm + ORm). The right side's slot
+      arrays cross over indexed by site, so the reference's fanin_rext
+      layout is not needed.
     """
     ds = list(d) if isinstance(d, (list, tuple)) else [d]
     kind = _kind(ds[0])
+    if kind == "linear_fullprob":
+        return _linear_fullprob_from_reference(ds, device)
+    if kind == "fanin_fullprob":
+        D, Lp = np.asarray(ds[0]["msp_sh"]).shape
+        return ff.fanin_batch_args(ds, device, Lp=Lp, D=D, G=kw.get("G"))
     if kind == "pallas_banded":
         return _banded_from_reference(ds[0], device)
     if kind == "sheared":
@@ -100,3 +122,19 @@ def _banded_from_reference(d: dict, device):
                 iscal=t(d["iscal"], np.int32),
                 sched=torch.from_numpy(band_sched(ilo, w, Wk)).to(dev),
                 ms=torch.from_numpy(np.array(ms)).to(dev))
+
+
+def _linear_fullprob_from_reference(ds, device):
+    dev = torch.device(device)
+    ms2 = []
+    for x in ds:
+        msp = np.asarray(x["msp_sh"], np.float32)
+        D, Lp = msp.shape
+        rext = np.asarray(x["wr_rext"], np.float32)
+        # row d of the reference's slices: wr[d - i] at lane i
+        idx = np.clip(Lp + x["Rp"] - 2 - np.arange(D)[:, None]
+                      + np.arange(Lp)[None, :], 0, len(rext) - 1)
+        ms2.append(msp * np.asarray(x["wl"], np.float32)[None, :]
+                   * rext[idx])
+    return dict(ms2=torch.from_numpy(np.stack(ms2)).to(dev),
+                consts=ff._consts(ds, dev, "seed"), iscal=ff._iscal(ds, dev))

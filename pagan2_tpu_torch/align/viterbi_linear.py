@@ -94,18 +94,24 @@ def linear_job_arrays(inp, Lp: int, band=None):
                 fscal=fscal, iscal=iscal)
 
 
+def shear_table(tab, Lp: int, D: int):
+    """(L, R) table -> (D, Lp) diagonal-major: out[d, i] = tab[i, d - i],
+    the column clamped to [0, R] with column R reading 0 (rows >= L read
+    0 too); the fills mask what lies outside the matrix."""
+    L, R = tab.shape
+    pad = torch.zeros((Lp, R + 1), dtype=tab.dtype, device=tab.device)
+    pad[:L, :R] = tab
+    d = torch.arange(D, device=tab.device)[:, None]
+    i = torch.arange(Lp, device=tab.device)[None, :]
+    j = torch.clamp(d - i, 0, R).expand(D, Lp)
+    return pad[i.expand(D, Lp), j]
+
+
 def fold_shear(ms, lw, rw, lng, Lp: int, D: int):
     """((ms + lw[i]) + rw[j]) + lng, sheared to (D, Lp): row d holds
     cell (i, d - i); cells outside the (L, R) table read 0 (masked by
     the fill)."""
-    L, R = ms.shape
-    msf = ((ms + lw[:, None]) + rw[None, :]) + lng
-    pad = torch.zeros((Lp, R + 1), dtype=ms.dtype, device=ms.device)
-    pad[:L, :R] = msf
-    d = torch.arange(D, device=ms.device)[:, None]
-    i = torch.arange(Lp, device=ms.device)[None, :]
-    j = torch.clamp(d - i, 0, R).expand(D, Lp)
-    return pad[i.expand(D, Lp), j]
+    return shear_table(((ms + lw[:, None]) + rw[None, :]) + lng, Lp, D)
 
 
 def linear_batch_args(jobs: list, device, D: int | None = None):

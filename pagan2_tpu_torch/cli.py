@@ -446,6 +446,9 @@ def make_settings(args):
                              else 1.0),
         keep_all_edges=args.keep_all_edges,
     )
+    if args.seed is not None:
+        from .align import set_sampling_seed
+        set_sampling_seed(args.seed)
     if args.branch_length_confirm_insertion is not None:
         s = replace(s, max_allowed_skip_distance=args.branch_length_confirm_insertion)
     if args.any_skips_confirm_insertion is not None:
@@ -570,12 +573,6 @@ def unported_request(args):
          "--output-consensus / --build-contigs", P.PILEUP),
         (args.ref_seqfile, "--ref-seqfile", P.PLACEMENT),
         (args.queryfile, "-q/--queryfile", P.PLACEMENT),
-        (args.full_probability or args.sample_path or
-         args.sample_additional_paths > 0 or
-         args.mpost_posterior_plot_file,
-         "--full-probability / --sample-path / "
-         "--sample-additional-paths / --mpost-posterior-plot-file",
-         P.FULL_PROBABILITY),
         (args.pair_end, "--pair-end", P.PAIR_END),
         (not args.treefile, "guide-tree inference (no -t/--treefile)",
          P.CLI_REST),
@@ -612,6 +609,10 @@ def write_outputs(args, tree, alignment, data_type):
         write_xml(tree, alignment, out + ".xml", nhx=False)
     if args.output_graph and tree is not None and tree.graph is not None:
         write_graph_file(tree.graph, out + ".grp")
+    if args.mpost_posterior_plot_file:
+        from .io.plots import write_mpost_posterior_plots
+        write_mpost_posterior_plots(args.mpost_posterior_plot_file,
+                                    slope_up=args.plot_slope_up)
 
 
 def check_graphs(args, tree):
@@ -721,12 +722,17 @@ def main(argv=None) -> int:
                      EXEC_STATS.get("single_fills", 0)),
                   file=sys.stderr)
         print("TIME %-24s %d batched fan-in launches; %d windowed + %d "
-              "full-width anchored fan-in fills; %d banded linear fills"
+              "full-width anchored fan-in fills; %d banded linear fills; "
+              "%d linear + %d fan-in batched full-probability fills"
               % ("routes", EXEC_STATS["fanin_batches"],
                  EXEC_STATS["fanin_windowed"],
                  EXEC_STATS["fanin_banded_full"],
-                 EXEC_STATS["banded_fills"]), file=sys.stderr)
+                 EXEC_STATS["banded_fills"], EXEC_STATS["fp_batches"],
+                 EXEC_STATS["fanin_fp_batches"]), file=sys.stderr)
 
+    if args.mpost_posterior_plot_file:
+        from .io.plots import open_posterior_sink
+        open_posterior_sink()
     if args.raxml_tree or args.bppdist_tree:
         print("note: --raxml-tree/--bppdist-tree select the guide-tree "
               "inference, which -t replaces", file=sys.stderr)

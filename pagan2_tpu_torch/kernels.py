@@ -19,6 +19,11 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source extra flags. The probability fills are held bit-equal to
+# plain versions that round after every operation, so nvcc must not
+# contract a multiply and an add into one FMA there.
+EXTRA_FLAGS = {"fullprob_fwd": ["-fmad=false"],
+               "fullprob_bwd": ["-fmad=false"]}
 
 _libs: dict = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
@@ -50,7 +55,8 @@ def _start(name: str):
     src, so = _paths(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
-    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp, src]
+    cmd = [nvcc_path()] + NVCC_FLAGS + EXTRA_FLAGS.get(name, []) + \
+        ["-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so

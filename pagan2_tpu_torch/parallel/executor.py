@@ -7,8 +7,12 @@ independent pairwise jobs are stacked into one launch per shape bucket:
 linear-chain pairs on kernel A (align/viterbi_linear.py), fan-in graph
 pairs on kernel B (align/viterbi_fanin.py), each on `device`; a
 thin-band anchored linear pair runs alone on kernel C
-(align/viterbi_banded.py). Backtrack and ancestral-graph construction
-stay per job on the host (O(path) work).
+(align/viterbi_banded.py). Full-probability and sampling jobs fill their
+forward/backward planes on kernels D and E (align/fullprob_fill.py), one
+launch each per bucket, beside one kernel A or B launch for the jobs
+that follow the Viterbi path. Backtrack, posterior annotation, sampled
+draws and ancestral-graph construction stay per job on the host, in job
+order (one RNG stream, so a seeded run is reproducible).
 
 Routing reproduces the reference's decisions (`_plan_job`): the
 anchoring gates (3000 sites, 200 for scan-core-bound fan-in pairs), the
@@ -30,12 +34,13 @@ from ..utils import log_out
 # real-run GCUPS figure; single-job fills account for themselves via
 # align._acct. fanin_windowed / fanin_banded_full count anchored fan-in
 # fills that ran windowed or masked at full width, banded_fills the
-# windowed banded fills of thin-band linear pairs (kernel C).
+# windowed banded fills of thin-band linear pairs (kernel C), fp_batches
+# / fanin_fp_batches the batched full-probability plane fills.
 EXEC_STATS = {"launches": 0, "batched_jobs": 0, "single_jobs": 0,
               "batched_cells": 0, "fill_seconds": 0.0,
               "single_fills": 0, "fanin_batches": 0,
               "fanin_windowed": 0, "fanin_banded_full": 0,
-              "banded_fills": 0}
+              "banded_fills": 0, "fp_batches": 0, "fanin_fp_batches": 0}
 
 
 def reset_stats():
@@ -65,20 +70,21 @@ class PairJob:
 def _plan_job(job: PairJob):
     """Anchor/band planning mirroring align_pair's gate: returns
     'batch' (shared kernel A launch), 'fanin' (shared kernel B launch),
-    'banded' (one kernel C fill of a thin-band linear pair), 'single'
-    (align_pair one by one) or 'skipped'."""
+    'banded' (one kernel C fill of a thin-band linear pair), 'batch_fp'
+    / 'fanin_fp' (shared kernel D and E launches of full-probability
+    and sampling jobs, never anchored), 'single' (align_pair one by one)
+    or 'skipped'."""
     from ..align import plan_band
     from ..align.viterbi_sheared import is_linear_chain, _bucket
-    from ..pending import not_ported, FULL_PROBABILITY, PAIR_END
+    from ..pending import not_ported, PAIR_END
 
     s = job.settings
     linear = is_linear_chain(job.left) and is_linear_chain(job.right)
-    if s.compute_full_score or s.sample_path or \
-            s.sample_additional_paths > 0:
-        raise not_ported("full probability and path sampling",
-                         FULL_PROBABILITY)
     if s.pair_end_reads:
         raise not_ported("pair-end read alignment", PAIR_END)
+    if s.compute_full_score or s.sample_path or \
+            s.sample_additional_paths > 0:
+        return "batch_fp" if linear else "fanin_fp"
     gate = s.anchor_min_sites
     if not linear:
         from ..align.viterbi_fanin import (fanin_stats, K_CAP, G_CAP,
@@ -132,6 +138,9 @@ def _run_single(job: PairJob, engine: str, device):
 # batch size cap: cells per launch (the folded match scores, 4 B/cell,
 # and the codes dominate a launch's device memory)
 MAX_BATCH_CELLS = 1 << 28
+# the same for a full-probability launch: six f32 planes per cell come
+# back to the host, so a launch holds fewer cells
+MAX_FP_BATCH_CELLS = 1 << 26
 
 
 def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
@@ -152,6 +161,8 @@ def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
 
     buckets: dict[tuple, list[int]] = {}
     fanin_buckets: dict[tuple, list[int]] = {}
+    fp_buckets: dict[tuple, list[int]] = {}
+    fanin_fp_buckets: dict[tuple, list[int]] = {}
     for i, job in enumerate(jobs):
         kind = _plan_job(job)
         if kind == "skipped":
@@ -162,18 +173,26 @@ def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
             L = job.left.num_sites() - 1
             R = job.right.num_sites() - 1
             key = (_bucket(L), _bucket(R))
-            {"batch": buckets, "fanin": fanin_buckets}[kind].setdefault(
-                key, []).append(i)
+            {"batch": buckets, "fanin": fanin_buckets,
+             "batch_fp": fp_buckets,
+             "fanin_fp": fanin_fp_buckets}[kind].setdefault(
+                 key, []).append(i)
 
-    for bkt, launcher in ((buckets, _launch_linear_batch),
-                          (fanin_buckets, _launch_fanin_batch)):
+    # buckets in the reference's order, jobs in job order inside each:
+    # the sampled draws of a seeded run come from one RNG stream
+    for bkt, launcher, cap in (
+            (buckets, _launch_linear_batch, MAX_BATCH_CELLS),
+            (fanin_buckets, _launch_fanin_batch, MAX_BATCH_CELLS),
+            (fp_buckets, _launch_fullprob_batch, MAX_FP_BATCH_CELLS),
+            (fanin_fp_buckets, _launch_fanin_fullprob_batch,
+             MAX_FP_BATCH_CELLS)):
         for (Lp, Rp), idxs in sorted(bkt.items()):
             if len(idxs) == 1:
                 # no batching win; single dispatch avoids the stack copy
                 i = idxs[0]
                 results[i] = _run_single(jobs[i], engine, device)
                 continue
-            chunk = max(1, MAX_BATCH_CELLS // (Lp * Rp))
+            chunk = max(1, cap // (Lp * Rp))
             for c0 in range(0, len(idxs), chunk):
                 launcher(jobs, idxs[c0:c0 + chunk], results, engine,
                          device)
@@ -301,3 +320,161 @@ def _launch_fanin_batch(jobs, idxs, results, engine, device):
                                     job.is_reads_sequence,
                                     compute_consensus=job.compute_consensus)
         results[i] = (anc, end)
+
+
+# ----------------------------------------------------------------------
+def _fullprob_settings(job: PairJob) -> AlignSettings:
+    """A full-probability job's settings: sampling draws from forward
+    probabilities, so it forces the full score
+    (basic_alignment.h:621-625)."""
+    from dataclasses import replace
+    s = _job_settings(job)
+    if (s.sample_path or s.sample_additional_paths > 0) and \
+            not s.compute_full_score:
+        s = replace(s, compute_full_score=True)
+    return s
+
+
+def _finish_fullprob_jobs(jobs, idxs, results, sjobs, inputs, fills,
+                          vpaths, fanin: bool):
+    """Per-job host finish of a filled full-probability bucket, in job
+    order: planes, posterior figure, sampled or annotated Viterbi path,
+    ancestral build, additional sampled paths. vpaths maps a job's slot
+    to its (path, end) from the batched Viterbi fill."""
+    from .. import align as al
+    from ..align import fullprob as fp
+    from ..align.ancestral import build_ancestral_graph
+    from ..io import plots
+    (f_planes, fcum), (b_planes, bcum) = fills
+    for b, i in enumerate(idxs):
+        job = jobs[i]
+        s = sjobs[b]
+        planes = fp.FullProbPlanes.from_arrays(
+            job.left, job.right, job.model, inputs[b],
+            f_planes[b], fcum[b], b_planes[b], bcum[b], fanin=fanin)
+        if plots.posterior_sink_active():
+            plots.add_posterior_figure_planes(planes)
+        rng = al._RNG or np.random.default_rng()
+        if s.sample_path:
+            path, end = fp.sample_path_planes(
+                planes, s, rng, job.left_branch_length,
+                job.right_branch_length)
+        else:
+            path, end = vpaths[b]
+            fp.annotate_path(path, planes, end)
+        anc = build_ancestral_graph(
+            job.left, job.right, path, job.model, s,
+            job.left_branch_length, job.right_branch_length,
+            job.is_reads_sequence,
+            compute_consensus=job.compute_consensus)
+        if s.sample_additional_paths > 0:
+            from ..align.sampling import merge_sampled_graph
+            for _ in range(s.sample_additional_paths):
+                extra = fp.sample_path_planes(
+                    planes, s, rng, job.left_branch_length,
+                    job.right_branch_length)[0]
+                sg = build_ancestral_graph(
+                    job.left, job.right, extra, job.model, s,
+                    job.left_branch_length, job.right_branch_length,
+                    job.is_reads_sequence)
+                merge_sampled_graph(anc, sg)
+        results[i] = (anc, end)
+
+
+def _to_host(fills):
+    """The four outputs of a bucket's two fills as numpy arrays: one
+    copy per tensor, not one per job and plane."""
+    return tuple((p.cpu().numpy(), c.cpu().numpy()) for p, c in fills)
+
+
+def _launch_fullprob_batch(jobs, idxs, results, engine, device):
+    """One kernel D and one kernel E launch fill a bucket of linear
+    full-probability / sampling jobs' scaled planes, one kernel A launch
+    fills the Viterbi matrices of the jobs that do not sample their
+    path; the rest finishes per job on the host."""
+    import time
+    from ..align import fullprob as fp
+    from ..align import fullprob_fill as ff
+    from ..align.viterbi_linear import (linear_job_arrays, batch_rows,
+                                        linear_batch_args, linear_fill,
+                                        _add_scalar_params, _finish_linear)
+    from ..align.viterbi_sheared import prepare_sheared
+
+    t_launch = time.perf_counter()
+    sjobs = [_fullprob_settings(jobs[i]) for i in idxs]
+    inputs = [fp.linear_fullprob_inputs(jobs[i].left, jobs[i].right,
+                                        jobs[i].model) for i in idxs]
+    fills = _to_host(ff.linear_plane_fills(
+        **ff.linear_batch_args(inputs, device)))
+
+    # batched Viterbi fill for the jobs that follow the best path
+    # (sampling jobs draw their path from the planes instead)
+    vit = [b for b in range(len(idxs)) if not sjobs[b].sample_path]
+    vpaths = {}
+    if vit:
+        vin = [_add_scalar_params(prepare_sheared(
+            jobs[idxs[b]].left, jobs[idxs[b]].right, jobs[idxs[b]].model,
+            sjobs[b], np.float32)) for b in vit]
+        Lp = batch_rows(vin)
+        codes, corner = linear_fill(**linear_batch_args(
+            [linear_job_arrays(x, Lp) for x in vin], device))
+        codes = codes.cpu().numpy()
+        corner = corner.cpu().numpy()
+        for k, b in enumerate(vit):
+            job = jobs[idxs[b]]
+            vpaths[b] = _finish_linear(
+                codes[k], corner[k], job.left, job.right, job.model,
+                vin[k]["L"], vin[k]["R"], job.left_branch_length,
+                job.right_branch_length)
+    EXEC_STATS["launches"] += 1
+    EXEC_STATS["fp_batches"] += 1
+    EXEC_STATS["batched_jobs"] += len(idxs)
+    EXEC_STATS["batched_cells"] += sum(p["L"] * p["R"] for p in inputs)
+    EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
+    log_out("batched full-prob launch: %d jobs (%d rows, kernels D, E%s)"
+            % (len(idxs), fills[0][0].shape[3], ", A" if vit else ""), 3)
+    _finish_fullprob_jobs(jobs, idxs, results, sjobs, inputs, fills,
+                          vpaths, fanin=False)
+
+
+def _launch_fanin_fullprob_batch(jobs, idxs, results, engine, device):
+    """One kernel D and one kernel E launch (fan-in entry points) fill a
+    bucket of fan-in full-probability / sampling jobs' scaled planes,
+    one kernel B launch the Viterbi matrices of the jobs that do not
+    sample their path."""
+    import time
+    from ..align import fullprob as fp
+    from ..align import fullprob_fill as ff
+
+    t_launch = time.perf_counter()
+    sjobs = [_fullprob_settings(jobs[i]) for i in idxs]
+    inputs = [fp.fanin_fullprob_inputs(jobs[i].left, jobs[i].right,
+                                       jobs[i].model) for i in idxs]
+    fwd_kw, bwd_kw = ff.fanin_batch_args(inputs, device)
+    fills = _to_host(ff.fanin_plane_fills(fwd_kw, bwd_kw))
+    EXEC_STATS["launches"] += 1
+    EXEC_STATS["fanin_fp_batches"] += 1
+    EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
+    log_out("batched fan-in full-prob launch: %d jobs (%d rows, K%d/%d "
+            "G%d, kernels D, E)"
+            % (len(idxs), fills[0][0].shape[3], fwd_kw["loff"].shape[2],
+               fwd_kw["roff"].shape[2], fwd_kw["G"]), 3)
+
+    # batched fan-in Viterbi fill for the jobs that follow the best
+    # path. Each job counts once in batched_jobs/cells: Viterbi jobs
+    # inside _fanin_batch_paths, sampling-only jobs here.
+    vit = [b for b in range(len(idxs)) if not sjobs[b].sample_path]
+    EXEC_STATS["batched_jobs"] += len(idxs) - len(vit)
+    EXEC_STATS["batched_cells"] += sum(
+        inputs[b]["L"] * inputs[b]["R"]
+        for b in range(len(idxs)) if sjobs[b].sample_path)
+    vpaths = {}
+    if vit:
+        paths = _fanin_batch_paths(jobs, [idxs[b] for b in vit], device)
+        for k, b in enumerate(vit):
+            if paths[k] is None:
+                raise RuntimeError("fan-in fill could not reach the end "
+                                   "corner")
+            vpaths[b] = paths[k]
+    _finish_fullprob_jobs(jobs, idxs, results, sjobs, inputs, fills,
+                          vpaths, fanin=True)

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from pagan2_tpu_torch.align import AlignSettings
+from pagan2_tpu_torch.align import AlignSettings, align_pair
+from pagan2_tpu_torch.align import fullprob as fp
+from pagan2_tpu_torch.align import fullprob_fill as ff
 from pagan2_tpu_torch.align import viterbi_banded as tb
 from pagan2_tpu_torch.align import viterbi_fanin as tf
 from pagan2_tpu_torch.align import viterbi_linear as tl
@@ -114,6 +116,79 @@ def test_banded_kernel_matches_plain(cuda, half):
     assert torch.equal(codes, pc)
     assert torch.equal(_bits(corner), _bits(pk))
     assert bool(torch.isfinite(corner).any())
+
+
+def _same_fills(out, ref):
+    """Planes bit-equal; cum within D * eps * max(1, |cum|)."""
+    (planes, cum), (pp, pc) = out, ref
+    assert torch.equal(_bits(planes), _bits(pp))
+    D = cum.shape[1]
+    tol = D * 1.1920929e-07 * max(1.0, float(pc.abs().max()))
+    assert float((cum - pc).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("sizes", [[70], [300, 257, 129], [4200]])
+def test_fullprob_linear_kernels_match_plain(cuda, sizes):
+    """Kernels D and E, linear entry points: one pair, a ragged batch,
+    and a left side past SHARED_ROWS (state in global scratch)."""
+    rng = np.random.default_rng(len(sizes))
+    pairs = [_related(rng, n) for n in sizes]
+    if sizes == [4200]:
+        pairs = [(pairs[0][0], build_leaf_graph("ACGTTGCA" * 8,
+                                                alph.DNA))]
+    inps = [fp.linear_fullprob_inputs(*p, MODEL) for p in pairs]
+    args = ff.linear_batch_args(inps, cuda)
+    assert (args["ms2"].shape[2] > ff.SHARED_ROWS) == (sizes == [4200])
+    n0 = dict(ff.LAUNCHES)
+    fwd = ff.fullprob_fwd(**args)
+    bwd = ff.fullprob_bwd(**args)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["fullprob_fwd"] == n0["fullprob_fwd"] + 1
+    assert ff.LAUNCHES["fullprob_bwd"] == n0["fullprob_bwd"] + 1
+    _same_fills(fwd, ff.fullprob_fwd_plain(**args))
+    _same_fills(bwd, ff.fullprob_bwd_plain(**args))
+    assert float(fwd[0].max()) == 1.0 and float(bwd[0].max()) == 1.0
+
+
+@pytest.mark.parametrize("case", ["homopolymer", "ancestors", "wide"])
+def test_fullprob_fanin_kernels_match_plain(cuda, case):
+    """Kernels D and E, fan-in entry points: homopolymer graphs (ring in
+    shared memory), ancestors with a 12-bp deletion edge (deep ring),
+    and 1,600-site graphs whose ring lives in global scratch."""
+    rng = np.random.default_rng(5)
+    if case == "ancestors":
+        base = rng.choice(list("ACGT"), size=200)
+        leaves = []
+        for k in range(4):
+            mut = base.copy()
+            idx = rng.random(200) < 0.1
+            mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+            s = "".join(mut)
+            if k % 2:
+                s = s[:66] + s[78:]
+            leaves.append(build_leaf_graph(s, alph.DNA))
+        g1 = align_pair(leaves[0], leaves[1], MODEL, AlignSettings(),
+                        device=cuda)[0]
+        g2 = align_pair(leaves[2], leaves[3], MODEL, AlignSettings(),
+                        device=cuda)[0]
+    else:
+        g1, g2 = _related(rng, 1600 if case == "wide" else 150,
+                          homopolymer=True)
+    inp = fp.fanin_fullprob_inputs(g1, g2, MODEL)
+    fkw, bkw = ff.fanin_batch_args([inp], cuda)
+    if case == "ancestors":
+        assert fkw["G"] >= 14
+    ring = 3 * (fkw["G"] + 1) * fkw["msp"].shape[2] * 4
+    assert (ring > ff.SHARED_RING_BYTES) == (case == "wide")
+    n0 = dict(ff.LAUNCHES)
+    fwd = ff.fullprob_fwd_fanin(**fkw)
+    bwd = ff.fullprob_bwd_fanin(**bkw)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["fullprob_fwd_fanin"] == n0["fullprob_fwd_fanin"] + 1
+    assert ff.LAUNCHES["fullprob_bwd_fanin"] == n0["fullprob_bwd_fanin"] + 1
+    _same_fills(fwd, ff.fullprob_fwd_fanin_plain(**fkw))
+    _same_fills(bwd, ff.fullprob_bwd_fanin_plain(**bkw))
+    assert float(fwd[0].max()) == 1.0 and float(bwd[0].max()) == 1.0
 
 
 def test_cli_cuda_matches_cpu(cuda, tmp_path):

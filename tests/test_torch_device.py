@@ -49,8 +49,8 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--pileup", "-q", "r.fas"],
-                                   ["--full-probability"],
-                                   ["--sample-path"], ["--pair-end"],
+                                   ["--mpost-graph-file", "g.mp"],
+                                   ["--translate"], ["--pair-end"],
                                    ["--checkpoint-dir", "ck"],
                                    ["--threads", "4"]])
 def test_unported_flags_raise(tmp_path, flags):
@@ -60,6 +60,28 @@ def test_unported_flags_raise(tmp_path, flags):
             "-t", str(tmp_path / "t.nh"), "-o", str(tmp_path / "out")]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv + flags)
+
+
+@pytest.mark.parametrize("flags", [["--full-probability"],
+                                   ["--sample-path", "--seed", "3"]])
+def test_pair_end_with_full_probability_still_raises(tmp_path, flags):
+    """Full probability is ported; together with --pair-end it still
+    belongs to the pair-end item."""
+    (tmp_path / "s.fas").write_text(">a\nACGTACGTTGCA\n>b\nACGTACTTGCA\n")
+    (tmp_path / "t.nh").write_text("(a:0.1,b:0.1);\n")
+    argv = ["--device", "cpu", "-s", str(tmp_path / "s.fas"),
+            "-t", str(tmp_path / "t.nh"), "-o", str(tmp_path / "out"),
+            "--silent"]
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cli.main(argv + ["--pair-end"] + flags)
+    assert cli.main(argv + flags) == 0
+    from pagan2_tpu_torch.align import align_pair
+    from dataclasses import replace
+    g1, g2 = _pair()
+    s = replace(AlignSettings(), pair_end_reads=True,
+                compute_full_score=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        align_pair(g1, g2, MODEL, s, device="cpu")
 
 
 def test_linear_wrapper_rejects_wrong_dtype():
