@@ -26,6 +26,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                (40-bp deletion edges); planes bit-equal, cum within
                D * eps * max(1, |cum|); posteriors of a small linear and a
                small fan-in pair against the f64 host oracle
+  kernel_probe   kernel F (the probe's and the bisect's ablation
+               variants of the linear step) vs its plain versions: every
+               flag set of both entry points on 4 x 511 bp pairs and on
+               random 4 x 512 rows, and past 4096 rows (global scratch);
+               then at the tools' sizes (plain timed): the probe's seven
+               flag sets on its 16 x 2047 batch, the bisect's six at
+               8 x 1024 x 2048 and its full variant at 32 x 256 x 2048
+               and 8 x 4096 x 8192; codes (where defined) and corner
+               rows bit-equal; the probe's base case equal to kernel A
+               on the 16 x 2047 batch
   small_oracle the device path against the host oracle on small pairs
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
@@ -49,8 +59,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
                plain version; the host phase times
+  tools        the port's measuring tools at full size, counts set to 0
+               just before: probe_linear (10 cases), bisect_linear (9
+               runs), sweep_linear (7 rows of kernel A) and bench_linear;
+               every flag set of kernel F and kernel A launched, no plain
+               version
   timing       each kernel and its plain version on the inputs its path
-               gave it: bit-equal, ms per launch (CUDA events) and the
+               gave it (the fan-in plain versions of B, D and E on the
+               largest recorded call only: B's widest window, D's and
+               E's largest batch): bit-equal, ms per launch (CUDA
+               events) and the
                lower bound (kernel C: bit-equal on the long_family calls;
                kernel, plain version and bound on the megabase call cut
                to its first 16,384 diagonals; the kernel and its bound
@@ -232,7 +250,7 @@ def main():
     t_start = time.time()
     t0 = time.time()
     kernels.build("viterbi_linear", "viterbi_fanin", "viterbi_banded",
-                  "fullprob_fwd", "fullprob_bwd")
+                  "fullprob_fwd", "fullprob_bwd", "viterbi_linear_probe")
     log("build: %.1f s" % (time.time() - t0))
     for name, out in kernels.BUILD_LOG.items():
         for line in out.splitlines():
@@ -542,6 +560,111 @@ def main():
             "|log fwd - log bwd| %.3g"
             % ("fan-in" if planes.fanin else "linear", worst, POSTERIOR_TOL,
                planes.log_total, dlog))
+
+    # ---- kernel_probe: kernel F against its plain versions ----
+    probe_err = {"probe": 0.0, "bisect": 0.0}
+
+    def probe_run(tool, v, kw, plain=False):
+        """One flag set of kernel F's probe or bisect entry point, or its
+        plain version."""
+        if tool == "probe":
+            opts = () if v == "base" else tuple(v.split("+"))
+            return (VP.probe_fill_plain(**kw, opts=opts) if plain
+                    else VP.probe_fill(**kw, opts=opts))
+        return (VP.bisect_fill_plain(**kw, variant=v) if plain
+                else VP.bisect_fill(**kw, variant=v))
+
+    def probe_check(tool, what, kw, variants):
+        """Codes (where defined: not under the probe's nobp) and corner
+        rows of every flag set bit-equal to the plain version's; returns
+        the plain version's ms per flag set."""
+        plain_ms = {}
+        for v in variants:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = probe_run(tool, v, kw, plain=True)
+            t1.record()
+            out = probe_run(tool, v, kw)
+            torch.cuda.synchronize()
+            codes = tool == "bisect" or "nobp" not in v
+            if codes and not torch.equal(out[0], ref[0]):
+                fail("kernel_probe %s %s %s: %d codes differ from the plain "
+                     "version" % (tool, what, v,
+                                  int((out[0] != ref[0]).sum())))
+            for o, r, row in zip(out[1:], ref[1:], "MXY"):
+                if not same_floats(o, r):
+                    fail("kernel_probe %s %s %s: corner row f%s differs "
+                         "from the plain version" % (tool, what, v, row))
+                probe_err[tool] = max(probe_err[tool], max_abs_err(o, r))
+            plain_ms[v] = t0.elapsed_time(t1)
+            del out, ref
+        Dpk, B, Lp = kw["ms"].shape
+        log("kernel_probe %s %s: B %d, Dpk %d, Lp %d: %s bit-equal (plain "
+            "ms %s)" % (tool, what, B, Dpk, Lp, ", ".join(variants),
+                        ", ".join("%.1f" % plain_ms[v] for v in variants)))
+        return plain_ms
+
+    from pagan2_tpu_torch.align import viterbi_linear_probe as VP
+    from pagan2_tpu_torch.tools import common as TC
+    from pagan2_tpu_torch.tools.bisect_linear import bisect_inputs
+
+    def bisect_kw(*shape):
+        return bisect_inputs(*shape, dev)
+
+    inps, _c = TC.pair_jobs(4, 511)
+    probe_check("probe", "4x511", VP.probe_args(TC.job_arrays(inps), dev),
+                VP.PROBE_VARIANTS)
+    probe_check("bisect", "4x512x1024", bisect_kw(4, 512, 1024),
+                VP.BISECT_VARIANTS)
+    # past 4096 rows the three diagonals live in global scratch: a
+    # 4,200-site left side cut to its first 512 diagonals
+    rng_f = np.random.default_rng(12)
+    base = rng_f.choice(list("ACGT"), size=4200)
+    xg = VL._add_scalar_params(prepare_sheared(
+        build_leaf_graph("".join(base), alph.DNA),
+        build_leaf_graph(mutate(rng_f, base[:64]), alph.DNA), model,
+        settings, np.float32))
+    kw = VP.probe_args(TC.job_arrays([xg]), dev)
+    kw["ms"] = kw["ms"][:512].contiguous()
+    probe_check("probe", "4200 rows", kw, VP.PROBE_VARIANTS)
+    probe_check("bisect", "1x4224x256", bisect_kw(1, 4224, 256),
+                VP.BISECT_VARIANTS)
+    # at the tools' sizes, every flag set each tool runs there against
+    # its plain version (timed): the probe's seven on its 16 x 2047 batch
+    # (its TD cases only pad to the same Dpk 4096), the bisect's six at
+    # 8 x 1024 x 2048 and its full variant at 32 x 256 x 2048 and at
+    # 8 x 4096 x 8192 (the top of the shared-memory path); then the
+    # probe's base case against kernel A
+    inps, _c = TC.pair_jobs(16, 2047)
+    jobs16 = TC.job_arrays(inps)
+    kw = VP.probe_args(jobs16, dev)
+    probe_plain_ms = probe_check("probe", "16x2047", kw,
+                                 VP.PROBE_VARIANTS)["base"]
+    bisect_plain_ms = probe_check("bisect", "8x1024x2048",
+                                  bisect_kw(8, 1024, 2048),
+                                  VP.BISECT_VARIANTS)["full"]
+    for shape in ((32, 256, 2048), (8, 4096, 8192)):
+        probe_check("bisect", "x".join(map(str, shape)), bisect_kw(*shape),
+                    ("full",))
+    bp, fM, fX, fY = VP.probe_fill(**kw)
+    codes, corner = VL.linear_fill(**VL.linear_batch_args(jobs16, dev))
+    torch.cuda.synchronize()
+    D = codes.shape[1]
+    # the probe rolls row 0's x/m bits in from row Lp - 1; kernel A has
+    # none there: every other bit compares
+    a16 = codes[:, 1:].transpose(0, 1).to(torch.int16)
+    p16 = bp[:D - 1].to(torch.int16)
+    a16[:, :, 0] &= 0x30
+    p16[:, :, 0] &= 0x30
+    Lc = inps[0]["L"]
+    got = torch.stack([fM[:, Lc - 1], fX[:, Lc - 1], fY[:, Lc - 1]], dim=1)
+    if not torch.equal(a16, p16) or not same_floats(got, corner):
+        fail("kernel_probe: the probe's base case differs from kernel A on "
+             "16x2047 (%d codes)" % int((a16 != p16).sum()))
+    log("kernel_probe: the probe's base case equals kernel A on 16x2047 "
+        "(codes of %d diagonals, corner cells)" % (D - 1))
+    del bp, fM, fX, fY, codes, a16, p16
 
     # ---- small_oracle ----
     def sig(path):
@@ -865,6 +988,38 @@ def main():
     for key, v in phases.items():
         log("megabase host phase %-36s %8.3f s" % (key, v))
 
+    # ---- tools: the measuring tools' entry points at full size ----
+    from pagan2_tpu_torch.tools import (probe_linear, bisect_linear,
+                                        sweep_linear, bench_linear)
+    TOOLS = (("probe", probe_linear, 10), ("bisect", bisect_linear, 9),
+             ("sweep", sweep_linear, 7), ("bench", bench_linear, 1))
+    for k in VP.LAUNCHES:
+        VP.LAUNCHES[k] = VP.PLAIN_CALLS[k] = 0
+    VL.LAUNCHES = VL.PLAIN_CALLS = 0
+    t = time.time()
+    tool_res = {name: mod.main(["--device", "cuda"])
+                for name, mod, _n in TOOLS}
+    torch.cuda.synchronize()
+    tool_launches = dict(VP.LAUNCHES)
+    tool_plain = sum(VP.PLAIN_CALLS.values()) + VL.PLAIN_CALLS
+    log("tools: probe, bisect, sweep and bench in %.1f s; kernel F "
+        "launches %s, kernel A %d" % (time.time() - t,
+                                       json.dumps(tool_launches),
+                                       VL.LAUNCHES))
+    for name, _mod, n in TOOLS:
+        res = tool_res[name]
+        if len(res) != n or not all(np.isfinite(r["ms"]) and r["ms"] > 0
+                                    for r in res):
+            fail("tools: %s printed %d cases of %d" % (name, len(res), n))
+    if min(tool_launches.values()) < 1 or VL.LAUNCHES < 1 or tool_plain:
+        fail("tools: a flag set of kernel F or kernel A never launched, or "
+             "%d plain-version calls" % tool_plain)
+    probe_base = tool_res["probe"][0]
+    bisect_full = tool_res["bisect"][0]
+    if probe_base["case"] != "base TD=16" or bisect_full["case"] != "full":
+        fail("tools: unexpected first cases %s, %s"
+             % (probe_base["case"], bisect_full["case"]))
+
     # ---- timing on each path's own inputs ----
     # The bounds count only what the function needs for this run's data:
     # the cells it must fill (in the matrix, in the band, in the window),
@@ -961,26 +1116,35 @@ def main():
         return "B %d, D %d, W %d, G %d" % (kw["ilo"].shape + (kw["W"],
                                                                kw["G"]))
 
-    def time_kernel(calls, real, plain, bound, same, reps):
+    def time_kernel(calls, real, plain, bound, same, reps, pick=None):
         """Per-launch means over a path's recorded calls: kernel ms,
-        plain ms, bound ms and what bounds it; each call's kernel output
-        is held bit-equal to the plain version's."""
+        plain ms, bound ms and what bounds it. Every call, or with
+        `pick` only the call of the largest pick(kw), is held bit-equal
+        to the plain version and gives the plain mean; the fan-in plain
+        versions take seconds a call, so their paths compare and time
+        their largest call."""
         k_ms = p_ms = b_ms = err = by_bytes = by_ops = 0.0
+        compared = range(len(calls)) if pick is None else \
+            [max(range(len(calls)), key=lambda n: pick(calls[n]))]
         for n, kw in enumerate(calls):
-            # the plain version timed on the call that is compared
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            ref = plain(**kw)
-            t1.record()
-            out = real(**kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(out[0], ref[0]) and same(out[1], ref[1])):
-                fail("timing: recorded call %d of %s differs from its "
-                     "plain version" % (n, real.__name__))
-            err = max(err, max_abs_err(out[1], ref[1]))
-            del out, ref
-            p = t0.elapsed_time(t1)
+            p = float("nan")
+            if n in compared:
+                # the plain version timed on the call that is compared
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                ref = plain(**kw)
+                t1.record()
+                out = real(**kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(out[0], ref[0])
+                        and same(out[1], ref[1])):
+                    fail("timing: recorded call %d of %s differs from its "
+                         "plain version" % (n, real.__name__))
+                err = max(err, max_abs_err(out[1], ref[1]))
+                del out, ref
+                p = t0.elapsed_time(t1)
+                p_ms += p
             k = cuda_ms(lambda: real(**kw), reps)
             nbytes, ops = bound(kw)
             tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -988,23 +1152,26 @@ def main():
                 "bound %.5f ms (%.0f bytes, %.0f operations)"
                 % (real.__name__, n, shape(kw), k, p, 1e3 * max(tb, to),
                    nbytes, ops))
-            k_ms, p_ms, b_ms = k_ms + k, p_ms + p, b_ms + 1e3 * max(tb, to)
+            k_ms, b_ms = k_ms + k, b_ms + 1e3 * max(tb, to)
             by_bytes, by_ops = by_bytes + tb, by_ops + to
         n = len(calls)
-        return (k_ms / n, p_ms / n, b_ms / n,
+        return (k_ms / n, p_ms / len(compared), b_ms / n,
                 "bytes" if by_bytes >= by_ops else "operations", err,
                 by_bytes, by_ops)
 
     lin_t = time_kernel(recorded["linear"], VL.linear_fill,
                         VL.linear_fill_plain, linear_bound, same_floats, 5)
     fan_t = time_kernel(recorded["fanin"], VF.fanin_fill,
-                        VF.fanin_fill_plain, fanin_bound, same_floats, 3)
+                        VF.fanin_fill_plain, fanin_bound, same_floats, 3,
+                        pick=lambda kw: (kw["W"], kw["ilo"].shape[0]))
     lin_err = max(lin_err, lin_t[4])
     fan_err = max(fan_err, fan_t[4])
     for name, t in (("linear", lin_t), ("fanin", fan_t)):
-        log("timing %s: kernel %.3f ms/launch, plain %.1f ms, bound "
-            "%.5f ms (%s), over %d main-path calls, bit-equal"
-            % (name, t[0], t[1], t[2], t[3], len(recorded[name])))
+        log("timing %s: kernel %.3f ms/launch over %d main-path calls, "
+            "plain %.1f ms (%s), bound %.5f ms (%s), bit-equal"
+            % (name, t[0], len(recorded[name]), t[1],
+               "widest call" if name == "fanin" else "every call", t[2],
+               t[3]))
     # kernels D and E on the calls the --full-probability run made:
     # each entry point timed on its own calls (planes bit-equal, cum
     # within D * eps * max(1, |cum|)); a kernel's line takes the mean
@@ -1013,16 +1180,22 @@ def main():
         return float((a - b).abs().max()) <= \
             a.shape[1] * EPS32 * max(1.0, float(b.abs().max()))
 
+    def fp_batch(kw):
+        return tuple((kw["ms2"] if "ms2" in kw else kw["msp"]).shape)
+
     fp_t = {}
     for k in FP_KEYS:
         m, n = KERNELS[k]
         fp_t[k] = time_kernel(rec_fp[k], getattr(m, n),
                               getattr(m, n + "_plain"), fullprob_bound,
-                              cum_close, 3)
-        log("timing %s: kernel %.3f ms/launch, plain %.1f ms, bound %.5f "
-            "ms (%s), over %d fullprob_path calls, planes bit-equal, cum "
-            "max |err| %g" % (n, fp_t[k][0], fp_t[k][1], fp_t[k][2],
-                              fp_t[k][3], len(rec_fp[k]), fp_t[k][4]))
+                              cum_close, 3,
+                              pick=fp_batch if k.endswith("fanin") else None)
+        log("timing %s: kernel %.3f ms/launch over %d fullprob_path calls, "
+            "plain %.1f ms (%s), bound %.5f ms (%s), planes bit-equal, cum "
+            "max |err| %g" % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1],
+                              "largest batch" if k.endswith("fanin")
+                              else "every call", fp_t[k][2], fp_t[k][3],
+                              fp_t[k][4]))
 
     def kernel_entry(name, source, replaces, direction):
         """The kernels-line entry of D or E: per-launch means over its
@@ -1149,6 +1322,24 @@ def main():
                      "pagan2_tpu_torch/csrc/fullprob_bwd.cu",
                      "pagan2_tpu/align/fullprob_pallas.py:108", "bwd"),
     ]}
+    # kernel F: launches in the tools' run, ms and bound of the tools'
+    # first case, plain ms on the same inputs in kernel_probe
+    for name, tool, res, plain_ms, replaces in (
+            ("viterbi_linear_probe", "probe", probe_base, probe_plain_ms,
+             "tools/_probe_pallas.py:32"),
+            ("viterbi_linear_bisect", "bisect", bisect_full,
+             bisect_plain_ms, "tools/_bisect_pallas.py:16")):
+        kernels_line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "pagan2_tpu_torch/csrc/viterbi_linear_probe.cu",
+            "replaces": replaces,
+            "launches": sum(v for k, v in tool_launches.items()
+                            if k.startswith(tool + ":")),
+            "max_abs_err": probe_err[tool], "ms": res["ms"],
+            "plain_ms": plain_ms, "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
+            "timed_on": "%s tool, %s, B %d, Dpk %d"
+            % (tool, res["case"], res["B"], res["Dpk"])})
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps(kernels_line))
     print(smi)

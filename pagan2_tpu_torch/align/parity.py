@@ -5,8 +5,9 @@ The JAX package prepares every fill on the host in numpy
 (pagan2_tpu.align.viterbi_sheared.prepare_sheared,
 viterbi_fanin.prepare_fanin, viterbi_pallas.pallas_job_arrays,
 viterbi_pallas_banded.pallas_banded_args,
-fullprob.linear_fullprob_inputs, fullprob.fanin_fullprob_inputs). Those
-dicts hold numpy
+fullprob.linear_fullprob_inputs, fullprob.fanin_fullprob_inputs), and
+its measuring tools take positional arrays (tools/_probe_pallas.py's
+probe_fill, tools/_bisect_pallas.py's kernels). Those hold numpy
 arrays, Python scalars, or device arrays that numpy reads, so they cross
 over as they are; this module never imports the JAX package.
 """
@@ -138,3 +139,22 @@ def _linear_fullprob_from_reference(ds, device):
                    * rext[idx])
     return dict(ms2=torch.from_numpy(np.stack(ms2)).to(dev),
                 consts=ff._consts(ds, dev, "seed"), iscal=ff._iscal(ds, dev))
+
+
+PROBE_ARGS = ("fscal", "iscal", "gexti", "ol", "vlo", "vhi", "ms")
+
+
+def probe_inputs_from_reference(arrays, device="cpu"):
+    """viterbi_linear_probe.probe_fill / bisect_fill kwargs from the
+    seven positional arrays of the reference's measuring kernels
+    (fscal, iscal, gexti, ol, vlo, vhi, ms): the layouts are the same,
+    (B, 8), (B, Lp) and (Dpk, B, Lp), so only the types cross over."""
+    if len(arrays) != len(PROBE_ARGS):
+        raise ValueError("expected the %d arrays %s, got %d"
+                         % (len(PROBE_ARGS), PROBE_ARGS, len(arrays)))
+    dev = torch.device(device)
+    out = {}
+    for name, a in zip(PROBE_ARGS, arrays):
+        dt = np.int32 if name in ("iscal", "vlo", "vhi") else np.float32
+        out[name] = torch.from_numpy(np.array(a, dt)).to(dev)
+    return out

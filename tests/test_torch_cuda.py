@@ -18,9 +18,12 @@ from pagan2_tpu_torch.align import fullprob_fill as ff
 from pagan2_tpu_torch.align import viterbi_banded as tb
 from pagan2_tpu_torch.align import viterbi_fanin as tf
 from pagan2_tpu_torch.align import viterbi_linear as tl
+from pagan2_tpu_torch.align import viterbi_linear_probe as VP
 from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
 from pagan2_tpu_torch.graph import build_leaf_graph
 from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
+from pagan2_tpu_torch.tools.bisect_linear import bisect_inputs
+from pagan2_tpu_torch.tools.common import job_arrays, pair_jobs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = ModelFactory(alph.DNA).alignment_model(0.2)
@@ -189,6 +192,82 @@ def test_fullprob_fanin_kernels_match_plain(cuda, case):
     _same_fills(fwd, ff.fullprob_fwd_fanin_plain(**fkw))
     _same_fills(bwd, ff.fullprob_bwd_fanin_plain(**bkw))
     assert float(fwd[0].max()) == 1.0 and float(bwd[0].max()) == 1.0
+
+
+def _same_probe(out, ref, codes=True):
+    if codes:
+        assert torch.equal(out[0], ref[0])
+    for o, r in zip(out[1:], ref[1:]):
+        assert torch.equal(_bits(o), _bits(r))
+
+
+@pytest.mark.parametrize("rows", [511, 4200])
+@pytest.mark.parametrize("opts", [(), ("nobp",), ("noms",), ("nomask",),
+                                  ("nocorner",), ("nobp", "noms"),
+                                  ("nobp", "noms", "nomask", "nocorner")],
+                         ids=lambda o: "+".join(o) or "base")
+def test_probe_kernel_matches_plain(cuda, opts, rows):
+    """Kernel F's probe entry point, every flag set: two 511 bp pairs
+    (diagonals in shared memory), and a 4,200-site left side against 64
+    sites cut to its first 512 diagonals (global scratch)."""
+    if rows == 511:
+        inps, _cells = pair_jobs(2, 511)
+    else:
+        rng = np.random.default_rng(4)
+        g1, _g2 = _related(rng, rows)
+        inps = [tl._add_scalar_params(prepare_sheared(
+            g1, build_leaf_graph("ACGTTGCA" * 8, alph.DNA), MODEL,
+            AlignSettings(), np.float32))]
+    kw = VP.probe_args(job_arrays(inps), cuda, TD=16)
+    if rows > 511:
+        kw["ms"] = kw["ms"][:512].contiguous()
+    assert (kw["ms"].shape[2] > tl.SHARED_ROWS) == (rows > 511)
+    key = "probe:" + VP.probe_variant(opts)
+    n0 = VP.LAUNCHES[key]
+    out = VP.probe_fill(**kw, opts=opts)
+    ref = VP.probe_fill_plain(**kw, opts=opts)
+    torch.cuda.synchronize()
+    assert VP.LAUNCHES[key] == n0 + 1
+    # under nobp the probe's codes are undefined, as in the JAX kernel
+    _same_probe(out, ref, codes="nobp" not in opts)
+
+
+@pytest.mark.parametrize("shape", [(2, 512, 512), (2, 4096, 512),
+                                   (1, 4224, 256)])
+@pytest.mark.parametrize("variant", ["", "nobp", "noroll", "nomask",
+                                     "nobp,noroll", "nobp,noroll,nomask"],
+                         ids=lambda v: v or "full")
+def test_bisect_kernel_matches_plain(cuda, variant, shape):
+    """Kernel F's bisect entry point, every variant, on the tool's random
+    inputs: 512 and 4,096 rows (shared memory, the latter its top) and
+    4,224 rows (global scratch)."""
+    kw = bisect_inputs(*shape, cuda)
+    key = "bisect:" + VP.bisect_variant(variant)
+    n0 = VP.LAUNCHES[key]
+    out = VP.bisect_fill(**kw, variant=variant)
+    ref = VP.bisect_fill_plain(**kw, variant=variant)
+    torch.cuda.synchronize()
+    assert VP.LAUNCHES[key] == n0 + 1
+    _same_probe(out, ref)
+
+
+def test_probe_base_matches_kernel_a(cuda):
+    """The probe's base case and kernel A on one batch: codes equal but
+    the x/m bits of row 0, corner cell equal to kernel A's corner."""
+    inps, _cells = pair_jobs(3, 600)
+    jobs = job_arrays(inps)
+    bp, fM, fX, fY = VP.probe_fill(**VP.probe_args(jobs, cuda, TD=16))
+    codes, corner = tl.linear_fill(**tl.linear_batch_args(jobs, cuda))
+    torch.cuda.synchronize()
+    D = codes.shape[1]
+    a = codes[:, 1:].transpose(0, 1).to(torch.int16)
+    p = bp[:D - 1].to(torch.int16)
+    a[:, :, 0] &= 0x30
+    p[:, :, 0] &= 0x30
+    assert torch.equal(a, p)
+    L = inps[0]["L"]
+    got = torch.stack([fM[:, L - 1], fX[:, L - 1], fY[:, L - 1]], dim=1)
+    assert torch.equal(_bits(got), _bits(corner))
 
 
 def test_cli_cuda_matches_cpu(cuda, tmp_path):
