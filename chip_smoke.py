@@ -13,8 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ragged banded batch and 2 jobs past 4096 rows; codes and
                corner scores bit-equal
   kernel_fanin   kernel B vs fanin_fill_plain: 454-style K3/3 graphs at
-               16 x 2047, over-cap ancestor graphs, a windowed case;
-               codes and snapshots bit-equal
+               16 x 2047 (kernel timed), over-cap ancestor graphs, a
+               windowed case; codes and snapshots bit-equal
   kernel_banded  kernel C vs banded_fill_plain: a 3,500 bp pair with its
                narrow anchored band, a window of more than 128 rows, a
                band with the pair-end break scalars set, a band that
@@ -65,16 +65,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                every flag set of kernel F and kernel A launched, no plain
                version
   timing       each kernel and its plain version on the inputs its path
-               gave it (the fan-in plain versions of B, D and E on the
-               largest recorded call only: B's widest window, D's and
-               E's largest batch): bit-equal, ms per launch (CUDA
-               events) and the
+               gave it (the fan-in plain versions of D and E on the
+               largest recorded call only, their largest batch):
+               bit-equal, ms per launch (CUDA events) and the
                lower bound (kernel C: bit-equal on the long_family calls;
                kernel, plain version and bound on the megabase call cut
                to its first 16,384 diagonals; the kernel and its bound
                on the whole megabase call; kernels D and E per entry
                point on the calls of the --full-probability run, planes
-               bit-equal)
+               bit-equal; kernel B on every call of the main path and
+               of the --full-probability run, bit-equal, with its
+               launch plan and us per diagonal)
   trace        the main path and the --full-probability path once more
                under torch.profiler: the device's busy share and time by
                kernel
@@ -119,31 +120,6 @@ def fail(msg):
 
 def log(msg):
     print("chip_smoke: %s" % msg, flush=True)
-
-
-def family(n, L, seed=5):
-    """bench.py's progressive-family generator (bench_family_e2e): a
-    random base, 10% substitutions per sequence, and a 12-bp deletion
-    in every third sequence; a balanced guide tree."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    base = rng.choice(list("ACGT"), size=L)
-    seqs = []
-    for i in range(n):
-        mut = base.copy()
-        idx = rng.random(L) < 0.1
-        mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
-        s = "".join(mut)
-        if i % 3 == 1:
-            s = s[:L // 3] + s[L // 3 + 12:]
-        seqs.append(("s%d" % i, s))
-
-    def build(lo, hi):
-        if hi - lo == 1:
-            return "s%d:0.1" % lo
-        mid = (lo + hi) // 2
-        return "(%s,%s):0.05" % (build(lo, mid), build(mid, hi))
-    return seqs, build(0, n) + ";"
 
 
 def mutate(rng, base, p=0.1):
@@ -199,6 +175,18 @@ def max_abs_err(a, b):
     return float((a[fin] - b[fin]).abs().max())
 
 
+def fanin_launch(kw):
+    """Kernel B's launch plan for one call's arguments, as text."""
+    from pagan2_tpu_torch.align import viterbi_fanin as VF
+    KL, KR = kw["loff"].shape[2], kw["roff"].shape[2]
+    p = VF.launch_plan(kw["W"], kw["G"], KL, KR, kw["table"].shape[1])
+    return ("K %d/%d (%s), ring %s (%d of %d diagonals on chip), %d "
+            "threads x %d rows" % (KL, KR, "templated" if p["KL"]
+                                   else "runtime K", p["placement"],
+                                   p["hot"], kw["G"] + 1, p["threads"],
+                                   p["rows"]))
+
+
 def cuda_ms(fn, reps):
     """Milliseconds per call of fn on the current stream (CUDA events,
     after one warm-up call)."""
@@ -238,6 +226,7 @@ def main():
     from pagan2_tpu_torch.graph import build_leaf_graph
     from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
     from pagan2_tpu_torch.parallel import executor as EX
+    from pagan2_tpu_torch.tools.bench_fanin import family
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -313,7 +302,7 @@ def main():
     lin_err = max(lin_err, linear_check(inps, [None] * 2, "5000 rows"))
 
     # ---- kernel_fanin ----
-    def fanin_check(inps, what, **kw):
+    def fanin_check(inps, what, timed=False, **kw):
         args = VF.fanin_batch_args(inps, dev, **kw)
         bp, snap = VF.fanin_fill(**args)
         pb, ps = VF.fanin_fill_plain(**args)
@@ -329,9 +318,16 @@ def main():
             "bit-equal" % (what, len(inps), args["W"], args["G"],
                            args["loff"].shape[2], args["roff"].shape[2],
                            args["ilo"].shape[1]))
+        if timed:
+            D = args["ilo"].shape[1]
+            fan_454_ms[0] = cuda_ms(lambda: VF.fanin_fill(**args), 3)
+            log("kernel_fanin %s: kernel %.3f ms (%.3f us per diagonal); "
+                "%s" % (what, fan_454_ms[0], 1e3 * fan_454_ms[0] / D,
+                        fanin_launch(args)))
         return max_abs_err(snap, ps)
 
     fan_err = 0.0
+    fan_454_ms = [None]
     inps = []
     for _ in range(16):
         base = rng.choice(list("ACGT"), size=2047)
@@ -340,7 +336,7 @@ def main():
         g1 = build_leaf_graph("".join(base), alph.DNA, mode454=True)
         g2 = build_leaf_graph(mutate(rng, base), alph.DNA, mode454=True)
         inps.append(VF.prepare_fanin(g1, g2, model, settings, np.float32))
-    fan_err = max(fan_err, fanin_check(inps, "454 16x2047"))
+    fan_err = max(fan_err, fanin_check(inps, "454 16x2047", timed=True))
 
     # over-cap ancestors: built on the card from leaves with a 12-bp
     # deletion (skip offset 13, past the JAX Pallas kernel's caps)
@@ -1100,7 +1096,9 @@ def main():
                 nbytes += 4 * L * kw["seed"].shape[1]
         return nbytes, ops
 
-    def shape(kw):
+    def shape(kw, ms=None):
+        """A recorded call's shape as text (kernel B's with its launch
+        plan and, given its ms, the time per diagonal)."""
         if "ms2" in kw or "msp" in kw:
             t = kw["ms2"] if "ms2" in kw else kw["msp"]
             slots = [kw[k].shape[2] for k in ("loff", "roff", "lfoff",
@@ -1113,17 +1111,21 @@ def main():
             return "D-1, Wk = %s" % (tuple(kw["ms"].shape),)
         if "ms" in kw:
             return "B, D, Lp = %s" % (tuple(kw["ms"].shape),)
-        return "B %d, D %d, W %d, G %d" % (kw["ilo"].shape + (kw["W"],
-                                                               kw["G"]))
+        B, D = kw["ilo"].shape
+        return "B %d, D %d, W %d, G %d, %s%s" % (
+            B, D, kw["W"], kw["G"], fanin_launch(kw),
+            "" if ms is None else ", %.3f us per diagonal" % (1e3 * ms / D))
 
     def time_kernel(calls, real, plain, bound, same, reps, pick=None):
         """Per-launch means over a path's recorded calls: kernel ms,
-        plain ms, bound ms and what bounds it. Every call, or with
+        plain ms, bound ms and what bounds it, then the error, the
+        bound's two times and each call's kernel ms. Every call, or with
         `pick` only the call of the largest pick(kw), is held bit-equal
         to the plain version and gives the plain mean; the fan-in plain
-        versions take seconds a call, so their paths compare and time
-        their largest call."""
+        versions of D and E take seconds a call, so their paths compare
+        and time their largest call."""
         k_ms = p_ms = b_ms = err = by_bytes = by_ops = 0.0
+        per_call = []
         compared = range(len(calls)) if pick is None else \
             [max(range(len(calls)), key=lambda n: pick(calls[n]))]
         for n, kw in enumerate(calls):
@@ -1146,31 +1148,38 @@ def main():
                 p = t0.elapsed_time(t1)
                 p_ms += p
             k = cuda_ms(lambda: real(**kw), reps)
+            per_call.append(k)
             nbytes, ops = bound(kw)
             tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             log("timing %s call %d (%s): kernel %.3f ms, plain %.1f ms, "
                 "bound %.5f ms (%.0f bytes, %.0f operations)"
-                % (real.__name__, n, shape(kw), k, p, 1e3 * max(tb, to),
+                % (real.__name__, n, shape(kw, k), k, p, 1e3 * max(tb, to),
                    nbytes, ops))
             k_ms, b_ms = k_ms + k, b_ms + 1e3 * max(tb, to)
             by_bytes, by_ops = by_bytes + tb, by_ops + to
         n = len(calls)
         return (k_ms / n, p_ms / len(compared), b_ms / n,
                 "bytes" if by_bytes >= by_ops else "operations", err,
-                by_bytes, by_ops)
+                by_bytes, by_ops, per_call)
 
     lin_t = time_kernel(recorded["linear"], VL.linear_fill,
                         VL.linear_fill_plain, linear_bound, same_floats, 5)
     fan_t = time_kernel(recorded["fanin"], VF.fanin_fill,
-                        VF.fanin_fill_plain, fanin_bound, same_floats, 3,
-                        pick=lambda kw: (kw["W"], kw["ilo"].shape[0]))
+                        VF.fanin_fill_plain, fanin_bound, same_floats, 3)
+    # kernel B also on the full-width calls of the --full-probability
+    # run, each held bit-equal to its plain version
+    fan_fp_t = time_kernel(rec_fp["fanin"], VF.fanin_fill,
+                           VF.fanin_fill_plain, fanin_bound, same_floats, 3)
     lin_err = max(lin_err, lin_t[4])
-    fan_err = max(fan_err, fan_t[4])
+    fan_err = max(fan_err, fan_t[4], fan_fp_t[4])
+    fan_fp_ms = fan_fp_t[7]
+    log("timing fanin_fill: the %d full-width calls of the fullprob_path "
+        "run take %.3f ms together, bit-equal" % (len(fan_fp_ms),
+                                                  sum(fan_fp_ms)))
     for name, t in (("linear", lin_t), ("fanin", fan_t)):
         log("timing %s: kernel %.3f ms/launch over %d main-path calls, "
             "plain %.1f ms (%s), bound %.5f ms (%s), bit-equal"
-            % (name, t[0], len(recorded[name]), t[1],
-               "widest call" if name == "fanin" else "every call", t[2],
+            % (name, t[0], len(recorded[name]), t[1], "every call", t[2],
                t[3]))
     # kernels D and E on the calls the --full-probability run made:
     # each entry point timed on its own calls (planes bit-equal, cum
@@ -1306,7 +1315,8 @@ def main():
          "replaces": "pagan2_tpu/align/viterbi_pallas_fanin.py:140",
          "launches": counts["fanin"], "max_abs_err": fan_err,
          "ms": fan_t[0], "plain_ms": fan_t[1], "bound_ms": fan_t[2],
-         "bound_by": fan_t[3], "library_ms": None},
+         "bound_by": fan_t[3], "library_ms": None,
+         "fullprob_calls_ms": fan_fp_ms, "k454_16x2047_ms": fan_454_ms[0]},
         {"name": "viterbi_banded", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_banded.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_banded.py:79",

@@ -53,9 +53,14 @@ _P_NONE = 255
 LAUNCHES = 0          # kernel B launches (one per fanin_fill on CUDA)
 PLAIN_CALLS = 0       # fanin_fill_plain calls made by fanin_fill
 
-# a ring of up to this many bytes stays in shared memory (H100: 227 KB
-# per block with the opt-in); larger rings live in a global scratch
-SHARED_RING_BYTES = 200 * 1024
+# dynamic shared memory a block may take on an H100 (with the opt-in)
+SHARED_BYTES = 227 * 1024
+# kernel B is templated on the fan-in (KL, KR) up to this; a larger
+# fan-in launches its runtime-K instantiation
+TEMPLATE_K = 4
+# the fewest diagonals kept in shared memory when the whole ring does
+# not fit: d itself, d - 1 (offset-1 gaps) and d - 2 (offset-2 matches)
+MIN_HOT = 3
 
 # anchoring gate for scan-core-bound fan-in pairs (the global
 # anchor_min_sites=3000 assumes cheap linear cells); matches the JAX
@@ -302,13 +307,63 @@ def _check_args(args: dict, G: int, W: int):
     return B, D, Lr, Rr, KL, KR, nf
 
 
+def launch_plan(W: int, G: int, KL: int, KR: int, nf: int) -> dict:
+    """How kernel B is launched for a window of W rows, ring depth G,
+    fan-in KL x KR and an nf x nf match table:
+
+    - KL, KR: the templated instantiation (the fan-in itself up to
+      TEMPLATE_K on both sides, else 0, 0: the runtime-K one);
+    - placement and hot: "shared" keeps all G + 1 ring diagonals in
+      shared memory (hot = G + 1); "hot" keeps the newest hot >= MIN_HOT
+      there and every diagonal also in a global ring; "global" keeps
+      none on chip (hot = 0);
+    - threads: a block of ceil(W / rows) threads rounded up to a warp,
+      rows = the window positions per thread: 1 up to W = 512, else at
+      least 2, and at most 1024 threads (512 for a templated fan-in
+      past 2 x 2, whose staged edge words need the registers);
+    - ahead: how many cells ahead a thread stages its inputs (2 in a
+      block of at most 256 threads, else 1; the kernel has each of
+      these built for its block sizes only, and refuses another plan);
+    - smem: dynamic shared bytes (hot ring, table, window-start ring),
+      at most SHARED_BYTES."""
+    GR = G + 1
+    fixed = 4 * (nf * nf + GR)
+    if fixed > SHARED_BYTES:
+        raise ValueError("kernel B: a %d x %d table and a ring of %d "
+                         "diagonals leave no shared memory" % (nf, nf, GR))
+    hot = min(GR, (SHARED_BYTES - fixed) // (12 * W))
+    if hot < min(GR, MIN_HOT):
+        hot = 0
+    placement = "shared" if hot == GR else "hot" if hot else "global"
+    if KL <= TEMPLATE_K and KR <= TEMPLATE_K:
+        kl, kr = KL, KR
+    else:
+        kl = kr = 0
+    max_threads = 1024 if kl <= 2 and kr <= 2 else 512
+    # one window position a thread up to 512 rows, at least two beyond
+    # (on the H100 the W 640-1024 calls ran faster with two than one)
+    rows = 1 if W <= 512 else max(2, -(-W // max_threads))
+    threads = -(-W // (rows * 32)) * 32
+    return dict(KL=kl, KR=kr, placement=placement, hot=hot,
+                threads=threads, rows=rows, ahead=2 if threads <= 256 else 1,
+                smem=fixed + 12 * W * hot)
+
+
 def fanin_fill(lstate, rstate, table, loff, llw, lopen, gexti, bup, blo,
                roff, rlw, ropen, gextj, ilo, fscal, iscal, G: int, W: int):
     """Fill a batch of fan-in pairs (argument layout: fanin_batch_args).
     Returns (bp (B, D, W) int32 holding the uint32 codes
     bm | bx << 16 | by << 24 of cell (ilo[b, d] + t, d - ilo[b, d] - t)
     at [b, d, t], and snaps (B, 3, G, W) f32: M, X, Y of diagonal
-    L + R - 2 - g at [b, :, g])."""
+    L + R - 2 - g at [b, :, g]).
+
+    On a CUDA tensor it launches kernel B as launch_plan(W, G, KL, KR,
+    nf) says: the (KL, KR) instantiation up to 4 x 4, else the runtime-K
+    one; the ring in shared memory, its newest diagonals there and all
+    of it in a global scratch (B, 3, G + 1, W), or all of it there; a
+    block of the plan's threads, each staging its inputs the plan's
+    `ahead` cells ahead. The kernel refuses a plan it has no build for,
+    and the wrapper raises on any launch error."""
     global LAUNCHES, PLAIN_CALLS
     args = dict(lstate=lstate, rstate=rstate, table=table, loff=loff,
                 llw=llw, lopen=lopen, gexti=gexti, bup=bup, blo=blo,
@@ -322,20 +377,20 @@ def fanin_fill(lstate, rstate, table, loff, llw, lopen, gexti, bup, blo,
     lib = kernels.load("viterbi_fanin")
     fn = lib.viterbi_fanin_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + \
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 15 + \
         [ctypes.c_void_p]
+    plan = launch_plan(W, G, KL, KR, nf)
     bp = torch.empty((B, D, W), dtype=torch.int32, device=dev)
     snap = torch.empty((B, 3, G, W), dtype=torch.float32, device=dev)
-    use_shared = 3 * (G + 1) * W * 4 <= SHARED_RING_BYTES
-    gring = None if use_shared else torch.empty(
+    gring = None if plan["placement"] == "shared" else torch.empty(
         (B, 3, G + 1, W), dtype=torch.float32, device=dev)
-    threads = min(1024, -(-W // 32) * 32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*[args[n].data_ptr() for n, _, _ in _ARG_SPEC],
                  bp.data_ptr(), snap.data_ptr(),
                  0 if gring is None else gring.data_ptr(),
-                 B, D, W, G, Lr, Rr, KL, KR, nf, int(use_shared), threads,
+                 B, D, W, G, Lr, Rr, KL, KR, nf, plan["hot"], plan["KL"],
+                 plan["KR"], plan["threads"], plan["ahead"], plan["smem"],
                  stream)
     kernels.check(err, "viterbi_fanin")
     LAUNCHES += 1

@@ -99,6 +99,146 @@ def test_fanin_kernel_matches_plain(cuda, windowed):
     assert torch.equal(_bits(snap), _bits(ps))
 
 
+def _runs_graph(rng, n, run):
+    """A leaf graph of n sites with no repeated base but one run of
+    `run` bases: with --homopolymer its fan-in K and largest skip
+    offset are both `run` (a plain linear graph when run is 1)."""
+    s = [str(rng.choice(list("ACGT")))]
+    while len(s) < n:
+        s.append(str(rng.choice([c for c in "ACGT" if c != s[-1]])))
+        if len(s) == n // 3:
+            s += s[-1] * (run - 1)
+    return build_leaf_graph("".join(s[:n]), alph.DNA, homopolymer=run > 1)
+
+
+def _window(inp, W, step=2, jump=1):
+    """A band of +-W/3 columns around the diagonal and window starts
+    that advance `jump` rows every `step` diagonals."""
+    L, R = inp["L"], inp["R"]
+    D = L + R - 1
+    c = np.arange(L) * R // L
+    inp["band_upper"] = np.maximum(c - W // 3, 0).astype(np.int32)
+    inp["band_lower"] = np.minimum(c + W // 3, R - 1).astype(np.int32)
+    ilo = np.clip(np.arange(D) // step * jump - W // 2, 0, L - 1)
+    return dict(W=W, ilo=ilo.astype(np.int32))
+
+
+def _largest_shared_g(W, nf):
+    G = 1
+    while tf.launch_plan(W, G + 1, 1, 1, nf)["placement"] == "shared":
+        G += 1
+    return G
+
+
+def _fanin_shape_case(case, rng):
+    """(prep dicts, fanin_batch_args keywords, expected launch_plan
+    entries) of one shape class of kernel B."""
+    S = AlignSettings()
+
+    def prep(n1, r1, n2, r2):
+        return tf.prepare_fanin(_runs_graph(rng, n1, r1),
+                                _runs_graph(rng, n2, r2), MODEL, S,
+                                np.float32)
+    if case.startswith("k"):                     # "k<KL>x<KR>"
+        kl, kr = (int(v) for v in case[1:].split("x"))
+        inp = prep(90, kl, 80, kr)
+        assert (inp["KL"], inp["KR"]) == (kl, kr)
+        templ = kl <= tf.TEMPLATE_K and kr <= tf.TEMPLATE_K
+        return [inp], {}, dict(KL=kl if templ else 0, KR=kr if templ else 0)
+    if case == "w32":
+        inp = prep(300, 2, 280, 2)
+        return [inp], _window(inp, 32), dict(threads=32, rows=1)
+    if case == "w50":
+        inp = prep(300, 3, 290, 2)
+        return [inp], _window(inp, 50), dict(threads=64, rows=1)
+    if case == "w1100":                          # more rows than threads
+        inp = prep(1100, 3, 60, 3)
+        return [inp], {}, dict(rows=3, placement="shared")
+    if case in ("ring_shared", "ring_hot"):      # either side of 227 KB
+        inp = prep(700, 2, 40, 2)
+        G = _largest_shared_g(inp["L"], 15) + (case == "ring_hot")
+        return [inp], dict(G=G), dict(
+            placement="shared" if case == "ring_shared" else "hot")
+    if case == "hot_split":
+        inp = prep(1500, 4, 30, 4)
+        return [inp], dict(G=40), dict(placement="hot", hot=12)
+    if case == "global":
+        inp = prep(6600, 2, 8, 1)
+        return [inp], {}, dict(placement="global", hot=0)
+    if case == "g1":
+        inp = prep(120, 2, 110, 2)
+        return [inp], dict(G=1), dict(hot=2)
+    if case == "offsets_past_g":
+        inp = prep(150, 4, 140, 3)
+        return [inp], dict(G=3), dict(KL=4, KR=3)
+    if case == "ilo_jumps":
+        inp = prep(400, 3, 390, 2)
+        return [inp], _window(inp, 96, step=6, jump=3), {}
+    if case == "ragged_batch":
+        return [prep(200, 3, 150, 2), prep(130, 2, 190, 3),
+                prep(60, 1, 70, 1)], {}, dict(KL=3, KR=3)
+    if case == "corner_beyond_d":
+        inp = prep(100, 2, 90, 2)
+        return [inp], dict(D=inp["L"] + inp["R"] - 6), {}
+    raise ValueError(case)
+
+
+FANIN_SHAPES = (["w32", "w50", "w1100", "ring_shared", "ring_hot",
+                 "hot_split", "global", "g1", "offsets_past_g", "ilo_jumps",
+                 "ragged_batch", "corner_beyond_d", "k6x2"]
+                + ["k%dx%d" % (kl, kr) for kl in range(1, 5)
+                   for kr in range(1, 5)])
+
+
+@pytest.mark.parametrize("case", FANIN_SHAPES)
+def test_fanin_kernel_shape_classes(cuda, case):
+    """Kernel B against its plain version on each shape class of its
+    launch plan: codes equal, corner snapshots bit-equal."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    inps, kw, want = _fanin_shape_case(case, rng)
+    args = tf.fanin_batch_args(inps, cuda, **kw)
+    plan = tf.launch_plan(args["W"], args["G"], args["loff"].shape[2],
+                          args["roff"].shape[2], args["table"].shape[1])
+    assert {k: plan[k] for k in want} == want
+    n0 = tf.LAUNCHES
+    bp, snap = tf.fanin_fill(**args)
+    pb, ps = tf.fanin_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES == n0 + 1
+    assert torch.equal(bp, pb), int((bp != pb).sum())
+    assert torch.equal(_bits(snap), _bits(ps))
+    assert bool(torch.isfinite(snap).any()) == (case != "corner_beyond_d")
+
+
+@pytest.mark.parametrize("W, ahead, built", [(50, 1, True), (50, 3, False),
+                                             (300, 2, False)])
+def test_fanin_kernel_takes_only_plans_it_has_built(cuda, monkeypatch, W,
+                                                    ahead, built):
+    """The kernel launches the build that launch_plan's `ahead` names
+    (one cell ahead in a small block: bit-equal) and refuses a plan
+    with no build (three ahead; two ahead past 256 threads): the
+    wrapper raises and counts no launch."""
+    rng = np.random.default_rng(W + ahead)
+    inp = tf.prepare_fanin(_runs_graph(rng, 300, 3), _runs_graph(rng, 290, 2),
+                           MODEL, AlignSettings(), np.float32)
+    args = tf.fanin_batch_args([inp], cuda, **_window(inp, W))
+    plan = tf.launch_plan
+    monkeypatch.setattr(tf, "launch_plan",
+                        lambda *a: dict(plan(*a), ahead=ahead))
+    n0 = tf.LAUNCHES
+    if not built:
+        with pytest.raises(RuntimeError, match="viterbi_fanin launch"):
+            tf.fanin_fill(**args)
+        assert tf.LAUNCHES == n0
+        return
+    bp, snap = tf.fanin_fill(**args)
+    pb, ps = tf.fanin_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES == n0 + 1
+    assert torch.equal(bp, pb)
+    assert torch.equal(_bits(snap), _bits(ps))
+
+
 @pytest.mark.parametrize("half", [20, 300])
 def test_banded_kernel_matches_plain(cuda, half):
     """Kernel C on a narrow window (one warp) and a window of more than

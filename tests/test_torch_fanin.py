@@ -175,3 +175,70 @@ def test_fanin_plain_matches_scan_core(tmp_path, case, windowed):
     for m, s in enumerate((sM, sX, sY)):
         assert np.array_equal(_bits(tsnap[0, m].numpy()),
                               _bits(np.asarray(s)[0]))
+
+
+# kernel B's launch plan: (W, G, KL, KR, nf) -> (instantiation,
+# placement, diagonals on chip, threads, window positions per thread)
+PLANS = [
+    # the 16 x 1535 main path's windowed and full-width calls
+    ((32, 26, 2, 2, 15), (2, 2, "shared", 27, 32, 1)),
+    ((512, 26, 2, 2, 15), (2, 2, "shared", 27, 512, 1)),
+    ((640, 26, 2, 2, 15), (2, 2, "shared", 27, 320, 2)),
+    ((1024, 14, 2, 1, 15), (2, 1, "shared", 15, 512, 2)),
+    ((1536, 14, 2, 1, 15), (2, 1, "hot", 12, 768, 2)),
+    ((1536, 26, 2, 2, 15), (2, 2, "hot", 12, 768, 2)),
+    # 454 K3/3 pairs at full width; a fan-in past 2 x 2 takes 512 threads
+    ((2048, 6, 3, 3, 15), (3, 3, "shared", 7, 512, 4)),
+    ((1100, 4, 3, 3, 15), (3, 3, "shared", 5, 384, 3)),
+    # a window that is not a multiple of 32; a protein table
+    ((50, 4, 1, 1, 20), (1, 1, "shared", 5, 64, 1)),
+    # past the templates: the runtime-K instantiation
+    ((100, 8, 9, 2, 15), (0, 0, "shared", 9, 128, 1)),
+    ((300, 12, 4, 5, 15), (0, 0, "shared", 13, 320, 1)),
+    # too wide for 3 diagonals on chip
+    ((7000, 26, 1, 1, 15), (1, 1, "global", 0, 1024, 7)),
+]
+
+
+@pytest.mark.parametrize("key,want", PLANS)
+def test_fanin_launch_plan(key, want):
+    p = tf.launch_plan(*key)
+    assert (p["KL"], p["KR"], p["placement"], p["hot"], p["threads"],
+            p["rows"]) == want
+    W, G, KL, KR, nf = key
+    assert p["smem"] == 4 * (nf * nf + G + 1) + 12 * W * p["hot"]
+    assert p["smem"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("nf", [4, 15, 20, 64])
+@pytest.mark.parametrize("K", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 3)])
+def test_fanin_launch_plan_limits(nf, K):
+    """Over a grid of widths and ring depths: shared bytes within the
+    H100's 227 KB, the whole ring on chip exactly when it fits, else the
+    most diagonals that fit (at least 3, or none), every window position
+    owned by one thread of a block of whole warps with no idle warp."""
+    KL, KR = K
+    templ = max(KL, KR) <= tf.TEMPLATE_K
+    for W in (1, 31, 32, 33, 500, 1023, 1024, 1025, 2047, 4096, 6000,
+              7000, 20000):
+        for G in (1, 2, 6, 14, 26, 64, 200):
+            p = tf.launch_plan(W, G, KL, KR, nf)
+            fixed = 4 * (nf * nf + G + 1)
+            assert p["smem"] == fixed + 12 * W * p["hot"] <= 227 * 1024
+            fits = fixed + 12 * W * (G + 1) <= 227 * 1024
+            assert (p["placement"] == "shared") == fits
+            if fits:
+                assert p["hot"] == G + 1
+            elif p["hot"]:
+                assert p["placement"] == "hot" and 3 <= p["hot"] <= G
+                assert fixed + 12 * W * (p["hot"] + 1) > 227 * 1024
+            else:
+                assert p["placement"] == "global"
+                assert fixed + 12 * W * 3 > 227 * 1024
+            assert (p["KL"], p["KR"]) == ((KL, KR) if templ else (0, 0))
+            cap = 1024 if max(p["KL"], p["KR"]) <= 2 else 512
+            t, rows = p["threads"], p["rows"]
+            assert t % 32 == 0 and t <= cap
+            assert rows == (1 if W <= 512 else max(2, -(-W // cap)))
+            assert t * rows >= W > (t - 32) * rows
+            assert p["ahead"] == (2 if t <= 256 else 1)
