@@ -23,9 +23,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernel_fullprob  kernels D and E vs their plain versions: linear, 8
                jobs at 2047 x 2047 and a ragged batch; fan-in, 454-style
                K3/3 graphs, over-cap ancestor pairs and a deep ring
-               (40-bp deletion edges); planes bit-equal, cum within
-               D * eps * max(1, |cum|); posteriors of a small linear and a
-               small fan-in pair against the f64 host oracle
+               (40-bp deletion edges); then kernel E alone where its
+               launch plans take their other branches: linear buffers in
+               device memory (4,300 rows), a fan-in ring with no diagonal
+               on chip (6,600 rows) and a right-slot table too large for
+               shared memory (15,000 columns), each of E's placements
+               (ring shared, hot, global; table shared, device) seen;
+               planes bit-equal, cum within D * eps * max(1, |cum|);
+               posteriors of a small linear and a small fan-in pair
+               against the f64 host oracle
   kernel_probe   kernel F (the probe's and the bisect's ablation
                variants of the linear step) vs its plain versions: every
                flag set of both entry points on 4 x 511 bp pairs and on
@@ -73,7 +79,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                to its first 16,384 diagonals; the kernel and its bound
                on the whole megabase call; kernels D and E per entry
                point on the calls of the --full-probability run, planes
-               bit-equal; kernel B on every call of the main path and
+               bit-equal, kernel E with its launch plans and us per
+               diagonal; kernel B on every call of the main path and
                of the --full-probability run, bit-equal, with its
                launch plan and us per diagonal)
   trace        the main path and the --full-probability path once more
@@ -227,6 +234,8 @@ def main():
     from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
     from pagan2_tpu_torch.parallel import executor as EX
     from pagan2_tpu_torch.tools.bench_fanin import family
+    from pagan2_tpu_torch.tools.bench_fullprob import (fanin_plan_text,
+                                                       plan_text)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -450,6 +459,24 @@ def main():
         return max(max_abs_err(out[0], ref[0]), max_abs_err(out[1], ref[1]))
 
     fp_err = {"fwd": 0.0, "bwd": 0.0}
+    # kernel E's placements met in kernel_fullprob: ring shared / hot /
+    # global, table shared / device, linear buffers shared / global
+    e_seen = set()
+
+    def e_plan(name, kw):
+        """Kernel E's plan of one call as text; notes its placements."""
+        if name == "fullprob_bwd":
+            e_seen.add("linear buffers " + (
+                "shared" if FF.bwd_linear_plan(kw["ms2"].shape[2])["shared"]
+                else "global"))
+        elif name == "fullprob_bwd_fanin":
+            lo, ro = kw["lfoff"], kw["rfoff"]
+            p = FF.bwd_fanin_plan(lo.shape[1], kw["G"], lo.shape[2],
+                                  ro.shape[2], ro.shape[1])
+            e_seen.update(("ring " + p["placement"], "table " + (
+                "shared" if p["rtab"] else "device")))
+        text = plan_text(FF, name, kw)
+        return "; " + text if text else ""
 
     def fullprob_check(what, calls):
         """calls: [(direction, wrapper, plain version, kwargs)]."""
@@ -468,10 +495,10 @@ def main():
                      % (what, fn.__name__))
             fp_err[direction] = max(fp_err[direction], fills_err(out, ref))
             log("kernel_fullprob %s: %s B, 3, D, Lp = %s%s: planes "
-                "bit-equal, cum max |err| %g"
+                "bit-equal, cum max |err| %g%s"
                 % (what, fn.__name__, tuple(out[0].shape),
                    ", G %d" % kw["G"] if "G" in kw else "",
-                   max_abs_err(out[1], ref[1])))
+                   max_abs_err(out[1], ref[1]), e_plan(fn.__name__, kw)))
 
     def linear_fp_calls(pairs):
         kw = FF.linear_batch_args(
@@ -527,6 +554,29 @@ def main():
         fail("kernel_fullprob: the deep-ring pair has ring depth %d"
              % calls[0][3]["G"])
     fullprob_check("fan-in deep ring", calls)
+    # kernel E's other plan branches: the linear buffers in device memory
+    # (past 4096 rows), a fan-in ring with no diagonal on chip (no 3
+    # diagonals of 6,600 rows fit) and a right-slot table too large for
+    # shared memory (15,000 columns of two homopolymer slots)
+    def seq(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+    fullprob_check("linear 4300 rows", linear_fp_calls(
+        [(build_leaf_graph(seq(4300), alph.DNA),
+          build_leaf_graph(seq(400), alph.DNA))])[1:])
+    fullprob_check("fan-in 6600 rows", fanin_fp_calls(
+        [(build_leaf_graph(seq(6600), alph.DNA),
+          build_leaf_graph(seq(30), alph.DNA))])[1:])
+    fullprob_check("fan-in 15000 columns", fanin_fp_calls(
+        [(build_leaf_graph(seq(40), alph.DNA, homopolymer=True),
+          build_leaf_graph(seq(15000), alph.DNA, homopolymer=True))])[1:])
+    want = {"ring shared", "ring hot", "ring global", "table shared",
+            "table device", "linear buffers shared",
+            "linear buffers global"}
+    if not want <= e_seen:
+        fail("kernel_fullprob: kernel E's plans never chose %s"
+             % sorted(want - e_seen))
+    log("kernel_fullprob: kernel E's placements seen: %s"
+        % ", ".join(sorted(e_seen)))
 
     # posteriors and totals against the f64 host oracle
     from dataclasses import replace as _replace
@@ -1096,17 +1146,22 @@ def main():
                 nbytes += 4 * L * kw["seed"].shape[1]
         return nbytes, ops
 
-    def shape(kw, ms=None):
-        """A recorded call's shape as text (kernel B's with its launch
-        plan and, given its ms, the time per diagonal)."""
+    def shape(kw, ms=None, name=None):
+        """A recorded call's shape as text (kernels B and E with their
+        launch plans and, given ms, the time per diagonal; `name`: the
+        wrapper, which tells D's and E's linear calls apart)."""
         if "ms2" in kw or "msp" in kw:
             t = kw["ms2"] if "ms2" in kw else kw["msp"]
             slots = [kw[k].shape[2] for k in ("loff", "roff", "lfoff",
                                               "rfoff") if k in kw]
-            return "B, D, Lp = %s%s" % (
+            return "B, D, Lp = %s%s%s%s" % (
                 tuple(t.shape), ", K %d/%d, G %d" % (slots[0], slots[1],
                                                      kw["G"])
-                if "G" in kw else "")
+                if "G" in kw else "",
+                "; " + plan_text(FF, name, kw) if name and
+                plan_text(FF, name, kw) else "",
+                "" if ms is None else ", %.3f us per diagonal"
+                % (1e3 * ms / t.shape[1]))
         if "sched" in kw:
             return "D-1, Wk = %s" % (tuple(kw["ms"].shape),)
         if "ms" in kw:
@@ -1121,9 +1176,9 @@ def main():
         plain ms, bound ms and what bounds it, then the error, the
         bound's two times and each call's kernel ms. Every call, or with
         `pick` only the call of the largest pick(kw), is held bit-equal
-        to the plain version and gives the plain mean; the fan-in plain
-        versions of D and E take seconds a call, so their paths compare
-        and time their largest call."""
+        to the plain version and gives the plain mean; kernel D's fan-in
+        plain version takes seconds a call, so its path compares and
+        times its largest call."""
         k_ms = p_ms = b_ms = err = by_bytes = by_ops = 0.0
         per_call = []
         compared = range(len(calls)) if pick is None else \
@@ -1153,8 +1208,8 @@ def main():
             tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             log("timing %s call %d (%s): kernel %.3f ms, plain %.1f ms, "
                 "bound %.5f ms (%.0f bytes, %.0f operations)"
-                % (real.__name__, n, shape(kw, k), k, p, 1e3 * max(tb, to),
-                   nbytes, ops))
+                % (real.__name__, n, shape(kw, k, real.__name__), k, p,
+                   1e3 * max(tb, to), nbytes, ops))
             k_ms, b_ms = k_ms + k, b_ms + 1e3 * max(tb, to)
             by_bytes, by_ops = by_bytes + tb, by_ops + to
         n = len(calls)
@@ -1198,11 +1253,11 @@ def main():
         fp_t[k] = time_kernel(rec_fp[k], getattr(m, n),
                               getattr(m, n + "_plain"), fullprob_bound,
                               cum_close, 3,
-                              pick=fp_batch if k.endswith("fanin") else None)
+                              pick=fp_batch if k == "fp_fwd_fanin" else None)
         log("timing %s: kernel %.3f ms/launch over %d fullprob_path calls, "
             "plain %.1f ms (%s), bound %.5f ms (%s), planes bit-equal, cum "
             "max |err| %g" % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1],
-                              "largest batch" if k.endswith("fanin")
+                              "largest batch" if k == "fp_fwd_fanin"
                               else "every call", fp_t[k][2], fp_t[k][3],
                               fp_t[k][4]))
 
@@ -1217,16 +1272,23 @@ def main():
             return sum(fp_t[k][col] * n[k] for k in keys) / tot
         by_bytes = sum(fp_t[k][5] for k in keys)
         by_ops = sum(fp_t[k][6] for k in keys)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": sum(counts_fp[k] for k in keys),
-                "max_abs_err": max([fp_err[direction]]
-                                   + [fp_t[k][4] for k in keys]),
-                "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
-                "bound_by": "bytes" if by_bytes >= by_ops
-                else "operations", "library_ms": None,
-                "linear_ms": fp_t[keys[0]][0],
-                "fanin_ms": fp_t[keys[1]][0]}
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": sum(counts_fp[k] for k in keys),
+                 "max_abs_err": max([fp_err[direction]]
+                                    + [fp_t[k][4] for k in keys]),
+                 "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
+                 "bound_by": "bytes" if by_bytes >= by_ops
+                 else "operations", "library_ms": None,
+                 "linear_ms": fp_t[keys[0]][0],
+                 "fanin_ms": fp_t[keys[1]][0]}
+        if direction == "bwd":
+            entry["fanin_plans"] = [fanin_plan_text(FF, kw)
+                                    for kw in rec_fp[keys[1]]]
+            entry["fanin_us_per_diagonal"] = [
+                1e3 * ms / kw["msp"].shape[1]
+                for ms, kw in zip(fp_t[keys[1]][7], rec_fp[keys[1]])]
+        return entry
 
     # kernel C: bit-equal to its plain version on the long_family calls
     # and on the megabase call cut to its first NPRE diagonals (the fill

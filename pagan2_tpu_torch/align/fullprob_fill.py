@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import SHARED_BYTES
 from .viterbi_linear import batch_rows, shear_table
 
 # kernel launches and plain-version calls made by each wrapper
@@ -43,11 +44,17 @@ LAUNCHES = {"fullprob_fwd": 0, "fullprob_bwd": 0,
             "fullprob_fwd_fanin": 0, "fullprob_bwd_fanin": 0}
 PLAIN_CALLS = dict(LAUNCHES)
 
-# rows whose diagonals (9 rows forward, 7 backward, 4 bytes a lane) fit
-# shared memory; longer left sides keep them in a global scratch
+# kernel D: rows whose diagonals (9 rows, 4 bytes a lane) fit shared
+# memory (longer left sides keep them in a global scratch), and the
+# largest fan-in ring kept in shared memory
 SHARED_ROWS = 4096
-# a fan-in ring of up to this many bytes stays in shared memory
 SHARED_RING_BYTES = 200 * 1024
+
+# kernel E's launch plans: the fewest ring diagonals worth keeping on
+# chip in a split ring (d+1 and d+2 make almost every read), and the
+# largest fan-in with a templated build
+MIN_HOT = 3
+TEMPLATE_K = 4
 
 # exp() argument clip of the fan-in backward seed (the reference's
 # log(f32 max) - 2, rounded to f32)
@@ -202,11 +209,90 @@ def _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G, seed=None):
 
 
 def _threads(Lp: int) -> int:
+    """Kernel D's block: a thread a lane up to 1024 lanes."""
     return min(1024, -(-Lp // 32) * 32)
 
 
+def _block(lanes: int, rows: int) -> int:
+    """Threads of a block whose threads own `rows` lanes each: whole
+    warps, enough for `lanes`."""
+    return -(-lanes // (rows * 32)) * 32
+
+
+def bwd_linear_plan(Lp: int) -> dict:
+    """How kernel E's linear entry point is launched on Lp lanes:
+
+    - rows: lanes a thread, whose raw M, X, Y stay in registers from one
+      step to the next: 1 up to 512 lanes, 2 up to 2048, 4 up to 4096,
+      in blocks of at most 1024 threads; past that 0, the build for any
+      count, which keeps raw Y and M in a global buffer;
+    - threads: ceil(Lp / rows) rounded up to a warp (at most 1024);
+    - shared, smem: the X and q rows of two diagonals (16 (Lp + 1)
+      bytes) in shared memory, or (rows 0) in a global buffer."""
+    rows = next((r for r, top in ((1, 512), (2, 2048), (4, 4096))
+                 if Lp <= top), 0)
+    threads = _block(Lp, rows) if rows else min(1024, _block(Lp, 1))
+    shared = rows > 0
+    return dict(rows=rows, threads=threads, shared=shared,
+                smem=16 * (Lp + 1) if shared else 0)
+
+
+def bwd_fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int) -> dict:
+    """How kernel E's fan-in entry point is launched on Lp lanes, ring
+    depth G, forward-edge fan-in KL x KR and Rr right-site rows:
+
+    - rtab: the right-site slot table (8 KR Rr bytes) is copied to
+      shared memory when it fits beside MIN_HOT ring diagonals, or
+      alone where not even those fit (else it is read from device
+      memory; on the H100 the copy took 0.4 us off a 3 us step);
+    - placement and hot: "shared" keeps all G + 1 ring diagonals of q,
+      X and Y (12 Lp bytes each) in shared memory (hot = G + 1); "hot"
+      keeps the newest hot >= MIN_HOT there and every diagonal also in a
+      global ring; "global" keeps none on chip (hot = 0). On the H100 a
+      ring of 3 hot diagonals took the same time as one of 11: offsets
+      1 and 2 make almost every read;
+    - KL, KR: the templated build (the fan-in itself up to TEMPLATE_K on
+      both sides, else 0, 0: runtime K);
+    - rows: lanes a thread, raw values in registers: 2 in blocks of up
+      to 768 threads (384 for a templated fan-in past 2 x 2, whose
+      unrolled slot loops spilled registers at 512); for a templated
+      fan-in up to 2 x 2 then 4 in blocks of up to 512 (on the H100
+      1.35-1.5x faster than the build for any count at 2,016 and 2,048
+      lanes); past that 0, the runtime-K build for any count, whose raw
+      values wait in the ring (blocks of up to 1024 threads);
+    - threads: ceil(Lp / rows) rounded up to a warp;
+    - smem: dynamic shared bytes (two rows of 32 warp maxima, G + 1
+      inverse scales, the hot ring, the table), at most SHARED_BYTES."""
+    GR = G + 1
+    fixed = 4 * (64 + GR)
+    table = 8 * KR * Rr
+    least = 12 * Lp * min(GR, MIN_HOT)
+    if fixed + least > SHARED_BYTES:
+        least = 0
+    rtab = fixed + table + least <= SHARED_BYTES
+    if rtab:
+        fixed += table
+    hot = min(GR, max(SHARED_BYTES - fixed, 0) // (12 * Lp))
+    if hot < min(GR, MIN_HOT):
+        hot = 0
+    placement = "shared" if hot == GR else "hot" if hot else "global"
+    kl, kr = (KL, KR) if max(KL, KR) <= TEMPLATE_K else (0, 0)
+    small_k = kl > 0 and max(kl, kr) <= 2
+    two = 768 if max(kl, kr) <= 2 else 384
+    if Lp <= 2 * two:
+        rows, threads = 2, _block(Lp, 2)
+    elif small_k and Lp <= 4 * 512:
+        rows, threads = 4, _block(Lp, 4)
+    else:
+        kl = kr = rows = 0
+        threads = min(1024, _block(Lp, 1))
+    return dict(KL=kl, KR=kr, rows=rows, threads=threads,
+                placement=placement, hot=hot, rtab=rtab,
+                smem=fixed + 12 * Lp * hot)
+
+
 def _launch_linear(name, rows, ms2, consts, iscal):
-    """One launch of a linear entry point; rows is the kernel's count of
+    """One launch of kernel D's linear entry point; rows is its count of
     state rows (what the global scratch holds past SHARED_ROWS)."""
     B, D, Lp = ms2.shape
     lib = kernels.load(name)
@@ -230,6 +316,30 @@ def _launch_linear(name, rows, ms2, consts, iscal):
     return planes, cum
 
 
+def _launch_bwd_linear(plan, ms2, consts, iscal):
+    """One launch of kernel E's linear entry point as `plan`
+    (bwd_linear_plan) says."""
+    B, D, Lp = ms2.shape
+    fn = kernels.load("fullprob_bwd").fullprob_bwd_linear_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p]
+    planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
+                         device=ms2.device)
+    cum = torch.empty((B, D), dtype=torch.float32, device=ms2.device)
+    gbuf = None if plan["shared"] else torch.empty(
+        (B, 6, Lp + 1), dtype=torch.float32, device=ms2.device)
+    with torch.cuda.device(ms2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ms2.data_ptr(), consts.data_ptr(), iscal.data_ptr(),
+                 planes.data_ptr(), cum.data_ptr(),
+                 0 if gbuf is None else gbuf.data_ptr(),
+                 B, D, Lp, plan["rows"], int(plan["shared"]),
+                 plan["threads"], plan["smem"], stream)
+    kernels.check(err, "fullprob_bwd")
+    return planes, cum
+
+
 def fullprob_fwd(ms2, consts, iscal):
     """Scaled forward planes of a batch of linear-chain pairs. ms2
     (B, D, Lp) f32: (msp * wl) * wr on diagonal d at row d. Returns
@@ -246,17 +356,26 @@ def fullprob_fwd(ms2, consts, iscal):
 def fullprob_bwd(ms2, consts, iscal):
     """Scaled backward planes of a batch of linear-chain pairs; the
     corner seed consts[:, 5] enters M at diagonal L + R - 2, lane L - 1.
-    Returns (planes (B, 3, D, Lp), cum (B, D))."""
+    Returns (planes (B, 3, D, Lp), cum (B, D)).
+
+    On a CUDA tensor it launches kernel E as bwd_linear_plan(Lp) says:
+    one block a pair of the plan's threads, each owning `rows` lanes,
+    the row buffers in shared memory or (past 4096 lanes) in a global
+    scratch (B, 6, Lp + 1). The kernel refuses a plan it has no build
+    for, and the wrapper raises on any launch error."""
     _check_linear(ms2, consts, iscal)
     if ms2.device.type == "cpu":
         PLAIN_CALLS["fullprob_bwd"] += 1
         return fullprob_bwd_plain(ms2, consts, iscal)
-    out = _launch_linear("fullprob_bwd", 7, ms2, consts, iscal)
+    out = _launch_bwd_linear(bwd_linear_plan(ms2.shape[2]), ms2, consts,
+                             iscal)
     LAUNCHES["fullprob_bwd"] += 1
     return out
 
 
-def _launch_fanin(name, msp, loff, lw, roff, rw, consts, iscal, G, seed):
+def _launch_fanin(name, msp, loff, lw, roff, rw, consts, iscal, G):
+    """One launch of kernel D's fan-in entry point, its ring in shared
+    memory up to SHARED_RING_BYTES."""
     B, D, Lp = msp.shape
     Rr, KL, KR = roff.shape[1], loff.shape[2], roff.shape[2]
     lib = kernels.load(name)
@@ -274,14 +393,39 @@ def _launch_fanin(name, msp, loff, lw, roff, rw, consts, iscal, G, seed):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(msp.data_ptr(), loff.data_ptr(), lw.data_ptr(),
                  roff.data_ptr(), rw.data_ptr(), consts.data_ptr(),
-                 iscal.data_ptr(),
-                 0 if seed is None else seed.data_ptr(),
-                 planes.data_ptr(), cum.data_ptr(),
+                 iscal.data_ptr(), 0, planes.data_ptr(), cum.data_ptr(),
                  0 if gring is None else gring.data_ptr(),
-                 B, D, Lp, Rr, KL, KR, G,
-                 0 if seed is None else seed.shape[1],
-                 int(use_shared), _threads(Lp), stream)
+                 B, D, Lp, Rr, KL, KR, G, 0, int(use_shared),
+                 _threads(Lp), stream)
     kernels.check(err, name + " (fan-in)")
+    return planes, cum
+
+
+def _launch_bwd_fanin(plan, msp, lfoff, lfw, rfoff, rfw, consts, iscal,
+                      seed, G):
+    """One launch of kernel E's fan-in entry point as `plan`
+    (bwd_fanin_plan) says."""
+    B, D, Lp = msp.shape
+    Rr, KL, KR = rfoff.shape[1], lfoff.shape[2], rfoff.shape[2]
+    fn = kernels.load("fullprob_bwd").fullprob_bwd_fanin_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 + \
+        [ctypes.c_void_p]
+    planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
+                         device=msp.device)
+    cum = torch.empty((B, D), dtype=torch.float32, device=msp.device)
+    gring = None if plan["placement"] == "shared" else torch.empty(
+        (B, 3, G + 1, Lp), dtype=torch.float32, device=msp.device)
+    with torch.cuda.device(msp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(msp.data_ptr(), lfoff.data_ptr(), lfw.data_ptr(),
+                 rfoff.data_ptr(), rfw.data_ptr(), consts.data_ptr(),
+                 iscal.data_ptr(), seed.data_ptr(), planes.data_ptr(),
+                 cum.data_ptr(), 0 if gring is None else gring.data_ptr(),
+                 B, D, Lp, Rr, KL, KR, G, seed.shape[1], plan["hot"],
+                 int(plan["rtab"]), plan["KL"], plan["KR"], plan["rows"],
+                 plan["threads"], plan["smem"], stream)
+    kernels.check(err, "fullprob_bwd (fan-in)")
     return planes, cum
 
 
@@ -297,7 +441,7 @@ def fullprob_fwd_fanin(msp, loff, lw, roff, rw, consts, iscal, G: int):
         return fullprob_fwd_fanin_plain(msp, loff, lw, roff, rw, consts,
                                         iscal, G)
     out = _launch_fanin("fullprob_fwd", msp, loff, lw, roff, rw, consts,
-                        iscal, G, None)
+                        iscal, G)
     LAUNCHES["fullprob_fwd_fanin"] += 1
     return out
 
@@ -308,14 +452,25 @@ def fullprob_bwd_fanin(msp, lfoff, lfw, rfoff, rfw, consts, iscal, seed,
     lfoff/lfw (B, Lp, KFL) and rfoff/rfw (B, Rr, KFR): per site the
     offsets and weights of its FORWARD edges (those into the stop site
     left out); seed (B, Gs, Lp): row g holds the corner seeds of
-    diagonal L + R - 2 - g in true units. Returns (planes, cum)."""
+    diagonal L + R - 2 - g in true units. Returns (planes, cum).
+
+    On a CUDA tensor it launches kernel E as bwd_fanin_plan(Lp, G, KFL,
+    KFR, Rr) says: the (KFL, KFR) build up to 4 x 4, else the runtime-K
+    one; the right-slot table in shared memory when it fits; the ring of
+    G + 1 diagonals in shared memory, its newest diagonals there and all
+    of it in a global scratch (B, 3, G + 1, Lp), or all of it there; one
+    block a pair of the plan's threads, each owning `rows` lanes. The
+    kernel refuses a plan it has no build for, and the wrapper raises on
+    any launch error."""
     _check_fanin(msp, lfoff, lfw, rfoff, rfw, consts, iscal, G, seed)
     if msp.device.type == "cpu":
         PLAIN_CALLS["fullprob_bwd_fanin"] += 1
         return fullprob_bwd_fanin_plain(msp, lfoff, lfw, rfoff, rfw,
                                         consts, iscal, seed, G)
-    out = _launch_fanin("fullprob_bwd", msp, lfoff, lfw, rfoff, rfw,
-                        consts, iscal, G, seed)
+    plan = bwd_fanin_plan(msp.shape[2], G, lfoff.shape[2], rfoff.shape[2],
+                          rfoff.shape[1])
+    out = _launch_bwd_fanin(plan, msp, lfoff, lfw, rfoff, rfw, consts,
+                            iscal, seed, G)
     LAUNCHES["fullprob_bwd_fanin"] += 1
     return out
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import SHARED_BYTES
 from ..graph.sequence_graph import SequenceGraph
 from ..models.evol_model import EvolModel
 from .settings import AlignSettings, X_MAT, Y_MAT, M_MAT
@@ -53,8 +54,6 @@ _P_NONE = 255
 LAUNCHES = 0          # kernel B launches (one per fanin_fill on CUDA)
 PLAIN_CALLS = 0       # fanin_fill_plain calls made by fanin_fill
 
-# dynamic shared memory a block may take on an H100 (with the opt-in)
-SHARED_BYTES = 227 * 1024
 # kernel B is templated on the fan-in (KL, KR) up to this; a larger
 # fan-in launches its runtime-K instantiation
 TEMPLATE_K = 4

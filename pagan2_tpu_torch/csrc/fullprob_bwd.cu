@@ -7,8 +7,9 @@
 // its outputs itself: no reversed input stream, no un-reversal.
 //
 // Per diagonal d, from the diagonals after it:
-//   linear:  xn = bX(i+1, j) = x1[i+1], yn = bY(i, j+1) = y1[i],
-//            T = q2[i+1], q = bM * ms2 of diagonal d+2 times 1/s of d+1
+//   linear:  xn = bX(i+1, j), yn = bY(i, j+1) of diagonal d+1,
+//            T = q(i+1, j+1) of diagonal d+2 times 1/s of d+1, with
+//            q = bM * ms2 (all in the units of diagonal d+1)
 //            X = (ext xn + gcgo yn) + gcng T
 //            Y = (ext yn + gcgo xn) + gcng T
 //            M = (nggo xn + nggo yn) + ng2 T
@@ -19,54 +20,118 @@
 //            q = bM * msp at (i+oL, j+oR) times lw then rw over slot
 //            pairs; X, Y, M as above from A, B, T; then
 //            M += seed[L+R-2-d][i] * exp(-clip(cum)) for the seed rows.
-//            A value of diagonal e is used in the units of diagonal d+1:
-//            multiplied by 1/s of e-1, e-2, ..., d+1 in turn.
-// Then invalid cells are zeroed, the maximum s over the diagonal is
-// taken (1 where it is 0), the rows are multiplied by 1/s,
-// q = M * ms2[d][i] (fan-in: M * msp[d][i]) and cum += log(s).
+// Invalid cells are 0. The diagonal's maximum s (1 where it is 0)
+// divides its three rows, q = M/s * ms, and cum += log(s).
 //
 // Every operation is one IEEE f32 operation in the order written (build
-// flag -fmad=false); sums over slots run in slot order. Layout, barriers
-// and what bounds the kernel are as in fullprob_fwd.cu: one block per
-// job, two block barriers a diagonal, the state (linear: X, Y, q of two
-// generations and a row of raw M, 7 Lp floats; fan-in: a ring of G + 1
-// generations of q, X, Y) in shared memory when it fits, else in a
-// global scratch.
+// flag -fmad=false); sums over slots run in slot order. So the planes
+// equal the plain versions' (align/fullprob_fill.py) bit for bit.
+//
+// What bounds it on an H100: the serial chain of D = L + R - 1
+// diagonals of one job, one block per job. Bytes (16 per cell) and
+// operations are hundreds of times below the card's rates, so a step
+// costs its barrier, its reduction and its instruction issue. The
+// design, per step d:
+//  1. One block barrier. Each warp reduces the maximum of its raw cells
+//     with shuffles and writes it to a row of warp maxima (two rows,
+//     taken in turn by the parity of d); then the one __syncthreads. At
+//     the start of step d-1 every warp reduces that row itself, so every
+//     thread holds s, 1/s and cum of diagonal d with no second barrier,
+//     scales its own lanes of d from registers and writes the planes.
+//  2. Raw values in the ring, scales applied on read. X and Y of d
+//     enter the ring (fan-in) or the row buffer (linear) raw before the
+//     barrier. A reader multiplies a value of diagonal e by 1/s of e,
+//     e-1, ..., d+1 in turn: the plain version's own sequence of
+//     multiplies, once at its rescale and then once a push. q = M/s * ms
+//     needs the scale of its own diagonal between two multiplies, so its
+//     owner writes it one step late, in the finish of diagonal d+1 at
+//     step d: no T read of step d reaches diagonal d+1 (ot = oL + oR >= 2
+//     fan-in, 2 linear), so it is read from step d-1 on, after the
+//     barrier. Every thread keeps 1/s of d+1 and d+2 in registers; the
+//     older ones are in a shared ring of G+1 entries.
+//  3. The newest diagonals on chip (fan-in). The ring of q, X and Y is
+//     in shared memory when its G+1 diagonals fit ("shared"); else the
+//     newest H >= 3 diagonals are there and every diagonal is also
+//     written to a global ring of G+1 ("hot": offsets o < H read shared
+//     memory, the skip edges of indels the global ring); else global
+//     only. Slots advance by counters, no division.
+//  4. Inputs on chip or staged ahead. A thread's lanes i = tid + r *
+//     threads never change: it loads its left site's forward-edge slots
+//     into registers once a launch. The right site j = d - i moves every
+//     step, so the job's right-site slot table is copied into shared
+//     memory once a launch when it fits beside the ring (else it is read
+//     from device memory through the same pointer). The match values of
+//     d are loaded before diagonal d is computed (linear: one step
+//     earlier still) and the seeds of d-1 after it, so that the loads are
+//     in flight across the computation and the barrier.
+//  5. Compile-time fan-in (KL, KR up to 4 x 4, or 0 x 0: runtime K) and
+//     lanes a thread (ROWS: linear 1, 2 or 4, fan-in 2, or 4 up to K
+//     2 x 2; raw values in registers; 0: any count, raw values kept in
+//     a global buffer (linear) or the ring slot of d (fan-in)). The
+//     slot-0 sources are read
+//     without a branch; other slots behind one. Planes are written with
+//     streaming stores: nothing here reads them again.
+// The launch plan (template, lanes a thread, threads, ring placement,
+// right-slot table, shared bytes) is align/fullprob_fill.py::
+// bwd_fanin_plan and ::bwd_linear_plan; the kernel only picks the build
+// the plan names and refuses a plan it has none for.
+//
+// Ring-slot safety (fan-in). Diagonal e sits in global slot e % (G+1)
+// and hot slot e % H. Step d writes X, Y of d (slot of d) and q of d+1
+// (slot of d+1); it reads X, Y of e in [d+1, d+G] and q of e in
+// [d+2, d+G], the hot ring only for e - d < H. The slot of d last held
+// d+G+1 (d+H), the slot of d+1 held d+G+2 (d+H+1): no read of step d
+// reaches them. A slot is read before it is first written only as a
+// diagonal e >= D, so the zeroed rings give those reads 0, as the plain
+// version's empty ring does. A source that is not read (slot 0 with no
+// edge) reads X of d+1 at lane i, which step d does not write.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// maximum of v over the block (v >= 0); holds one __syncthreads
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) red[w] = v;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) >> 5;
-  float r = (l < nw) ? red[l] : 0.0f;
+// maximum over the block of the warp maxima in row[0 .. nw): every
+// warp reduces the whole row itself
+__device__ __forceinline__ float row_max(const float* row, int nw) {
+  const int l = threadIdx.x & 31;
+  float r = l < nw ? row[l] : 0.0f;
   for (int o = 16; o > 0; o >>= 1)
     r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, o));
   return r;
 }
 
-template <bool SHARED>
+// the warp's maximum of v, written to row[warp] by its lane 0
+__device__ __forceinline__ void warp_max(float v, float* row) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) row[threadIdx.x >> 5] = v;
+}
+
+// ---------------------------------------------------------------- linear
+// ROWS: lanes a thread, raw M, X, Y in registers (0: any count, raw Y
+// and M in rows 4 and 5 of the global buffer). SHARED: the X and q row
+// buffers in shared memory, else in gbuf.
+template <int ROWS, bool SHARED>
 __global__ void __launch_bounds__(1024) fullprob_bwd_linear_kernel(
     const float* __restrict__ ms2,     // (B, D, Lp), row d = diagonal d
     const float* __restrict__ consts,  // (B, 8): .. [5] corner seed
     const int* __restrict__ iscal,     // (B, 2): L R
     float* __restrict__ planes,        // (B, 3, D, Lp): M X Y
     float* __restrict__ cum,           // (B, D)
-    float* gbuf,                       // (B, 7, Lp) when not SHARED
+    float* gbuf,                       // (B, 6, Lp + 1) when not SHARED
     int D, int Lp) {
+  constexpr int RR = ROWS > 0 ? ROWS : 1;
   extern __shared__ float smem[];
-  __shared__ float red[32];
+  __shared__ float wmax[64];
   const int b = blockIdx.x;
-  // [parity 0..1][X, Y, q][Lp], then one row of raw M
-  float* sh = SHARED ? smem : gbuf + (size_t)b * 7 * Lp;
-  float* mraw = sh + 6 * Lp;
-  const int nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nw = (nt + 31) >> 5;
+  const int nrows = ROWS > 0 ? ROWS : (Lp + nt - 1) / nt;
+  const int LS = Lp + 1;   // lane Lp stays 0: lane Lp - 1 reads it
+  // [X of parity 0, 1][q of parity 0, 1][LS]; ROWS == 0: raw Y, raw M
+  float* buf = SHARED ? smem : gbuf + (size_t)b * 6 * LS;
+  float* xb = buf;
+  float* qb = buf + 2 * LS;
   const float ext = consts[b * 8 + 0];
   const float gcgo = consts[b * 8 + 1];
   const float nggo = consts[b * 8 + 2];
@@ -82,27 +147,77 @@ __global__ void __launch_bounds__(1024) fullprob_bwd_linear_kernel(
   float* pY = planes + ((size_t)b * 3 + 2) * D * Lp;
   float* cb = cum + (size_t)b * D;
 
-  for (int i = threadIdx.x; i < Lp; i += nt)
-    for (int q = 0; q < 7; ++q) sh[q * Lp + i] = 0.0f;
+  for (int q = tid; q < (ROWS > 0 ? 4 : 6) * LS; q += nt) buf[q] = 0.0f;
+  // raw M, X of diagonal d+1; Y of d+1, scaled in the finish; the
+  // match values of d+1 (for the finish) and of d (loaded a step early)
+  float Mr[RR], Xr[RR], Yr[RR], msn[RR], msn2[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const int i = tid + r * nt;
+    Mr[r] = Xr[r] = Yr[r] = msn[r] = 0.0f;
+    msn2[r] = ROWS > 0 && i < Lp ? __ldg(msb + (size_t)(D - 1) * Lp + i)
+                                 : 0.0f;
+  }
   float cumv = 0.0f;
-  float invnext = 1.0f;    // 1/s of diagonal d+1
+  float inv1 = 1.0f;   // 1/s of diagonal d+1
   __syncthreads();
 
+  // scale the lanes of diagonal e = d+1 (raw maxima in wmax row pe),
+  // write its planes, cum and (with q) its q row
+  auto finish = [&](int e, int pe, bool with_q) {
+    float s = row_max(wmax + 32 * pe, nw);
+    if (!(s > 0.0f)) s = 1.0f;
+    inv1 = 1.0f / s;
+    cumv = cumv + logf(s);
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
+      if (i >= Lp) continue;
+      float M, X, Y, ms;
+      if constexpr (ROWS > 0) {
+        M = Mr[r]; X = Xr[r]; Y = Yr[r]; ms = msn[r];
+      } else {
+        X = xb[(e & 1) * LS + i];
+        Y = buf[4 * LS + i];
+        M = buf[5 * LS + i];
+        ms = with_q ? __ldg(msb + (size_t)e * Lp + i) : 0.0f;
+      }
+      const float Ms = M * inv1, Xs = X * inv1, Ys = Y * inv1;
+      __stcs(pM + (size_t)e * Lp + i, Ms);
+      __stcs(pX + (size_t)e * Lp + i, Xs);
+      __stcs(pY + (size_t)e * Lp + i, Ys);
+      if (with_q) qb[(e & 1) * LS + i] = Ms * ms;
+      if constexpr (ROWS > 0) Yr[r] = Ys;
+    }
+    if (tid == 0) cb[e] = cumv;
+  };
+
   for (int d = D - 1; d >= 0; --d) {
-    float* cur = sh + (d & 1) * 3 * Lp;          // X, Y of d; q of d+2
-    const float* nxt = sh + ((d + 1) & 1) * 3 * Lp;   // X, Y, q of d+1
-    const float* msd = msb + (size_t)d * Lp;
+    const int par = d & 1;
+    if (d + 1 < D) finish(d + 1, par ^ 1, true);
+    const float* xn_row = xb + (par ^ 1) * LS;   // raw X of d+1
+    const float* q_row = qb + par * LS;          // q of d+2
+    if constexpr (ROWS > 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = tid + r * nt;
+        msn[r] = msn2[r];
+        msn2[r] = i < Lp && d > 0
+                      ? __ldg(msb + (size_t)(d - 1) * Lp + i) : 0.0f;
+      }
+    }
     float lmax = 0.0f;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
       const int j = d - i;
       float M = 0.0f, X = 0.0f, Y = 0.0f;
       if (j >= 0 && j < R && i < L) {
-        float xn = 0.0f, T = 0.0f;
-        if (i + 1 < Lp) {
-          xn = nxt[i + 1];
-          T = cur[2 * Lp + i + 1] * invnext;
-        }
-        const float yn = nxt[Lp + i];
+        const float xn = xn_row[i + 1] * inv1;
+        const float T = q_row[i + 1] * inv1;
+        float yn;
+        if constexpr (ROWS > 0) yn = Yr[r];
+        else yn = buf[4 * LS + i] * inv1;
         const float ex = ext * xn, ey = ext * yn;
         const float gx = gcgo * xn, gy = gcgo * yn;
         const float gt = gcng * T;
@@ -112,131 +227,293 @@ __global__ void __launch_bounds__(1024) fullprob_bwd_linear_kernel(
         M = (nx + ny) + ng2 * T;
         if (d == cornerd && i == L - 1) M = M + seed;
       }
-      cur[i] = X;
-      cur[Lp + i] = Y;
-      mraw[i] = M;
+      if (i < Lp) {
+        xb[par * LS + i] = X;
+        if constexpr (ROWS == 0) {
+          buf[4 * LS + i] = Y;
+          buf[5 * LS + i] = M;
+        }
+      }
+      if constexpr (ROWS > 0) {
+        Mr[r] = M; Xr[r] = X; Yr[r] = Y;
+      }
       lmax = fmaxf(lmax, fmaxf(fmaxf(M, X), Y));
     }
-    float sc = block_max(lmax, red);
-    if (!(sc > 0.0f)) sc = 1.0f;
-    const float inv = 1.0f / sc;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
-      const float M = mraw[i] * inv;
-      const float X = cur[i] * inv;
-      const float Y = cur[Lp + i] * inv;
-      cur[i] = X;
-      cur[Lp + i] = Y;
-      cur[2 * Lp + i] = M * msd[i];
-      pM[(size_t)d * Lp + i] = M;
-      pX[(size_t)d * Lp + i] = X;
-      pY[(size_t)d * Lp + i] = Y;
-    }
-    cumv = cumv + logf(sc);
-    if (threadIdx.x == 0) cb[d] = cumv;
-    invnext = inv;
+    warp_max(lmax, wmax + 32 * par);
     __syncthreads();
   }
+  finish(0, 0, false);
 }
 
-// one matrix (mat 0 = q, 1 = X, 2 = Y) of diagonal e at lane `lane`, in
-// the units of diagonal d+1
-__device__ __forceinline__ float ring_read_bwd(
-    const float* ring, const float* invh, int GR, int Lp, int mat, int e,
-    int lane, int d) {
-  float v = ring[((size_t)mat * GR + (e % GR)) * Lp + lane];
-  int s = (e - 1) % GR;
-  for (int t = e - 1; t > d; --t) {
-    v = v * invh[s];
-    s = (s == 0) ? GR - 1 : s - 1;
-  }
-  return v;
-}
+// ---------------------------------------------------------------- fan-in
+struct FaninArgs {
+  const float* msp;     // (B, D, Lp)
+  const int* lfoff;     // (B, Lp, KL) forward-edge offsets (0: none)
+  const float* lfw;     // (B, Lp, KL)
+  const int* rfoff;     // (B, Rr, KR)
+  const float* rfw;     // (B, Rr, KR)
+  const float* consts;  // (B, 8): .. [6] exp clip limit
+  const int* iscal;     // (B, 2)
+  const float* seed;    // (B, Gs, Lp)
+  float* planes;        // (B, 3, D, Lp)
+  float* cum;           // (B, D)
+  float* gring;         // (B, 3, G + 1, Lp) when H < G + 1
+  int D, Lp, Rr, KL, KR, G, Gs;
+  int H;                // diagonals kept in shared memory (G + 1: all)
+  int rtab;             // 1: the right-slot table copied to shared memory
+};
 
-template <bool SHARED>
-__global__ void __launch_bounds__(1024) fullprob_bwd_fanin_kernel(
-    const float* __restrict__ msp,     // (B, D, Lp)
-    const int* __restrict__ lfoff,     // (B, Lp, KL) forward-edge offsets
-    const float* __restrict__ lfw,     // (B, Lp, KL)
-    const int* __restrict__ rfoff,     // (B, Rr, KR)
-    const float* __restrict__ rfw,     // (B, Rr, KR)
-    const float* __restrict__ consts,  // (B, 8): .. [6] exp clip limit
-    const int* __restrict__ iscal,     // (B, 2)
-    const float* __restrict__ seed,    // (B, Gs, Lp)
-    float* __restrict__ planes,        // (B, 3, D, Lp)
-    float* __restrict__ cum,           // (B, D)
-    float* gring,                      // (B, 3, G + 1, Lp) when not SHARED
-    int D, int Lp, int Rr, int KL, int KR, int G, int Gs) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
+// KLT, KRT: the fan-in, or 0 for runtime K. ROWS: lanes a thread, raw
+// values in registers (0: any count, raw values in the ring slot of d).
+// ALLSH: the whole ring in shared memory (H == G + 1). MAXT: the largest
+// block it is launched with (sets the register budget).
+template <int KLT, int KRT, int ROWS, bool ALLSH, int MAXT>
+__global__ void __launch_bounds__(MAXT) fullprob_bwd_fanin_kernel(
+    FaninArgs a) {
+  constexpr int NL = KLT > 0 ? KLT : 1;
+  constexpr int RR = ROWS > 0 ? ROWS : 1;
+  extern __shared__ float sh[];
   const int b = blockIdx.x;
-  const int GR = G + 1;
-  // SHARED: [invh GR][ring q, X, Y][GR][Lp]; else the ring is global
-  float* invh = smem;
-  float* ring = SHARED ? smem + GR : gring + (size_t)b * 3 * GR * Lp;
-  const size_t MS = (size_t)GR * Lp;
-  const int nt = blockDim.x;
-  const float ext = consts[b * 8 + 0];
-  const float gcgo = consts[b * 8 + 1];
-  const float nggo = consts[b * 8 + 2];
-  const float ng2 = consts[b * 8 + 3];
-  const float gcng = consts[b * 8 + 4];
-  const float clim = consts[b * 8 + 6];
-  const int L = iscal[b * 2 + 0];
-  const int R = iscal[b * 2 + 1];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nw = (nt + 31) >> 5;
+  const int D = a.D, Lp = a.Lp, G = a.G, GR = a.G + 1, H = a.H, Gs = a.Gs;
+  const int KL = KLT > 0 ? KLT : a.KL;
+  const int KR = KRT > 0 ? KRT : a.KR;
+  const int nrows = ROWS > 0 ? ROWS : (Lp + nt - 1) / nt;
+  // shared: warp maxima [2][32], 1/s ring [G+1], hot ring [q, X, Y][H][Lp],
+  // then (rtab) the right-site slot offsets and weights [Rr][KR]
+  float* wmax = sh;
+  float* invh = sh + 64;
+  float* hot = invh + GR;
+  const size_t HS = (size_t)H * Lp;
+  const size_t GS = (size_t)GR * Lp;
+  float* gr = ALLSH ? nullptr : a.gring + (size_t)b * 3 * GS;
+  const float ext = a.consts[b * 8 + 0];
+  const float gcgo = a.consts[b * 8 + 1];
+  const float nggo = a.consts[b * 8 + 2];
+  const float ng2 = a.consts[b * 8 + 3];
+  const float gcng = a.consts[b * 8 + 4];
+  const float clim = a.consts[b * 8 + 6];
+  const int L = a.iscal[b * 2 + 0];
+  const int R = a.iscal[b * 2 + 1];
   const int cornerd = L + R - 2;
-  const float* mb = msp + (size_t)b * D * Lp;
-  const int* lo = lfoff + (size_t)b * Lp * KL;
-  const float* lwb = lfw + (size_t)b * Lp * KL;
-  const int* ro = rfoff + (size_t)b * Rr * KR;
-  const float* rwb = rfw + (size_t)b * Rr * KR;
-  const float* sb = seed + (size_t)b * Gs * Lp;
-  float* pM = planes + ((size_t)b * 3 + 0) * D * Lp;
-  float* pX = planes + ((size_t)b * 3 + 1) * D * Lp;
-  float* pY = planes + ((size_t)b * 3 + 2) * D * Lp;
-  float* cb = cum + (size_t)b * D;
+  const float* mb = a.msp + (size_t)b * D * Lp;
+  const int* lo_g = a.lfoff + (size_t)b * Lp * KL;
+  const float* lw_g = a.lfw + (size_t)b * Lp * KL;
+  const int* ro_g = a.rfoff + (size_t)b * a.Rr * KR;
+  const float* rw_g = a.rfw + (size_t)b * a.Rr * KR;
+  int* rso_s = reinterpret_cast<int*>(hot + 3 * HS);
+  float* rsw_s = reinterpret_cast<float*>(rso_s + (size_t)a.Rr * KR);
+  const int* rso = a.rtab ? rso_s : ro_g;
+  const float* rsw = a.rtab ? rsw_s : rw_g;
+  const float* sb = a.seed + (size_t)b * Gs * Lp;
+  float* pM = a.planes + ((size_t)b * 3 + 0) * D * Lp;
+  float* pX = a.planes + ((size_t)b * 3 + 1) * D * Lp;
+  float* pY = a.planes + ((size_t)b * 3 + 2) * D * Lp;
+  float* cb = a.cum + (size_t)b * D;
 
-  for (int i = threadIdx.x; i < Lp; i += nt)
-    for (int q = 0; q < 3 * GR; ++q) ring[(size_t)q * Lp + i] = 0.0f;
-  for (int g = threadIdx.x; g < GR; g += nt) invh[g] = 1.0f;
-  float cumv = 0.0f;
+  for (size_t q = tid; q < 3 * HS; q += nt) hot[q] = 0.0f;
+  if constexpr (!ALLSH)
+    for (size_t q = tid; q < 3 * GS; q += nt) gr[q] = 0.0f;
+  for (int g = tid; g < GR; g += nt) invh[g] = 1.0f;
+  if (a.rtab) {
+    for (int q = tid; q < a.Rr * KR; q += nt) {
+      rso_s[q] = __ldg(ro_g + q);
+      rsw_s[q] = __ldg(rw_g + q);
+    }
+  }
+
+  // a left slot with no edge, or whose source lane is past Lp, holds 0
+  auto left_off = [&](int i, int k) -> int {
+    const int o = __ldg(lo_g + (size_t)i * KL + k);
+    return (o > 0 && i + o < Lp) ? o : 0;
+  };
+  // the lanes' left-site slots, once a launch
+  int lo[RR][NL];
+  float lw[RR][NL];
+  if constexpr (KLT > 0) {
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      const int i = tid + r * nt;
+#pragma unroll
+      for (int k = 0; k < NL; ++k) {
+        lo[r][k] = i < Lp ? left_off(i, k) : 0;
+        lw[r][k] = i < Lp ? __ldg(lw_g + (size_t)i * KL + k) : 0.0f;
+      }
+    }
+  }
+  // staged for step d: the seeds of d; for the finish at step d: the
+  // match values of d+1
+  float sdv[RR], msn[RR];
+  // raw M, X, Y of diagonal d+1 (ROWS > 0)
+  float Mr[RR], Xr[RR], Yr[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r)
+    sdv[r] = msn[r] = Mr[r] = Xr[r] = Yr[r] = 0.0f;
+  auto stage = [&](int dd) {
+    const int sidx = cornerd - dd;
+    if constexpr (ROWS > 0) {
+      if (sidx >= 0 && sidx < Gs) {
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = tid + r * nt;
+          sdv[r] = i < Lp ? __ldg(sb + (size_t)sidx * Lp + i) : 0.0f;
+        }
+      }
+    }
+  };
+  stage(D - 1);
+
+  float cum1 = 0.0f;               // cum of diagonal d+1
+  float inv1 = 1.0f, inv2 = 1.0f;  // 1/s of diagonals d+1, d+2
+  int sg = (D - 1) % GR;           // slot of d, global ring and invh
+  int shs = H > 0 ? (D - 1) % H : 0;   // slot of d, hot ring
   __syncthreads();
 
+  // the finish of diagonal e = d+1 (global slot g1, hot slot h1): s
+  // from warp-maxima row pe, its lanes scaled, planes, cum, q
+  auto finish = [&](int e, int pe, int g1, int h1, bool with_q) {
+    float s = row_max(wmax + 32 * pe, nw);
+    if (!(s > 0.0f)) s = 1.0f;
+    const float inv = 1.0f / s;
+    inv2 = inv1;
+    inv1 = inv;
+    cum1 = cum1 + logf(s);
+    // ROWS == 0: raw values wait in the slot of e of the ring that
+    // holds every diagonal
+    const float* raw = ALLSH ? hot + (size_t)h1 * Lp : gr + (size_t)g1 * Lp;
+    const size_t RS = ALLSH ? HS : GS;
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
+      if (i >= Lp) continue;
+      float M, X, Y, ms;
+      if constexpr (ROWS > 0) {
+        M = Mr[r]; X = Xr[r]; Y = Yr[r]; ms = msn[r];
+      } else {
+        M = raw[i];
+        X = raw[RS + i];
+        Y = raw[2 * RS + i];
+        ms = with_q ? __ldg(mb + (size_t)e * Lp + i) : 0.0f;
+      }
+      const float Ms = M * inv;
+      __stcs(pM + (size_t)e * Lp + i, Ms);
+      __stcs(pX + (size_t)e * Lp + i, X * inv);
+      __stcs(pY + (size_t)e * Lp + i, Y * inv);
+      if (with_q) {
+        const float q = Ms * ms;
+        if (H > 0) hot[(size_t)h1 * Lp + i] = q;
+        if constexpr (!ALLSH) gr[(size_t)g1 * Lp + i] = q;
+      }
+    }
+    if (tid == 0) {
+      cb[e] = cum1;
+      invh[g1] = inv;
+    }
+  };
+
   for (int d = D - 1; d >= 0; --d) {
-    // the slot of diagonal d last held diagonal d + G + 1, which no
-    // offset reaches; its q row carries the raw M until it is scaled
-    float* g0 = ring + (size_t)(d % GR) * Lp;
-    const float* md = mb + (size_t)d * Lp;
+    const int par = d & 1;
+    const int g1 = sg + 1 == GR ? 0 : sg + 1;
+    const int h1 = shs + 1 >= H ? 0 : shs + 1;
+    if (d + 1 < D) finish(d + 1, par ^ 1, g1, h1, true);
+
+    // value of matrix mat (0 q, 1 X, 2 Y) of diagonal d+o at `lane`,
+    // as stored (1 <= o <= G)
+    auto rd = [&](int mat, int o, int lane) -> float {
+      int hs = shs + o;
+      hs -= hs >= H ? H : 0;
+      if constexpr (ALLSH) {
+        return hot[mat * HS + (size_t)hs * Lp + lane];
+      } else {
+        if (o < H) return hot[mat * HS + (size_t)hs * Lp + lane];
+        int gs = sg + o;
+        gs -= gs >= GR ? GR : 0;
+        return gr[mat * GS + (size_t)gs * Lp + lane];
+      }
+    };
+    // v times 1/s of diagonals d+n, d+n-1, ..., d+1, in that order
+    auto scale = [&](float v, int n) -> float {
+      if (n >= 3) {
+        int s = sg + n;
+        s -= s >= GR ? GR : 0;
+        for (int t = n; t >= 3; --t) {
+          v = v * invh[s];
+          s = s == 0 ? GR - 1 : s - 1;
+        }
+      }
+      if (n >= 2) v = v * inv2;
+      return v * inv1;
+    };
+
     const int sidx = cornerd - d;
     const bool seeded = sidx >= 0 && sidx < Gs;
     const float unscale =
-        seeded ? expf(-fminf(fmaxf(cumv, -clim), clim)) : 0.0f;
+        seeded ? expf(-fminf(fmaxf(cum1, -clim), clim)) : 0.0f;
+    // ROWS == 0: raw values of d go to the slot of d of the ring that
+    // holds every diagonal (its q row is read from step d-2 on, after
+    // the finish of d has put q there)
+    float* raw = ALLSH ? hot + (size_t)shs * Lp : gr + (size_t)sg * Lp;
+    if constexpr (ROWS > 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = tid + r * nt;
+        if (i < Lp) msn[r] = __ldg(mb + (size_t)d * Lp + i);
+      }
+    }
     float lmax = 0.0f;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
       const int j = d - i;
+      auto lof = [&](int k) -> int {
+        if constexpr (KLT > 0) return lo[r][k];
+        else return left_off(i, k);
+      };
+      auto lwf = [&](int k) -> float {
+        if constexpr (KLT > 0) return lw[r][k];
+        else return __ldg(lw_g + (size_t)i * KL + k);
+      };
+      auto rof = [&](int k) -> int { return rso[(size_t)j * KR + k]; };
+      auto rwf = [&](int k) -> float { return rsw[(size_t)j * KR + k]; };
       float M = 0.0f, X = 0.0f, Y = 0.0f;
       if (j >= 0 && j < R && i < L) {
+        // slot 0 of each side and the pair (0, 0), read together
+        // without a branch; a source that does not exist reads X of d+1
+        // at lane i and contributes 0
+        const int ol0 = lof(0), or0 = rof(0);
+        const bool okA = ol0 > 0 && ol0 <= G;
+        const bool okB = or0 > 0 && or0 <= G;
+        const bool okT = ol0 > 0 && or0 > 0 && ol0 + or0 <= G;
+        const float va = rd(1, okA ? ol0 : 1, okA ? i + ol0 : i);
+        const float vb = rd(okB ? 2 : 1, okB ? or0 : 1, i);
+        const float vt = rd(okT ? 0 : 1, okT ? ol0 + or0 : 1,
+                            okT ? i + ol0 : i);
         float A = 0.0f, Bs = 0.0f, T = 0.0f;
-        for (int k = 0; k < KL; ++k) {
-          const int o = lo[i * KL + k];
-          if (o > 0 && o <= G && i + o < Lp && d + o < D)
-            A = A + ring_read_bwd(ring, invh, GR, Lp, 1, d + o, i + o, d);
+        A = A + (okA ? scale(va, ol0) : 0.0f);
+#pragma unroll
+        for (int k = 1; k < KL; ++k) {
+          const int o = lof(k);
+          if (o > 0 && o <= G) A = A + scale(rd(1, o, i + o), o);
         }
-        for (int k = 0; k < KR; ++k) {
-          const int o = ro[j * KR + k];
-          if (o > 0 && o <= G && d + o < D)
-            Bs = Bs + ring_read_bwd(ring, invh, GR, Lp, 2, d + o, i, d);
+        Bs = Bs + (okB ? scale(vb, or0) : 0.0f);
+#pragma unroll
+        for (int k = 1; k < KR; ++k) {
+          const int o = rof(k);
+          if (o > 0 && o <= G) Bs = Bs + scale(rd(2, o, i), o);
         }
+        if (okT) T = T + (scale(vt, ol0 + or0 - 1) * lwf(0)) * rwf(0);
+#pragma unroll
         for (int kl = 0; kl < KL; ++kl) {
-          const int ol = lo[i * KL + kl];
-          if (!(ol > 0 && i + ol < Lp)) continue;
-          const float wl = lwb[i * KL + kl];
-          for (int kr = 0; kr < KR; ++kr) {
-            const int orr = ro[j * KR + kr];
+          const int ol = lof(kl);
+          if (ol <= 0) continue;
+          const float wl = lwf(kl);
+#pragma unroll
+          for (int kr = kl == 0 ? 1 : 0; kr < KR; ++kr) {
+            const int orr = rof(kr);
             const int ot = ol + orr;
-            if (!(orr > 0 && ot <= G && d + ot < D)) continue;
-            const float q =
-                ring_read_bwd(ring, invh, GR, Lp, 0, d + ot, i + ol, d);
-            T = T + (q * wl) * rwb[j * KR + kr];
+            if (!(orr > 0 && ot <= G)) continue;
+            T = T + (scale(rd(0, ot, i + ol), ot - 1) * wl) * rwf(kr);
           }
         }
         const float ea = ext * A, eb = ext * Bs;
@@ -246,91 +523,204 @@ __global__ void __launch_bounds__(1024) fullprob_bwd_fanin_kernel(
         Y = (eb + ga) + gt;
         const float na = nggo * A, nb = nggo * Bs;
         M = (na + nb) + ng2 * T;
-        if (seeded) M = M + sb[(size_t)sidx * Lp + i] * unscale;
+        if (seeded) {
+          float sv;
+          if constexpr (ROWS > 0) sv = sdv[r];
+          else sv = __ldg(sb + (size_t)sidx * Lp + i);
+          M = M + sv * unscale;
+        }
       }
-      g0[i] = M;
-      g0[MS + i] = X;
-      g0[2 * MS + i] = Y;
+      if (i < Lp) {
+        if (H > 0) {
+          hot[HS + (size_t)shs * Lp + i] = X;
+          hot[2 * HS + (size_t)shs * Lp + i] = Y;
+        }
+        if constexpr (!ALLSH) {
+          gr[GS + (size_t)sg * Lp + i] = X;
+          gr[2 * GS + (size_t)sg * Lp + i] = Y;
+        }
+        if constexpr (ROWS == 0) raw[i] = M;
+      }
+      if constexpr (ROWS > 0) {
+        Mr[r] = M; Xr[r] = X; Yr[r] = Y;
+      }
       lmax = fmaxf(lmax, fmaxf(fmaxf(M, X), Y));
     }
-    float sc = block_max(lmax, red);
-    if (!(sc > 0.0f)) sc = 1.0f;
-    const float inv = 1.0f / sc;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
-      const float M = g0[i] * inv;
-      const float X = g0[MS + i] * inv;
-      const float Y = g0[2 * MS + i] * inv;
-      g0[i] = M * md[i];
-      g0[MS + i] = X;
-      g0[2 * MS + i] = Y;
-      pM[(size_t)d * Lp + i] = M;
-      pX[(size_t)d * Lp + i] = X;
-      pY[(size_t)d * Lp + i] = Y;
-    }
-    cumv = cumv + logf(sc);
-    if (threadIdx.x == 0) {
-      cb[d] = cumv;
-      invh[d % GR] = inv;
-    }
+    if (d > 0) stage(d - 1);
+    warp_max(lmax, wmax + 32 * par);
     __syncthreads();
+    sg = sg == 0 ? GR - 1 : sg - 1;
+    if (H > 0) shs = shs == 0 ? H - 1 : shs - 1;
   }
+  // diagonal 0: its slots are the ones after the slot counters
+  finish(0, 0, sg + 1 == GR ? 0 : sg + 1, shs + 1 >= H ? 0 : shs + 1,
+         false);
 }
 
+// lets `kernel` take smem bytes of dynamic shared memory; a refusal is
+// returned and cleared, so that no later launch reports it
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+template <int KLT, int KRT, int ROWS, bool ALLSH, int MAXT>
+int launch1(const FaninArgs& a, int B, int threads, size_t smem,
+            cudaStream_t st) {
+  if (threads > MAXT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(
+      fullprob_bwd_fanin_kernel<KLT, KRT, ROWS, ALLSH, MAXT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fullprob_bwd_fanin_kernel<KLT, KRT, ROWS, ALLSH, MAXT>
+      <<<B, threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The builds of one fan-in, each with the whole ring in shared memory
+// or split: two lanes a thread in blocks of up to 768 threads (384 past
+// a templated K 2 x 2, whose slot loops spilled registers at 512); up
+// to a templated K 2 x 2 also four lanes in blocks of up to 512 (on
+// the H100, 1.35-1.5x faster than the build for any count at 2,016 and
+// 2,048 lanes).
+template <int KLT, int KRT>
+int launch_k(const FaninArgs& a, int B, int rows, int threads, size_t smem,
+             cudaStream_t st) {
+  constexpr bool SMALL_K = KLT > 0 && KLT <= 2 && KRT <= 2;
+  constexpr int MAXT2 = (KLT <= 2 && KRT <= 2) ? 768 : 384;
+  const bool allsh = a.H == a.G + 1;
+  if (rows == 2)
+    return allsh ? launch1<KLT, KRT, 2, true, MAXT2>(a, B, threads, smem, st)
+                 : launch1<KLT, KRT, 2, false, MAXT2>(a, B, threads, smem,
+                                                      st);
+  if constexpr (SMALL_K) {
+    if (rows == 4)
+      return allsh
+                 ? launch1<KLT, KRT, 4, true, 512>(a, B, threads, smem, st)
+                 : launch1<KLT, KRT, 4, false, 512>(a, B, threads, smem, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+#define BWD_ROW(kl)                                                        \
+  case kl:                                                                 \
+    switch (krt) {                                                         \
+      case 1: return launch_k<kl, 1>(a, B, rows, threads, smem, st);       \
+      case 2: return launch_k<kl, 2>(a, B, rows, threads, smem, st);       \
+      case 3: return launch_k<kl, 3>(a, B, rows, threads, smem, st);       \
+      case 4: return launch_k<kl, 4>(a, B, rows, threads, smem, st);       \
+      default: return (int)cudaErrorInvalidValue;                          \
+    }
+
+int dispatch(const FaninArgs& a, int klt, int krt, int B, int rows,
+             int threads, size_t smem, cudaStream_t st) {
+  if (klt == 0 && krt == 0) {
+    if (rows == 0)
+      return a.H == a.G + 1
+                 ? launch1<0, 0, 0, true, 1024>(a, B, threads, smem, st)
+                 : launch1<0, 0, 0, false, 1024>(a, B, threads, smem, st);
+    return launch_k<0, 0>(a, B, rows, threads, smem, st);
+  }
+  if (klt != a.KL || krt != a.KR) return (int)cudaErrorInvalidValue;
+  switch (klt) {
+    BWD_ROW(1)
+    BWD_ROW(2)
+    BWD_ROW(3)
+    BWD_ROW(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// The linear plan, as fullprob_fill.py::bwd_linear_plan computes it:
+// rows: lanes a thread (1, 2 or 4; 0: any count, raw values in gbuf);
+// use_shared: the row buffers in shared memory (smem bytes), else gbuf.
 extern "C" int fullprob_bwd_linear_launch(
     const void* ms2, const void* consts, const void* iscal, void* planes,
-    void* cum, void* gbuf, int B, int D, int Lp, int use_shared,
-    int threads, void* stream) {
+    void* cum, void* gbuf, int B, int D, int Lp, int rows, int use_shared,
+    int threads, int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (threads < 32 || threads > 1024 || threads % 32 ||
+      (rows > 0 && (long)rows * threads < Lp))
+    return (int)cudaErrorInvalidValue;
+  const size_t need = (size_t)4 * (Lp + 1) * sizeof(float);
+  if (use_shared && (size_t)smem < need) return (int)cudaErrorInvalidValue;
+  if (!use_shared && gbuf == nullptr) return (int)cudaErrorInvalidValue;
+  const float* m = (const float*)ms2;
+  const float* c = (const float*)consts;
+  const int* is = (const int*)iscal;
+  float* p = (float*)planes;
+  float* cu = (float*)cum;
+  float* g = (float*)gbuf;
   if (!use_shared) {
-    fullprob_bwd_linear_kernel<false><<<B, threads, 0, st>>>(
-        (const float*)ms2, (const float*)consts, (const int*)iscal,
-        (float*)planes, (float*)cum, (float*)gbuf, D, Lp);
+    if (rows != 0) return (int)cudaErrorInvalidValue;
+    fullprob_bwd_linear_kernel<0, false><<<B, threads, 0, st>>>(
+        m, c, is, p, cu, g, D, Lp);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)7 * Lp * sizeof(float);
-  cudaError_t err = allow_smem(fullprob_bwd_linear_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fullprob_bwd_linear_kernel<true><<<B, threads, smem, st>>>(
-      (const float*)ms2, (const float*)consts, (const int*)iscal,
-      (float*)planes, (float*)cum, (float*)gbuf, D, Lp);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  switch (rows) {
+#define BWD_LIN(n)                                                          \
+  case n:                                                                   \
+    err = allow_smem(fullprob_bwd_linear_kernel<n, true>, (size_t)smem);    \
+    if (err != cudaSuccess) return (int)err;                                \
+    fullprob_bwd_linear_kernel<n, true><<<B, threads, smem, st>>>(          \
+        m, c, is, p, cu, g, D, Lp);                                         \
+    return (int)cudaGetLastError();
+    BWD_LIN(1)
+    BWD_LIN(2)
+    BWD_LIN(4)
+#undef BWD_LIN
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// The fan-in plan, as fullprob_fill.py::bwd_fanin_plan computes it:
+// hot: diagonals kept in shared memory (G + 1: the whole ring; fewer:
+// all of them also in gring; 0: gring only); klt, krt: the templated
+// fan-in (0, 0: runtime K); rows: lanes a thread (2, or 4 up to a
+// templated K 2 x 2; 0: any count, runtime K only); threads: the
+// block; smem: dynamic shared bytes (warp maxima, 1/s ring, hot ring
+// and, with rtab, the right-slot table); rtab: 1 copies the table to
+// shared memory, 0 reads it from device memory.
 extern "C" int fullprob_bwd_fanin_launch(
     const void* msp, const void* lfoff, const void* lfw, const void* rfoff,
     const void* rfw, const void* consts, const void* iscal,
     const void* seed, void* planes, void* cum, void* gring, int B, int D,
-    int Lp, int Rr, int KL, int KR, int G, int Gs, int use_shared,
-    int threads, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int GR = G + 1;
-  if (!use_shared) {
-    const size_t smem = (size_t)GR * sizeof(float);
-    cudaError_t err = allow_smem(fullprob_bwd_fanin_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fullprob_bwd_fanin_kernel<false><<<B, threads, smem, st>>>(
-        (const float*)msp, (const int*)lfoff, (const float*)lfw,
-        (const int*)rfoff, (const float*)rfw, (const float*)consts,
-        (const int*)iscal, (const float*)seed, (float*)planes, (float*)cum,
-        (float*)gring, D, Lp, Rr, KL, KR, G, Gs);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = ((size_t)GR + (size_t)3 * GR * Lp) * sizeof(float);
-  cudaError_t err = allow_smem(fullprob_bwd_fanin_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fullprob_bwd_fanin_kernel<true><<<B, threads, smem, st>>>(
-      (const float*)msp, (const int*)lfoff, (const float*)lfw,
-      (const int*)rfoff, (const float*)rfw, (const float*)consts,
-      (const int*)iscal, (const float*)seed, (float*)planes, (float*)cum,
-      (float*)gring, D, Lp, Rr, KL, KR, G, Gs);
-  return (int)cudaGetLastError();
+    int Lp, int Rr, int KL, int KR, int G, int Gs, int hot, int rtab,
+    int klt, int krt, int rows, int threads, int smem, void* stream) {
+  FaninArgs a;
+  a.msp = (const float*)msp;
+  a.lfoff = (const int*)lfoff;
+  a.lfw = (const float*)lfw;
+  a.rfoff = (const int*)rfoff;
+  a.rfw = (const float*)rfw;
+  a.consts = (const float*)consts;
+  a.iscal = (const int*)iscal;
+  a.seed = (const float*)seed;
+  a.planes = (float*)planes;
+  a.cum = (float*)cum;
+  a.gring = (float*)gring;
+  a.D = D;
+  a.Lp = Lp;
+  a.Rr = Rr;
+  a.KL = KL;
+  a.KR = KR;
+  a.G = G;
+  a.Gs = Gs;
+  a.H = hot;
+  a.rtab = rtab != 0;
+  if (G < 1 || hot < 0 || hot > G + 1 || (hot <= G && gring == nullptr) ||
+      threads < 32 || threads % 32 ||
+      (rows > 0 && (long)rows * threads < Lp) ||
+      (size_t)smem < ((size_t)64 + G + 1 + (size_t)3 * hot * Lp +
+                      (a.rtab ? (size_t)2 * Rr * KR : 0)) * 4)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(a, klt, krt, B, rows, threads, (size_t)smem,
+                  (cudaStream_t)stream);
 }

@@ -25,6 +25,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {"fullprob_fwd": ["-fmad=false"],
                "fullprob_bwd": ["-fmad=false"]}
 
+# dynamic shared memory a block may take on an H100 (with the opt-in);
+# the launch plans of kernels B and E count against it
+SHARED_BYTES = 227 * 1024
+
 _libs: dict = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
 BUILD_LOG: dict = {}

@@ -334,6 +334,171 @@ def test_fullprob_fanin_kernels_match_plain(cuda, case):
     assert float(fwd[0].max()) == 1.0 and float(bwd[0].max()) == 1.0
 
 
+
+def _fwd_graph(rng, n, k=1, seeds=1, skip=0):
+    """A leaf graph of n sites whose every 7th site also has forward
+    edges to +2 .. +k (forward fan-in k), with seeds - 1 extra edges
+    into the stop site (seed depth `seeds`) and, given `skip`, a few
+    forward edges `skip` sites long (ring depth past it)."""
+    g = build_leaf_graph("".join(rng.choice(list("ACGT"), n)), alph.DNA)
+    for i in range(1, n - k, 7):
+        for o in range(2, k + 1):
+            g.add_edge(i, i + o, 0.05 * o)
+    for i in range(n // 3, n - skip, max(1, n // 4)) if skip else ():
+        g.add_edge(i, i + skip, 0.1)
+    for s in range(2, seeds + 1):
+        g.add_edge(n + 1 - s, n + 1, 0.2)
+    return g
+
+
+def _bwd_shape_case(case, rng):
+    """(entry point, its keywords, expected plan entries) of one shape
+    class of kernel E."""
+    if case.startswith("linear"):
+        sizes = {"linear_rows1": [300], "linear_rows2": [1100, 700],
+                 "linear_rows4": [3000], "linear_global": [4300],
+                 "linear_ragged": [520, 90, 260]}[case]
+        pairs = [(build_leaf_graph("".join(rng.choice(list("ACGT"), n)),
+                                   alph.DNA),
+                  build_leaf_graph("".join(rng.choice(list("ACGT"),
+                                                      min(n, 400))),
+                                   alph.DNA)) for n in sizes]
+        kw = ff.linear_batch_args([fp.linear_fullprob_inputs(*p, MODEL)
+                                   for p in pairs], "cuda")
+        want = {"linear_rows1": dict(rows=1), "linear_rows2": dict(rows=2),
+                "linear_rows4": dict(rows=4),
+                "linear_global": dict(rows=0, shared=False),
+                "linear_ragged": dict(rows=2, shared=True)}[case]
+        return "linear", kw, want
+    G = None
+    if case.startswith("k"):                     # "k<KL>x<KR>"
+        kl, kr = (int(v) for v in case[1:].split("x"))
+        g = [(_fwd_graph(rng, 90, kl), _fwd_graph(rng, 80, kr))]
+        templ = max(kl, kr) <= ff.TEMPLATE_K
+        want = dict(KL=kl if templ else 0, KR=kr if templ else 0,
+                    placement="shared", rtab=True)
+    elif case == "ring_hot":                     # H < G + 1
+        g = [(_fwd_graph(rng, 1100, 2), _fwd_graph(rng, 60, 2))]
+        G, want = 40, dict(placement="hot", rows=2)
+    elif case == "ring_global":                  # no diagonal on chip
+        g = [(_fwd_graph(rng, 6600, 2), _fwd_graph(rng, 30, 1))]
+        want = dict(placement="global", hot=0, rows=0)
+    elif case == "rows4":                        # K 2 x 2 past 1536 lanes
+        g = [(_fwd_graph(rng, 1800, 2), _fwd_graph(rng, 50, 2))]
+        want = dict(rows=4, KL=2, KR=2)
+    elif case == "rows0_k3":                     # past 768 lanes at K 3
+        g = [(_fwd_graph(rng, 1800, 3), _fwd_graph(rng, 50, 2))]
+        want = dict(rows=0, KL=0, KR=0)
+    elif case == "rows0_shared":                 # runtime lanes, whole ring
+        g = [(_fwd_graph(rng, 2500, 1), _fwd_graph(rng, 40, 1))]
+        want = dict(rows=0, placement="shared")
+    elif case == "rtab_device":                  # right slots too many
+        g = [(_fwd_graph(rng, 40, 2), _fwd_graph(rng, 15000, 2))]
+        want = dict(rtab=False, KL=2, KR=2)
+    elif case == "ragged_batch":
+        g = [(_fwd_graph(rng, 200, 3), _fwd_graph(rng, 150, 2)),
+             (_fwd_graph(rng, 130, 1), _fwd_graph(rng, 190, 3, seeds=2)),
+             (_fwd_graph(rng, 60, 2), _fwd_graph(rng, 70, 1))]
+        want = dict(KL=3, KR=3)
+    elif case == "seed_depth":
+        g = [(_fwd_graph(rng, 120, 2, seeds=3), _fwd_graph(rng, 100, 2))]
+        want = {}
+    elif case == "deep_ring":
+        g = [(_fwd_graph(rng, 300, 2, skip=44), _fwd_graph(rng, 260, 2))]
+        want = {}
+    elif case == "offsets_past_g":
+        g = [(_fwd_graph(rng, 150, 4), _fwd_graph(rng, 140, 3))]
+        G, want = 3, dict(KL=4, KR=3)
+    else:
+        raise ValueError(case)
+    _f, kw = ff.fanin_batch_args([fp.fanin_fullprob_inputs(a, b, MODEL)
+                                  for a, b in g], "cuda", G=G)
+    if case == "seed_depth":
+        assert kw["seed"].shape[1] == 3
+    if case == "deep_ring":
+        assert kw["G"] >= 42
+    return "fanin", kw, want
+
+
+BWD_SHAPES = (["linear_rows1", "linear_rows2", "linear_rows4",
+               "linear_global", "linear_ragged", "ring_hot", "ring_global",
+               "rows4", "rows0_k3", "rows0_shared", "rtab_device",
+               "ragged_batch", "seed_depth", "deep_ring", "offsets_past_g",
+               "k6x2"]
+              + ["k%dx%d" % (kl, kr) for kl in range(1, 5)
+                 for kr in range(1, 5)])
+
+
+@pytest.mark.parametrize("case", BWD_SHAPES)
+def test_fullprob_bwd_shape_classes(cuda, case):
+    """Kernel E against its plain version on each shape class of its
+    launch plans: every templated fan-in and the runtime-K build, each
+    ring placement (shared, a hot split, global), one, two and four
+    lanes a thread (fan-in two, and four up to K 2 x 2) and the build
+    for any count, the right-slot table in shared and in device memory,
+    ragged batches, seed depth 3, a deep ring and offsets past G; planes
+    bit-equal, cum within D * eps * max(1, |cum|)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    kind, kw, want = _bwd_shape_case(case, rng)
+    if kind == "linear":
+        plan = ff.bwd_linear_plan(kw["ms2"].shape[2])
+        fn, plain, name = ff.fullprob_bwd, ff.fullprob_bwd_plain, \
+            "fullprob_bwd"
+    else:
+        lo, ro = kw["lfoff"], kw["rfoff"]
+        plan = ff.bwd_fanin_plan(lo.shape[1], kw["G"], lo.shape[2],
+                                 ro.shape[2], ro.shape[1])
+        fn, plain, name = ff.fullprob_bwd_fanin, \
+            ff.fullprob_bwd_fanin_plain, "fullprob_bwd_fanin"
+    assert {k: plan[k] for k in want} == want
+    n0 = ff.LAUNCHES[name]
+    out = fn(**kw)
+    ref = plain(**kw)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES[name] == n0 + 1
+    _same_fills(out, ref)
+    assert float(out[0].max()) == 1.0
+
+
+@pytest.mark.parametrize("entry, change", [
+    ("fanin", dict(rows=3)),
+    ("fanin", dict(rows=4, threads=384, KL=0, KR=0)),
+    ("fanin", dict(KL=5, KR=5)),
+    ("fanin", dict(threads=1024)), ("fanin", dict(rows=0)),
+    ("linear", dict(rows=3)), ("linear", dict(shared=False))])
+def test_fullprob_bwd_takes_only_plans_it_has_built(cuda, monkeypatch,
+                                                    entry, change):
+    """Kernel E refuses a plan it has no build for (three lanes a
+    thread; four lanes with runtime K; a fan-in past 4 x 4 as a
+    template; 1024 threads of two lanes
+    at K 2 x 2; the build for any lane count with a templated fan-in;
+    linear buffers in device memory with lanes in registers): the
+    wrapper raises and counts no launch, and the next launch is not
+    disturbed."""
+    rng = np.random.default_rng(3)
+    if entry == "fanin":
+        _f, kw = ff.fanin_batch_args([fp.fanin_fullprob_inputs(
+            _fwd_graph(rng, 1500, 2), _fwd_graph(rng, 60, 2), MODEL)],
+            "cuda")
+        fn, name, planner = ff.fullprob_bwd_fanin, "fullprob_bwd_fanin", \
+            "bwd_fanin_plan"
+    else:
+        kw = ff.linear_batch_args([fp.linear_fullprob_inputs(
+            *_related(rng, 1500), MODEL)], "cuda")
+        fn, name, planner = ff.fullprob_bwd, "fullprob_bwd", \
+            "bwd_linear_plan"
+    plan = getattr(ff, planner)
+    with monkeypatch.context() as m:
+        m.setattr(ff, planner, lambda *a: dict(plan(*a), **change))
+        n0 = ff.LAUNCHES[name]
+        with pytest.raises(RuntimeError, match="fullprob_bwd.* launch"):
+            fn(**kw)
+        assert ff.LAUNCHES[name] == n0
+    out = fn(**kw)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES[name] == n0 + 1
+    assert float(out[0].max()) == 1.0
+
 def _same_probe(out, ref, codes=True):
     if codes:
         assert torch.equal(out[0], ref[0])

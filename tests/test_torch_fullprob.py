@@ -462,3 +462,96 @@ def test_wrappers_check_their_arguments():
     planes, cum = ff.fullprob_fwd_fanin(**fkw)
     assert planes.dtype == torch.float32 and planes.shape[1] == 3
     assert cum.shape == planes.shape[:1] + planes.shape[2:3]
+
+
+# ----------------------------------------------------------------------
+# kernel E's launch plans (plain Python; the kernel refuses any other)
+@pytest.mark.parametrize("key, want", [
+    # the --full-probability run's fan-in calls: 16 x 1535 ancestors
+    ((1536, 26, 2, 2, 1536), (2, 2, 2, 768, "hot", 11, True)),
+    ((768, 14, 2, 2, 768), (2, 2, 2, 384, "shared", 15, True)),
+    ((1536, 26, 3, 3, 1536), (0, 0, 0, 1024, "hot", 10, True)),
+    ((768, 26, 3, 3, 768), (3, 3, 2, 384, "hot", 23, True)),
+    ((2048, 26, 3, 3, 2048), (0, 0, 0, 1024, "hot", 7, True)),
+    # a 6 x 2000 family's ancestors and 454 pairs of 2047 bp
+    ((2016, 26, 2, 2, 2001), (2, 2, 4, 512, "hot", 8, True)),
+    ((2016, 14, 1, 2, 2001), (1, 2, 4, 512, "hot", 8, True)),
+    ((2048, 6, 2, 2, 2048), (2, 2, 4, 512, "shared", 7, True)),
+    ((96, 8, 6, 2, 80), (0, 0, 2, 64, "shared", 9, True)),
+    ((2528, 2, 1, 1, 41), (0, 0, 0, 1024, "shared", 3, True)),
+    ((6624, 3, 2, 1, 31), (0, 0, 0, 1024, "global", 0, True)),
+    ((64, 4, 2, 2, 15001), (2, 2, 2, 32, "shared", 5, False))])
+def test_bwd_fanin_plan(key, want):
+    p = ff.bwd_fanin_plan(*key)
+    assert (p["KL"], p["KR"], p["rows"], p["threads"], p["placement"],
+            p["hot"], p["rtab"]) == want
+    Lp, G, KL, KR, Rr = key
+    assert p["smem"] == 4 * (64 + G + 1) + 8 * KR * Rr * p["rtab"] \
+        + 12 * Lp * p["hot"] <= ff.SHARED_BYTES
+
+
+@pytest.mark.parametrize("K", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 3)])
+def test_bwd_fanin_plan_limits(K):
+    """Over a grid of lane counts, ring depths and right sides: shared
+    bytes within the H100's 227 KB; the right-slot table on chip exactly
+    when it fits beside MIN_HOT ring diagonals (or alone, where those do
+    not fit); the whole ring on chip
+    exactly when it fits beside the table, else the most diagonals that
+    fit (at least MIN_HOT, or none); every lane owned by one thread of a
+    block of whole warps with no idle warp, within the block size of its
+    build (two lanes: 768 threads, 384 for a templated fan-in past
+    2 x 2; four, for a templated fan-in up to 2 x 2: 512; any: 1024)."""
+    KL, KR = K
+    templ = max(KL, KR) <= ff.TEMPLATE_K
+    for Lp in (32, 64, 500, 1024, 1536, 1537, 2048, 2049, 4096, 6500,
+               9000):
+        for G in (1, 2, 6, 26, 64):
+            for Rr in (8, 1536, 20000):
+                p = ff.bwd_fanin_plan(Lp, G, KL, KR, Rr)
+                GR, table = G + 1, 8 * KR * Rr
+                fixed = 4 * (64 + GR) + table * p["rtab"]
+                assert p["smem"] == fixed + 12 * Lp * p["hot"] \
+                    <= ff.SHARED_BYTES
+                least = 12 * Lp * min(GR, ff.MIN_HOT)
+                if 4 * (64 + GR) + least > ff.SHARED_BYTES:
+                    least = 0
+                assert p["rtab"] == (4 * (64 + GR) + table + least
+                                     <= ff.SHARED_BYTES)
+                fits = fixed + 12 * Lp * GR <= ff.SHARED_BYTES
+                assert (p["placement"] == "shared") == fits
+                if fits:
+                    assert p["hot"] == GR
+                elif p["hot"]:
+                    assert p["placement"] == "hot"
+                    assert ff.MIN_HOT <= p["hot"] <= G
+                    assert fixed + 12 * Lp * (p["hot"] + 1) \
+                        > ff.SHARED_BYTES
+                else:
+                    assert p["placement"] == "global"
+                t, rows = p["threads"], p["rows"]
+                two = 768 if not templ or max(KL, KR) <= 2 else 384
+                cap = {2: two, 4: 512, 0: 1024}[rows]
+                four = templ and max(KL, KR) <= 2 and Lp <= 2048
+                assert rows == (2 if Lp <= 2 * two else 4 if four else 0)
+                assert t % 32 == 0 and 32 <= t <= cap
+                if rows:
+                    assert (p["KL"], p["KR"]) == ((KL, KR) if templ
+                                                  else (0, 0))
+                    assert t * rows >= Lp > (t - 32) * rows
+                else:
+                    assert (p["KL"], p["KR"]) == (0, 0)
+                    assert t == min(1024, -(-Lp // 32) * 32)
+
+
+@pytest.mark.parametrize("Lp, want", [
+    (32, (1, 32, True)), (512, (1, 512, True)), (513, (2, 288, True)),
+    (1536, (2, 768, True)), (2048, (2, 1024, True)),
+    (4096, (4, 1024, True)), (4097, (0, 1024, False)),
+    (20000, (0, 1024, False))])
+def test_bwd_linear_plan(Lp, want):
+    p = ff.bwd_linear_plan(Lp)
+    assert (p["rows"], p["threads"], p["shared"]) == want
+    assert p["smem"] == (16 * (Lp + 1) if p["shared"] else 0)
+    assert p["smem"] <= ff.SHARED_BYTES
+    if p["rows"]:
+        assert p["threads"] * p["rows"] >= Lp
