@@ -15,11 +15,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernel_fanin   kernel B vs fanin_fill_plain: 454-style K3/3 graphs at
                16 x 2047 (kernel timed), over-cap ancestor graphs, a
                windowed case; codes and snapshots bit-equal
-  kernel_banded  kernel C vs banded_fill_plain: a 3,500 bp pair with its
-               narrow anchored band, a window of more than 128 rows, a
-               band with the pair-end break scalars set, a band that
-               dead-ends (no finite corner score) and a window too wide
-               for shared memory; codes and corner scores bit-equal
+  kernel_banded  kernel C vs banded_fill_plain on the band shapes of
+               tools/bench_banded.py: a 3,500 bp pair with its narrow
+               anchored band, a window of more than 128 rows, a band
+               with the pair-end break scalars set, a band that
+               dead-ends (no finite corner score), a window past 1024
+               rows and one too wide for shared memory; codes and corner
+               scores bit-equal, each with its launch plan and us per
+               diagonal, every build of the plan (window, block, global
+               ring) met
   kernel_fullprob  kernels D and E vs their plain versions: linear, 8
                jobs at 2047 x 2047 and a ragged batch; fan-in, 454-style
                K3/3 graphs, over-cap ancestor pairs and a deep ring
@@ -136,18 +140,6 @@ def mutate(rng, base, p=0.1):
     return "".join(mut)
 
 
-def long_pair(n=3500, seed=1):
-    """A 3,500 bp pair: 5% substitutions and a 12-bp deletion."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    base = rng.choice(list("ACGT"), size=n)
-    mut = base.copy()
-    idx = rng.random(n) < 0.05
-    mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
-    s2 = "".join(mut)
-    return "".join(base), s2[:n // 2] + s2[n // 2 + 12:]
-
-
 def write_input(work, name, seqs, tree):
     """FASTA and Newick files of one CLI input; returns their paths."""
     fas = os.path.join(work, name + ".fas")
@@ -234,6 +226,10 @@ def main():
     from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
     from pagan2_tpu_torch.parallel import executor as EX
     from pagan2_tpu_torch.tools.bench_fanin import family
+    from pagan2_tpu_torch.tools.bench_banded import (band_shapes, megabase,
+                                                     shape_args)
+    from pagan2_tpu_torch.tools.bench_banded import \
+        plan_text as banded_plan_text
     from pagan2_tpu_torch.tools.bench_fullprob import (fanin_plan_text,
                                                        plan_text)
 
@@ -373,77 +369,55 @@ def main():
                                        ilo=ilo))
 
     # ---- kernel_banded ----
-    from dataclasses import replace
-    from pagan2_tpu_torch.align.oracle import mark_no_gap_penalty_sites
-
-    def banded_check(s1, s2, what, s=settings, band=None, qual="",
-                     dead_end=False):
-        g1 = build_leaf_graph(s1, alph.DNA)
-        g2 = build_leaf_graph(s2, alph.DNA, quality=qual)
-        if s.pair_end_reads:
-            s = replace(s, x_read1_length=mark_no_gap_penalty_sites(g1),
-                        y_read1_length=mark_no_gap_penalty_sites(g2))
-        L, R = g1.num_sites() - 1, g2.num_sites() - 1
-        if band is None:
-            band = plan_band(g1, g2, s)[0]
-        else:
-            band = band(L, R)
-        args, meta = VB.banded_args(g1, g2, model, s, band[0], band[1],
-                                    dev)
+    # chip_smoke's band shapes (tools/bench_banded.py): every build of
+    # kernel C's launch plan is met on one of them
+    def banded_check(shape):
+        args, meta = shape_args(shape, model, dev)
         codes, corner = VB.banded_fill(**args)
         pc, pk = VB.banded_fill_plain(**args)
         torch.cuda.synchronize()
+        what = shape["name"]
         if not torch.equal(codes, pc):
             fail("kernel_banded %s: %d codes differ from the plain version"
                  % (what, int((codes != pc).sum())))
         if not same_floats(corner, pk):
             fail("kernel_banded %s: corner scores differ: %s vs %s"
                  % (what, corner.tolist(), pk.tolist()))
-        if bool(torch.isfinite(corner).any()) == dead_end:
+        if bool(torch.isfinite(corner).any()) == shape["dead_end"]:
             fail("kernel_banded %s: corner %s" % (what, corner.tolist()))
         Dn, Wk = args["ms"].shape
         k_ms = cuda_ms(lambda: VB.banded_fill(**args), 3)
         log("kernel_banded %s: L %d, R %d, w.max() %d, Wk %d, D-1 %d, "
-            "staged %d diagonals: bit-equal, corner %s; kernel %.3f ms "
-            "(%.3f us per diagonal)"
-            % (what, L, R, meta["w"].max(), Wk, Dn,
-               VB._stage_diagonals(Wk), corner.tolist(), k_ms,
-               1e3 * k_ms / Dn))
-        return max_abs_err(corner, pk), meta, args
+            "plan %s: bit-equal, corner %s; kernel %.3f ms (%.3f us per "
+            "diagonal)" % (what, meta["inp"]["L"], meta["inp"]["R"],
+                           meta["w"].max(), Wk, Dn,
+                           banded_plan_text(VB, args), corner.tolist(),
+                           k_ms, 1e3 * k_ms / Dn))
+        return max_abs_err(corner, pk), meta, args, VB.banded_plan(Wk)
 
     ban_err = 0.0
-    s1, s2 = long_pair()
-    e, meta, _ = banded_check(s1, s2, "3500 bp anchored")
-    ban_err = max(ban_err, e)
-    seqs4, _ = family(4, 4000)
-    e, meta, _ = banded_check(seqs4[0][1], seqs4[1][1], "10% subs")
-    if meta["w"].max() <= 128:
-        fail("kernel_banded: the 10%% pair's window is %d rows"
-             % meta["w"].max())
-    ban_err = max(ban_err, e)
-    r1, r2, mid = ("".join(rng.choice(list("ACGT"), k))
-                   for k in (200, 200, 300))
-    e, meta, args = banded_check(
-        r1 + mid + r2, r1 + "0" + r2, "pair-end breaks",
-        s=replace(settings, pair_end_reads=True),
-        band=lambda L, R: (np.zeros(L, np.int64), np.full(L, R - 1)),
-        qual="I" * (len(r1) + len(r2) + 1))
-    if int(args["iscal"][3]) < 0:
-        fail("kernel_banded: the pair-end break scalar ybrk is not set")
-    ban_err = max(ban_err, e)
-    base = "".join(rng.choice(list("ACGT"), 800))
-    banded_check(base, "ACGT" * 5 + base, "dead end",
-                 band=lambda L, R: (np.zeros(L, np.int64),
-                                    np.full(L, 3, np.int64)),
-                 dead_end=True)
-    # past the shared-memory budget: the ring in global scratch
-    base = rng.choice(list("ACGT"), size=5400)
-    e, meta, args = banded_check(
-        "".join(base), mutate(rng, base), "global ring",
-        band=lambda L, R: (np.zeros(L, np.int64), np.full(L, R - 1)))
-    if VB._stage_diagonals(args["ms"].shape[1]):
-        fail("kernel_banded: the wide case did not take the global ring")
-    ban_err = max(ban_err, e)
+    ban_builds = {}
+    # the shapes draw from rng as this phase always has, so the later
+    # phases keep their inputs: kernel_fullprob's oracle pairs come
+    # from the same rng, and other draws here hand it other pairs, some
+    # of which the reference's own totals fail its 1e-3 on (one such
+    # pair: TOTALS_PART_PAIR in tests/test_torch_fullprob.py)
+    for shape in band_shapes(rng=rng):
+        e, meta, args, plan = banded_check(shape)
+        ban_err = max(ban_err, e)
+        ban_builds.setdefault(plan["build"], []).append(shape["name"])
+        if shape["name"] == "10% subs" and meta["w"].max() <= 128:
+            fail("kernel_banded: the 10%% pair's window is %d rows"
+                 % meta["w"].max())
+        if shape["pair_end"] and int(args["iscal"][3]) < 0:
+            fail("kernel_banded: the pair-end break scalar ybrk is not set")
+        if shape["name"] == "global ring" and plan["build"] != "global":
+            fail("kernel_banded: the wide case did not take the global ring")
+    if set(ban_builds) != set(VB.BUILDS):
+        fail("kernel_banded: builds %s met, not all of %s"
+             % (sorted(ban_builds), VB.BUILDS))
+    log("kernel_banded: every build met and bit-equal: %s"
+        % json.dumps(ban_builds))
 
     # ---- kernel_fullprob ----
     EPS32 = 1.1920929e-07
@@ -971,14 +945,8 @@ def main():
 
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
-    rng0 = np.random.default_rng(0)
-    N = 1048575
-    base = rng0.choice(list("ACGT"), size=N)
-    mut = base.copy()
-    idx = rng0.random(N) < 0.01
-    mut[idx] = rng0.choice(list("ACGT"), size=int(idx.sum()))
-    mega = [("a", "".join(base)), ("b", "".join(mut))]
-    fasm, nhm = write_input(work, "megabase", mega, "(a:0.1,b:0.1);")
+    mega, mtree = megabase()
+    fasm, nhm = write_input(work, "megabase", mega, mtree)
     phases = {}
 
     def timed(fn, key, sync=False):
@@ -1022,12 +990,13 @@ def main():
         fail("megabase: %d plain-version calls on CUDA" % plain_calls)
     msched = rec_mega["banded"][0]["sched"].cpu().numpy()
     log("megabase: 2 rows x %d cols in %.1f s; launches A=%d B=%d C=%d; "
-        "w.max() %d, Wk %d, %d diagonals, %d window cells, %d in-band "
-        "cells" % (cols, wall, counts_mega["linear"], counts_mega["fanin"],
-                   counts_mega["banded"], msched[:, 1].max(),
-                   rec_mega["banded"][0]["ms"].shape[1], len(msched),
-                   msched[:, 1].astype(np.int64).sum(),
-                   stats["batched_cells"]))
+        "w.max() %d (mean %.2f), Wk %d, %d diagonals, %d window cells, %d "
+        "in-band cells" % (cols, wall, counts_mega["linear"],
+                           counts_mega["fanin"], counts_mega["banded"],
+                           msched[:, 1].max(), msched[:, 1].mean(),
+                           rec_mega["banded"][0]["ms"].shape[1],
+                           len(msched), msched[:, 1].astype(np.int64).sum(),
+                           stats["batched_cells"]))
     for key in ("anchor_scan_s", "band_smooth_s"):
         log("megabase host phase %-36s %8.3f s (anchors.PREP_TIMINGS)"
             % (key, ANCH.PREP_TIMINGS.get(key, 0.0)))
@@ -1163,7 +1132,10 @@ def main():
                 "" if ms is None else ", %.3f us per diagonal"
                 % (1e3 * ms / t.shape[1]))
         if "sched" in kw:
-            return "D-1, Wk = %s" % (tuple(kw["ms"].shape),)
+            return "D-1, Wk = %s, w.max() %d; %s%s" % (
+                tuple(kw["ms"].shape), int(kw["sched"][:, 1].max()),
+                banded_plan_text(VB, kw), "" if ms is None else
+                ", %.3f us per diagonal" % (1e3 * ms / kw["ms"].shape[0]))
         if "ms" in kw:
             return "B, D, Lp = %s" % (tuple(kw["ms"].shape),)
         B, D = kw["ilo"].shape
@@ -1386,7 +1358,10 @@ def main():
          "max_abs_err": ban_err, "ms": ban_t[0], "plain_ms": ban_t[1],
          "bound_ms": ban_t[2], "bound_by": ban_t[3], "library_ms": None,
          "timed_on": "megabase call, first %d diagonals" % NPRE,
-         "whole_call_ms": mega_ms, "whole_call_bound_ms": mega_bound},
+         "whole_call_ms": mega_ms, "whole_call_bound_ms": mega_bound,
+         "plans": [banded_plan_text(VB, kw) for kw in
+                   rec_long["banded"] + rec_mega["banded"]],
+         "builds_met": ban_builds},
         kernel_entry("fullprob_fwd",
                      "pagan2_tpu_torch/csrc/fullprob_fwd.cu",
                      "pagan2_tpu/align/fullprob_pallas.py:45", "fwd"),

@@ -63,6 +63,17 @@ FOLD_CHUNK_CELLS = 1 << 22
 # block's dynamic shared memory (227 KB on an H100)
 MAX_SHARED_BYTES = 232448
 MAX_STAGE_DIAGONALS = 16
+# kernel C's builds (the launcher's codes): the window kernel, the
+# per-position block kernel, and the block kernel with its ring in
+# global scratch
+BUILDS = ("window", "block", "global")
+# the window kernel's instantiations: threads -> window positions a
+# thread (256 threads on whole 256-column groups, else 128); on the
+# H100 each beat the block kernel at its width, 1.24-1.57x at 640-1280
+# columns (tools/bench_banded.py)
+WINDOW_BUILDS = {128: (1, 3, 5, 7), 256: (1, 2, 3, 4, 5)}
+# the window kernel's chunks: a thread a diagonal makes its step table
+WINDOW_MAX_STAGE = 32
 
 
 # ----------------------------------------------------------------------
@@ -252,16 +263,70 @@ def _check_args(fscal, iscal, sched, ms):
     return Dn, Wk
 
 
-def _stage_diagonals(Wk: int) -> int:
-    """Diagonals per staged chunk of stripe and schedule rows (double
-    buffered beside the ring of three diagonals), or 0 when not even one
-    fits and the ring lives in global scratch."""
-    td = MAX_STAGE_DIAGONALS
-    while td >= 1:
-        if 36 * Wk + 2 * td * (4 * Wk + 32) <= MAX_SHARED_BYTES:
-            return td
+def _stage_depth(row_bytes: int, fixed: int,
+                 top: int = MAX_STAGE_DIAGONALS) -> int:
+    """Diagonals per staged chunk (a power of two up to `top`) whose
+    double-buffered rows (row_bytes + 32 bytes a diagonal) fit beside
+    `fixed` bytes, or 0."""
+    td = top
+    while td >= 1 and fixed + 2 * td * (row_bytes + 32) > MAX_SHARED_BYTES:
         td //= 2
-    return 0
+    return td
+
+
+def window_plan(Wk: int, threads: int) -> dict:
+    """The window kernel's plan for a stripe of Wk columns in a block of
+    `threads`, Wk / threads positions a thread: a ring of three float4
+    slots of 3 Wk (144 Wk bytes), the staged chunks of stripe rows (4 Wk
+    bytes a diagonal), their schedule rows (32) and step tables (48)."""
+    td = _stage_depth(4 * Wk + 48, 144 * Wk, WINDOW_MAX_STAGE)
+    return dict(build="window", threads=threads,
+                rows_a_thread=Wk // threads, stage=td,
+                smem=144 * Wk + 2 * td * (4 * Wk + 80))
+
+
+def block_plan(Wk: int) -> dict:
+    """The block kernel's plan: min(1024, Wk) threads looping over the
+    Wk positions; the ring of three diagonals (36 Wk bytes) and the
+    staged chunks of stripe rows in shared memory where at least one
+    diagonal a chunk fits, else the ring in global scratch and nothing
+    staged."""
+    threads = min(1024, Wk)
+    td = _stage_depth(4 * Wk, 36 * Wk)
+    return dict(build="block" if td else "global", threads=threads,
+                rows_a_thread=-(-Wk // threads), stage=td,
+                smem=36 * Wk + 2 * td * (4 * Wk + 32) if td else 0)
+
+
+def banded_plan(Wk: int) -> dict:
+    """How kernel C is launched on a stripe of Wk columns (a multiple of
+    128):
+
+    - build: "window" (the window kernel: a block of 128 or 256 threads,
+      a template on positions a thread, the ring as float4 slots, step
+      tables made a chunk ahead) where one of its instantiations covers
+      Wk exactly and its shared memory fits (Wk up to 1280); else
+      "block" (one thread a position, up to 1024 threads, a block
+      barrier a step) while the ring and one staged diagonal fit in
+      shared memory; else "global", the block kernel with its ring in
+      global scratch;
+    - threads, rows_a_thread: the block and its window positions a
+      thread (the window kernel: 256 threads on whole 256-column groups,
+      else 128; on the H100 eight warps of one position beat four of
+      two at Wk 256, four warps of one beat one warp of three or two of
+      two at Wk 128);
+    - stage: diagonals a staged chunk (double buffered), 0 for the
+      global ring;
+    - smem: dynamic shared bytes.
+
+    The plan needs no look at the schedule: the window kernel skips, a
+    diagonal at a time, each block of rows past that diagonal's window."""
+    threads = 256 if Wk % 256 == 0 else 128
+    if Wk // threads in WINDOW_BUILDS[threads]:
+        p = window_plan(Wk, threads)
+        if p["stage"]:
+            return p
+    return block_plan(Wk)
 
 
 def banded_fill(fscal, iscal, sched, ms):
@@ -270,7 +335,11 @@ def banded_fill(fscal, iscal, sched, ms):
     int32 (`band_sched`); fscal (8,) f32 [gext, gend, gbrk, lgo, lng,
     olz, orz]; iscal (8,) int32 [L, R, xbrk, ybrk, cornerd, tcorner].
     Returns (codes (D - 1, Wk) uint8 at the target cell, corner (3,)
-    f32: M, X, Y at cell (L - 1, R - 1))."""
+    f32: M, X, Y at cell (L - 1, R - 1)).
+
+    On a CUDA tensor it launches kernel C as banded_plan(Wk) says; the
+    kernel refuses a plan it has no build for, and the wrapper raises on
+    any launch error."""
     global LAUNCHES, PLAIN_CALLS
     Dn, Wk = _check_args(fscal, iscal, sched, ms)
     if ms.device.type == "cpu":
@@ -279,25 +348,23 @@ def banded_fill(fscal, iscal, sched, ms):
     for name, t in (("sched", sched), ("ms", ms)):
         if t.data_ptr() % 16:
             raise ValueError("%s must be 16-byte aligned" % name)
+    plan = banded_plan(Wk)
     lib = kernels.load("viterbi_banded")
     fn = lib.viterbi_banded_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     codes = torch.empty((Dn, Wk), dtype=torch.uint8, device=ms.device)
     corner = torch.empty(3, dtype=torch.float32, device=ms.device)
-    td = _stage_diagonals(Wk)
-    # past the shared-memory budget the ring of three diagonals lives in
-    # an L2-resident global scratch and the stripe is read in place
-    gbuf = None if td else torch.empty(9 * Wk, dtype=torch.float32,
-                                       device=ms.device)
-    threads = min(1024, Wk)
+    gbuf = torch.empty(9 * Wk, dtype=torch.float32, device=ms.device) \
+        if plan["build"] == "global" else None
     with torch.cuda.device(ms.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(fscal.data_ptr(), iscal.data_ptr(), sched.data_ptr(),
                  ms.data_ptr(), codes.data_ptr(), corner.data_ptr(),
-                 0 if gbuf is None else gbuf.data_ptr(),
-                 Dn, Wk, td, threads, stream)
+                 0 if gbuf is None else gbuf.data_ptr(), Dn, Wk,
+                 BUILDS.index(plan["build"]), plan["threads"],
+                 plan["rows_a_thread"], plan["stage"], plan["smem"], stream)
     kernels.check(err, "viterbi_banded")
     LAUNCHES += 1
     return codes, corner

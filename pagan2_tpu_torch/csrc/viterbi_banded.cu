@@ -17,28 +17,74 @@
 // score pre-folded on the way in as ((ms + lw[i]) + rw[j]) + lng. The
 // sources sit at window positions t + sx, t + sy of diagonal d-1 and
 // t + sm of diagonal d-2 (offsets from the per-diagonal schedule); a
-// source outside [0, Wk) reads -inf and its code is 3 ("none"). Codes
-// are plain bytes at the TARGET cell (bm bits 0-1, bx 2-3, by 4-5), so
-// the Pallas kernel's packed f32 words and source-position codes do not
-// exist here.
+// source outside [0, Wk) gives no source (code 3) and the state -inf.
+// Codes are plain bytes at the TARGET cell (bm bits 0-1, bx 2-3, by
+// 4-5), so the Pallas kernel's packed f32 words and source-position
+// codes do not exist here.
 //
 // What bounds it on an H100: not bytes (5 B per window cell against
 // 3.35 TB/s) and not operations (~30 f32 add/compare/select per cell
 // against 67 TFLOP/s), but the serial chain of D - 1 dependent
-// diagonals of one pair (2.1 M for a 1 Mb pair), each a few hundred
-// cells wide at most, with one block on 132 SMs.
+// diagonals of one pair (2.1 M for a 1 Mb pair), each a few dozen to a
+// few hundred cells wide, with one block on 132 SMs. A step costs what
+// one warp takes to dispatch its instructions in order, each waiting on
+// the one before (shared read, a dozen dependent adds and maxima,
+// shared write), plus the block barrier; the barrier is the smaller
+// part (measured on the H100: dropping it saved 0-5%), so the design
+// cuts the instructions on a warp's chain and spreads the window's
+// cells over more warps (one warp holding 3 or 8 positions of a
+// narrow window took 1.5-2.3x as long a step as four or eight warps
+// holding 1 each).
 //
-// What the design does about it: each step is kept as short as the
-// chain allows. One block per pair; each thread owns one window row,
-// so a window of up to 128 rows is 4 warps, one on each of the SM's
-// four schedulers, and a thread's step is one cell's short chain. M/X/Y
-// of the last three diagonals (36 * Wk bytes) stay in shared memory, so
-// a step reads its sources and writes its cells on chip and ends in one
-// barrier. The stripe and schedule rows are
-// staged into shared memory with cp.async, TD diagonals at a time and
-// one chunk ahead (double buffered), so no step waits on device memory.
-// A window too wide for that budget keeps the three diagonals in an
-// L2-resident global scratch and reads the stripe in place.
+// Window build (banded_plan: Wk up to 1280). A block of NT = 128 or
+// 256 threads, each owning window positions t = tid + NT r, r < RPT =
+// Wk / NT (both templates, so every index is known at compile time).
+// Only the real window is computed: a block of rows wholly past the
+// diagonal's width (r > 0, NT r >= w[d]) reads nothing and writes -inf
+// and code 63 (no source), as the plain version leaves cells past the
+// window.
+//   The ring: the three newest diagonals in shared memory, each a slot
+// of 3 Wk float4 (M, X, Y, unused), so one 16-byte read brings a
+// source's three states. Position p of a slot lives at index Wk + p. A
+// read offset s is clamped to [-Wk, Wk] (as the plain version clamps
+// it), so every read lands in the slot: t + s < 0 is no source and its
+// value is unused; t + s >= Wk reads the -inf of indices [2 Wk, 3 Wk),
+// never written, and is no source either. A source's validity, the
+// window test and i > 0 / j > 0 fold into one range [lo, lo + n) of t
+// per source and step, tested per cell with one unsigned compare. Slot
+// reuse: diagonal d writes the slot that held d - 3; no thread reads
+// d - 3 in step d (its sources are d - 1 and d - 2), and every thread
+// has passed step d - 1's barrier, so the last reads of d - 3 (in step
+// d - 1) are done. The step table holds each source's slot index with
+// its slot (diagonal e in slot e mod 3, worked out a chunk ahead), and
+// the slot written advances by one compare a step.
+//   The per-position penalties differ from the interior ones only at
+// rows 0, 1, L - 1, xbrk, xbrk + 1 and columns 0, 1, R - 1, ybrk,
+// ybrk + 1; a step whose window touches none (almost every step) takes
+// the interior values without rebuilding them per cell (`fast`).
+//   Inputs ahead of the step: the stripe and the schedule rows are
+// staged into shared memory with cp.async, TD diagonals a chunk,
+// double buffered. When a chunk lands (cp.async.wait_group 0 and a
+// barrier, just before its first row is needed), a thread a diagonal
+// turns its schedule rows into a step table (source slot indices,
+// validity ranges, `fast`), so no step spends its chain on that
+// arithmetic. A step first starts its own ring reads (their addresses
+// are in registers), then reads the next step's table row and stripe
+// values into registers, then computes. The stage buffers a landed
+// chunk replaces held the chunk whose last row was read a step
+// earlier, before that step's barrier; they are refilled with the
+// chunk after next. A landed chunk's step table goes to the table
+// buffer of the chunk before the current one, whose last row was read
+// before the current chunk's first step, behind at least one barrier;
+// the table is read only after the barrier that follows its making.
+//   The corner is tested once a step (d == cornerd), a cell only there.
+//
+// Block build (wider stripes, while the ring of three diagonals and one
+// staged diagonal fit in shared memory): one thread a window position
+// up to 1024 threads, the three diagonals' M/X/Y as separate rows in
+// shared memory, the stripe and schedule staged TD diagonals a chunk,
+// one block barrier a step. Global build (past that): the ring in an
+// L2-resident global scratch and the stripe read in place.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -63,6 +109,345 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// every committed group has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the scalars of one call
+struct Scal {
+  float gext, gend, gbrk, lgo, lng, olz, orz;
+  int L, R, xbrk, ybrk, cornerd, tc;
+};
+
+__device__ __forceinline__ Scal load_scal(const float* fscal,
+                                          const int* iscal) {
+  Scal c;
+  c.gext = fscal[0];
+  c.gend = fscal[1];
+  c.gbrk = fscal[2];
+  c.lgo = fscal[3];
+  c.lng = fscal[4];
+  c.olz = fscal[5];
+  c.orz = fscal[6];
+  c.L = iscal[0];
+  c.R = iscal[1];
+  c.xbrk = iscal[2];
+  c.ybrk = iscal[3];
+  c.cornerd = iscal[4];
+  c.tc = iscal[5];
+  return c;
+}
+
+// ---------------------------------------------------------------------
+// Window builds
+
+// One step's uniform values, made from its schedule row when its chunk
+// lands (prepare_steps) and read by every thread a step ahead: three
+// 16-byte rows of a step table in shared memory.
+struct Step {
+  int ox, oy, om, wd;        // ring indices of the sources, less t
+  int lox, loy, lom, fast;   // t has its X / Y / M source and is in the
+  unsigned nx, ny, nm;       //   window: t - lo < n (unsigned); fast:
+  int ilo;                   //   interior penalties all over the window
+};
+constexpr int kStepInts = 12;
+
+// a <= v <= b, for a <= b
+__device__ __forceinline__ bool hit(int v, int a, int b) {
+  return (unsigned)(v - a) <= (unsigned)(b - a);
+}
+
+__device__ __forceinline__ Step make_step(const int* sr, int d, int Wk,
+                                          const Scal& c) {
+  Step s;
+  s.ilo = sr[0];
+  s.wd = sr[1];
+  const int sx = min(max(sr[2], -Wk), Wk);
+  const int sy = min(max(sr[3], -Wk), Wk);
+  const int sm = min(max(sr[4], -Wk), Wk);
+  s.ox = Wk + sx;
+  s.oy = Wk + sy;
+  s.om = Wk + sm;
+  // t in the window: t < wd; its source in the layout: 0 <= t + s < Wk;
+  // i = ilo + t > 0: t >= 1 - ilo; j = d - ilo - t > 0: t < d - ilo
+  const int ipos = 1 - s.ilo;
+  const int jend = d - s.ilo;
+  s.lox = max(max(0, -sx), ipos);
+  s.loy = max(0, -sy);
+  s.lom = max(max(0, -sm), ipos);
+  const int hx = min(s.wd, Wk - sx);
+  const int hy = min(min(s.wd, Wk - sy), jend);
+  const int hm = min(min(s.wd, Wk - sm), jend);
+  s.nx = (unsigned)max(hx - s.lox, 0);
+  s.ny = (unsigned)max(hy - s.loy, 0);
+  s.nm = (unsigned)max(hm - s.lom, 0);
+  // rows i in [a, b], columns j in [d - b, d - a] of the real window
+  const int a = s.ilo, b = s.ilo + s.wd - 1;
+  const int ca = d - b, cb = d - a;
+  const bool special =
+      hit(0, a, b) | hit(1, a, b) | hit(c.L - 1, a, b) | hit(c.xbrk, a, b) |
+      hit(c.xbrk + 1, a, b) | hit(0, ca, cb) | hit(1, ca, cb) |
+      hit(c.R - 1, ca, cb) | hit(c.ybrk, ca, cb) | hit(c.ybrk + 1, ca, cb);
+  s.fast = (s.wd <= 0) | !special;
+  return s;
+}
+
+__device__ __forceinline__ Step load_step(const int* row) {
+  const int4 p = *reinterpret_cast<const int4*>(row);
+  const int4 q = *reinterpret_cast<const int4*>(row + 4);
+  const int4 u = *reinterpret_cast<const int4*>(row + 8);
+  Step s;
+  s.ox = p.x;
+  s.oy = p.y;
+  s.om = p.z;
+  s.wd = p.w;
+  s.lox = q.x;
+  s.loy = q.y;
+  s.lom = q.z;
+  s.fast = q.w;
+  s.nx = (unsigned)u.x;
+  s.ny = (unsigned)u.y;
+  s.nm = (unsigned)u.z;
+  s.ilo = u.w;
+  return s;
+}
+
+// The step table of one landed chunk, rows [k0, k1): a thread a row.
+__device__ __forceinline__ void prepare_steps(int* stp, const int* sb,
+                                              int k0, int k1, int Wk,
+                                              const Scal& c, int tid) {
+  if (tid < k1 - k0) {
+    const int dd = k0 + tid + 1;
+    const Step s = make_step(sb + 8 * tid, dd, Wk, c);
+    int4* row = reinterpret_cast<int4*>(stp + kStepInts * tid);
+    // slots of d - 1, d - 2 (diagonal e in slot e mod 3; d - 2 >= -1)
+    const int s1 = ((dd - 1) % 3) * 3 * Wk, s2 = ((dd + 1) % 3) * 3 * Wk;
+    row[0] = make_int4(s.ox + s1, s.oy + s1, s.om + s2, s.wd);
+    row[1] = make_int4(s.lox, s.loy, s.lom, s.fast);
+    row[2] = make_int4((int)s.nx, (int)s.ny, (int)s.nm, s.ilo);
+  }
+}
+
+// One cell at window position t: a, b = diagonal d-1's (M, X, Y) at
+// t + sx and t + sy, e = diagonal d-2's at t + sm.
+template <bool FAST>
+__device__ __forceinline__ void window_cell(const float4 a, const float4 b,
+                                            const float4 e, float msv,
+                                            int t, int d, const Step& s,
+                                            const Scal& c, float4& out,
+                                            uint32_t& code) {
+  const float NEG = -CUDART_INF_F;
+  float gj = c.gext, olv = c.lgo, gei = c.gext, orv = c.lgo;
+  if (!FAST) {
+    const int i = s.ilo + t;
+    const int j = d - i;
+    gj = (j == c.ybrk) ? c.gbrk : ((j == 0 || j == c.R - 1) ? c.gend
+                                                             : c.gext);
+    olv = (i - 1 == 0 || i - 1 == c.xbrk) ? c.olz : c.lgo;
+    gei = (i == c.xbrk) ? c.gbrk : ((i == 0 || i == c.L - 1) ? c.gend
+                                                              : c.gext);
+    orv = (j - 1 == 0 || j - 1 == c.ybrk) ? c.orz : c.lgo;
+  }
+  // X: gap consuming left site i (ext, double, open)
+  const float cx0 = a.y + gj;
+  const float cx1 = a.z + c.lgo;
+  const float cx2 = (a.x + c.lng) + olv;
+  const float v01 = fmaxf(cx0, cx1);
+  const float xc = fmaxf(v01, cx2);
+  const uint32_t bx = (cx2 > v01) ? 8u : ((cx1 > cx0) ? 4u : 0u);
+  // Y: gap consuming right site j (ext, double, open)
+  const float cy0 = b.z + gei;
+  const float cy1 = b.y + c.lgo;
+  const float cy2 = (b.x + c.lng) + orv;
+  const float w01 = fmaxf(cy0, cy1);
+  const float yc = fmaxf(w01, cy2);
+  const uint32_t by = (cy2 > w01) ? 32u : ((cy1 > cy0) ? 16u : 0u);
+  // M: match consuming both (m, x, y)
+  const float t2 = e.x + c.lng;
+  const float u01 = fmaxf(t2, e.y);
+  const float mc = fmaxf(u01, e.z);
+  const uint32_t bm = (e.z > u01) ? 2u : ((e.y > t2) ? 1u : 0u);
+  const bool okx = (unsigned)(t - s.lox) < s.nx;
+  const bool oky = (unsigned)(t - s.loy) < s.ny;
+  const bool okm = (unsigned)(t - s.lom) < s.nm;
+  out = make_float4(okm ? mc + msv : NEG, okx ? xc : NEG, oky ? yc : NEG,
+                    NEG);
+  code = (okm ? bm : 3u) | (okx ? bx : 12u) | (oky ? by : 48u);
+}
+
+// Stage stripe rows [k0, k1) and schedule rows [k0, k1) into stage
+// buffer `buf`, 16 bytes a copy.
+__device__ __forceinline__ void stage_window(float* mst, int* sst,
+                                             const float* ms,
+                                             const int* sched, int k0,
+                                             int k1, int Wk, int TD,
+                                             int buf, int nt, int tid) {
+  float* mb = mst + (size_t)buf * TD * Wk;
+  int* sb = sst + buf * TD * 8;
+  const int nq = Wk >> 2;
+  int kr = 0, q = tid;
+  while (q >= nq) {
+    q -= nq;
+    ++kr;
+  }
+  for (; kr < k1 - k0;) {
+    cp_async16(mb + kr * Wk + 4 * q, ms + (size_t)(k0 + kr) * Wk + 4 * q);
+    q += nt;
+    while (q >= nq) {
+      q -= nq;
+      ++kr;
+    }
+  }
+  const int pieces = 2 * (k1 - k0);  // 32-byte rows, 16 bytes a copy
+  for (int p = tid; p < pieces; p += nt)
+    cp_async16(sb + 4 * p, sched + (size_t)k0 * 8 + 4 * p);
+}
+
+template <int RPT, int NT>
+__global__ void __launch_bounds__(NT, 1)
+    viterbi_banded_window_kernel(const float* __restrict__ fscal,
+                                 const int* __restrict__ iscal,
+                                 const int* __restrict__ sched,
+                                 const float* __restrict__ ms,
+                                 uint8_t* __restrict__ codes,
+                                 float* __restrict__ corner, int Dn,
+                                 int TD) {
+  constexpr int Wk = NT * RPT;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  float4* ring = reinterpret_cast<float4*>(smem);        // [3][3 Wk]
+  float* mst = smem + 4 * 9 * Wk;                         // [2][TD][Wk]
+  int* sst = reinterpret_cast<int*>(mst + 2 * TD * Wk);    // [2][TD][8]
+  int* stp = sst + 2 * TD * 8;                             // [2][TD][12]
+  const Scal c = load_scal(fscal, iscal);
+  const float NEG = -CUDART_INF_F;
+  const float4 NEG4 = make_float4(NEG, NEG, NEG, NEG);
+
+  // diagonal 0 (slot 0): M(0, 0) = 0, all else -inf; diagonal -1 (slot
+  // 2) and slot 1 all -inf
+  for (int x = tid; x < 9 * Wk; x += NT)
+    ring[x] = (x == Wk) ? make_float4(0.0f, NEG, NEG, NEG) : NEG4;
+  if (tid == 0) {
+    corner[0] = NEG;
+    corner[1] = NEG;
+    corner[2] = NEG;
+  }
+  stage_window(mst, sst, ms, sched, 0, min(TD, Dn), Wk, TD, 0, NT, tid);
+  cp_async_commit();
+  if (TD < Dn)
+    stage_window(mst, sst, ms, sched, TD, min(2 * TD, Dn), Wk, TD, 1, NT,
+                 tid);
+  cp_async_commit();
+  cp_async_wait_prior();
+  __syncthreads();   // every thread's copies of chunk 0 landed
+  prepare_steps(stp, sst, 0, min(TD, Dn), Wk, c, tid);
+  __syncthreads();   // the ring and chunk 0's step table
+
+  Step nxt = load_step(stp);
+  float msn[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) msn[r] = mst[tid + NT * r];
+  float4* g0 = ring + 3 * Wk;   // the slot of diagonal d
+  uint8_t* crow = codes + tid;
+  int kk = 1, buf = 0;   // chunk row and buffer of step k + 1
+
+  for (int k = 0; k < Dn; ++k) {
+    const int d = k + 1;
+    const Step s = nxt;
+    float mv[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) mv[r] = msn[r];
+    // this step's sources first: nothing else waits on the barrier. A
+    // block of rows wholly past the window (r > 0, NT r >= w[d]) reads
+    // nothing.
+    float4 A[RPT], B[RPT], E[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int t = tid + NT * r;
+      if (r == 0 || NT * r < s.wd) {
+        A[r] = ring[t + s.ox];
+        B[r] = ring[t + s.oy];
+        E[r] = ring[t + s.om];
+      } else {
+        A[r] = B[r] = E[r] = NEG4;
+      }
+    }
+    // then the next step's inputs, while those reads are in flight
+    if (k + 1 < Dn) {
+      if (kk == TD) {
+        // step k + 1 opens the next chunk: wait for it and make its step
+        // table; the buffers of step k's chunk (last read a step ago)
+        // take the chunk after next
+        cp_async_wait_all();
+        __syncthreads();
+        buf ^= 1;
+        kk = 0;
+        prepare_steps(stp + buf * TD * kStepInts, sst + buf * TD * 8, k + 1,
+                      min(k + 1 + TD, Dn), Wk, c, tid);
+        const int n0 = k + 1 + TD;
+        if (n0 < Dn)
+          stage_window(mst, sst, ms, sched, n0, min(n0 + TD, Dn), Wk, TD,
+                       buf ^ 1, NT, tid);
+        cp_async_commit();
+        __syncthreads();
+      }
+      nxt = load_step(stp + (buf * TD + kk) * kStepInts);
+      const float* mrow = mst + (size_t)(buf * TD + kk) * Wk + tid;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) msn[r] = mrow[NT * r];
+      ++kk;
+    }
+
+    float4 out[RPT];
+    uint32_t code[RPT];
+    if (s.fast) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        if (r == 0 || NT * r < s.wd) {
+          window_cell<true>(A[r], B[r], E[r], mv[r], tid + NT * r, d, s, c,
+                            out[r], code[r]);
+        } else {
+          out[r] = NEG4;   // past the window: -inf, no source
+          code[r] = 63u;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        if (r == 0 || NT * r < s.wd) {
+          window_cell<false>(A[r], B[r], E[r], mv[r], tid + NT * r, d, s,
+                             c, out[r], code[r]);
+        } else {
+          out[r] = NEG4;
+          code[r] = 63u;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      g0[Wk + tid + NT * r] = out[r];
+      crow[NT * r] = (uint8_t)code[r];
+    }
+    if (d == c.cornerd) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        if (tid + NT * r == c.tc) {
+          corner[0] = out[r].x;
+          corner[1] = out[r].y;
+          corner[2] = out[r].z;
+        }
+      }
+    }
+    crow += Wk;
+    g0 = (g0 == ring + 6 * Wk) ? ring : g0 + 3 * Wk;
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------
+// Block and global builds
+
 // Stage stripe rows [k0, k1) and schedule rows [k0, k1) into stage
 // buffer `buf`, 16 bytes a copy.
 __device__ __forceinline__ void stage_rows(float* mst, int* sst,
@@ -86,7 +471,7 @@ __device__ __forceinline__ void stage_rows(float* mst, int* sst,
 // STAGED: the ring and the staged rows in shared memory; else the ring
 // in the global scratch gbuf and the stripe and schedule read in place.
 template <bool STAGED>
-__global__ void __launch_bounds__(1024) viterbi_banded_kernel(
+__global__ void __launch_bounds__(1024) viterbi_banded_block_kernel(
     const float* __restrict__ fscal,   // (8): gext gend gbrk lgo lng olz orz
     const int* __restrict__ iscal,     // (8): L R xbrk ybrk cornerd tc
     const int* __restrict__ sched,     // (Dn, 8): ilo w sx sy sm
@@ -103,19 +488,7 @@ __global__ void __launch_bounds__(1024) viterbi_banded_kernel(
   float* mst = smem + 9 * Wk;                                // [2][TD][Wk]
   int* sst = reinterpret_cast<int*>(mst + 2 * TD * Wk);      // [2][TD][8]
   const float NEG = -CUDART_INF_F;
-  const float gext = fscal[0];
-  const float gend = fscal[1];
-  const float gbrk = fscal[2];
-  const float lgo = fscal[3];
-  const float lng = fscal[4];
-  const float olz = fscal[5];
-  const float orz = fscal[6];
-  const int R = iscal[1];
-  const int L = iscal[0];
-  const int xbrk = iscal[2];
-  const int ybrk = iscal[3];
-  const int cornerd = iscal[4];
-  const int tc = iscal[5];
+  const Scal c = load_scal(fscal, iscal);
 
   // diagonal 0 (slot 0): M(0, 0) = 0, all else -inf; diagonal -1
   // (slot 2) all -inf
@@ -184,27 +557,27 @@ __global__ void __launch_bounds__(1024) viterbi_banded_kernel(
         const int j = d - i;
         const bool okw = t < wd;
         // X: gap consuming left site i (ext, double, open)
-        const float gj = (j == ybrk) ? gbrk
-                         : ((j == 0 || j == R - 1) ? gend : gext);
-        const float olv = (i - 1 == 0 || i - 1 == xbrk) ? olz : lgo;
+        const float gj = (j == c.ybrk) ? c.gbrk
+                         : ((j == 0 || j == c.R - 1) ? c.gend : c.gext);
+        const float olv = (i - 1 == 0 || i - 1 == c.xbrk) ? c.olz : c.lgo;
         const float cx0 = x1 + gj;
-        const float cx1 = y1 + lgo;
-        const float cx2 = (m1 + lng) + olv;
+        const float cx1 = y1 + c.lgo;
+        const float cx2 = (m1 + c.lng) + olv;
         const float v01 = fmaxf(cx0, cx1);
         const float xc = fmaxf(v01, cx2);
         const uint32_t bx = (cx2 > v01) ? 2u : ((cx1 > cx0) ? 1u : 0u);
         // Y: gap consuming right site j (ext, double, open)
-        const float gei = (i == xbrk) ? gbrk
-                          : ((i == 0 || i == L - 1) ? gend : gext);
-        const float orv = (j - 1 == 0 || j - 1 == ybrk) ? orz : lgo;
+        const float gei = (i == c.xbrk) ? c.gbrk
+                          : ((i == 0 || i == c.L - 1) ? c.gend : c.gext);
+        const float orv = (j - 1 == 0 || j - 1 == c.ybrk) ? c.orz : c.lgo;
         const float cy0 = y1y + gei;
-        const float cy1 = x1y + lgo;
-        const float cy2 = (m1y + lng) + orv;
+        const float cy1 = x1y + c.lgo;
+        const float cy2 = (m1y + c.lng) + orv;
         const float w01 = fmaxf(cy0, cy1);
         const float yc = fmaxf(w01, cy2);
         const uint32_t by = (cy2 > w01) ? 2u : ((cy1 > cy0) ? 1u : 0u);
         // M: match consuming both (m, x, y)
-        const float t2 = m2 + lng;
+        const float t2 = m2 + c.lng;
         const float u01 = fmaxf(t2, x2);
         const float mc = fmaxf(u01, y2);
         const uint32_t bm = (y2 > u01) ? 2u : ((x2 > t2) ? 1u : 0u);
@@ -220,7 +593,7 @@ __global__ void __launch_bounds__(1024) viterbi_banded_kernel(
         codes[(size_t)k * Wk + t] = (uint8_t)((okm ? bm : 3u) |
                                               ((okx ? bx : 3u) << 2) |
                                               ((oky ? by : 3u) << 4));
-        if (d == cornerd && t == tc) {
+        if (d == c.cornerd && t == c.tc) {
           corner[0] = M;
           corner[1] = X;
           corner[2] = Y;
@@ -231,32 +604,114 @@ __global__ void __launch_bounds__(1024) viterbi_banded_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// Launch
+
+enum Build { kWindow = 0, kBlock = 1, kGlobal = 2 };
+
+struct Args {
+  const float* fscal;
+  const int* iscal;
+  const int* sched;
+  const float* ms;
+  uint8_t* codes;
+  float* corner;
+  int Dn, td;
+};
+
+template <typename K>
+int opt_in(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // not left to be blamed on the next launch
+    return (int)err;
+  }
+  return 0;
+}
+
+template <int RPT, int NT>
+int launch_window(const Args& a, size_t smem, cudaStream_t st) {
+  auto kern = viterbi_banded_window_kernel<RPT, NT>;
+  if (int err = opt_in(kern, smem)) return err;
+  kern<<<1, NT, smem, st>>>(a.fscal, a.iscal, a.sched, a.ms, a.codes,
+                            a.corner, a.Dn, a.td);
+  return (int)cudaGetLastError();
+}
+
+// the window builds banded_plan uses: 256 threads on a stripe of whole
+// 256-column groups up to 1280, else 128 threads up to 896
+int dispatch_window(const Args& a, int threads, int rpt, size_t smem,
+                    cudaStream_t st) {
+  if (threads == 128) {
+    switch (rpt) {
+      case 1: return launch_window<1, 128>(a, smem, st);
+      case 3: return launch_window<3, 128>(a, smem, st);
+      case 5: return launch_window<5, 128>(a, smem, st);
+      case 7: return launch_window<7, 128>(a, smem, st);
+    }
+  } else if (threads == 256) {
+    switch (rpt) {
+      case 1: return launch_window<1, 256>(a, smem, st);
+      case 2: return launch_window<2, 256>(a, smem, st);
+      case 3: return launch_window<3, 256>(a, smem, st);
+      case 4: return launch_window<4, 256>(a, smem, st);
+      case 5: return launch_window<5, 256>(a, smem, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+const size_t kMaxShared = 232448;
+
 }  // namespace
 
+// The launch plan, as viterbi_banded.py::banded_plan computes it:
+// build 0 (window): `threads` x rpt = Wk window positions, td diagonals
+// a staged chunk (1-32: a thread a diagonal makes the chunk's step
+// table), smem = 144 Wk + 2 td (4 Wk + 80) bytes; build 1 (block): one
+// position a thread in a loop over [0, Wk), td diagonals a chunk, smem
+// = 36 Wk + 2 td (4 Wk + 32); build 2 (global): the ring in gbuf (9 Wk
+// floats), td 0, smem 0. Any other plan is refused
+// (cudaErrorInvalidValue).
 extern "C" int viterbi_banded_launch(const void* fscal, const void* iscal,
                                      const void* sched, const void* ms,
                                      void* codes, void* corner, void* gbuf,
-                                     int Dn, int Wk, int td, int threads,
+                                     int Dn, int Wk, int build, int threads,
+                                     int rpt, int td, int smem,
                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (td == 0) {
-    viterbi_banded_kernel<false><<<1, threads, 0, st>>>(
-        (const float*)fscal, (const int*)iscal, (const int*)sched,
-        (const float*)ms, (uint8_t*)codes, (float*)corner, (float*)gbuf,
+  Args a{(const float*)fscal, (const int*)iscal, (const int*)sched,
+         (const float*)ms,    (uint8_t*)codes,   (float*)corner,
+         Dn,                  td};
+  const size_t sm = (size_t)smem;
+  if (Dn < 1 || Wk < 128 || Wk % 128 || smem < 0 || sm > kMaxShared)
+    return (int)cudaErrorInvalidValue;
+  if (build == kWindow) {
+    if (threads * rpt != Wk || td < 1 || td > 32 ||
+        sm != (size_t)144 * Wk + (size_t)2 * td * (4 * Wk + 80))
+      return (int)cudaErrorInvalidValue;
+    return dispatch_window(a, threads, rpt, sm, st);
+  }
+  if (build == kBlock) {
+    if (threads != min(1024, Wk) || td < 1 ||
+        sm != (size_t)36 * Wk + (size_t)2 * td * ((size_t)4 * Wk + 32))
+      return (int)cudaErrorInvalidValue;
+    auto kern = viterbi_banded_block_kernel<true>;
+    if (int err = opt_in(kern, sm)) return err;
+    kern<<<1, threads, sm, st>>>(a.fscal, a.iscal, a.sched, a.ms, a.codes,
+                                 a.corner, nullptr, Dn, Wk, td);
+    return (int)cudaGetLastError();
+  }
+  if (build == kGlobal) {
+    if (threads != min(1024, Wk) || td != 0 || smem != 0 ||
+        gbuf == nullptr)
+      return (int)cudaErrorInvalidValue;
+    viterbi_banded_block_kernel<false><<<1, threads, 0, st>>>(
+        a.fscal, a.iscal, a.sched, a.ms, a.codes, a.corner, (float*)gbuf,
         Dn, Wk, 0);
     return (int)cudaGetLastError();
   }
-  const size_t smem =
-      (size_t)36 * Wk + (size_t)2 * td * ((size_t)4 * Wk + 32);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        viterbi_banded_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  viterbi_banded_kernel<true><<<1, threads, smem, st>>>(
-      (const float*)fscal, (const int*)iscal, (const int*)sched,
-      (const float*)ms, (uint8_t*)codes, (float*)corner, (float*)gbuf, Dn,
-      Wk, td);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -19,20 +19,19 @@ must leave its times where they were.
 Run as a file, --root times the pagan2_tpu_torch package of the
 checkout DIR instead of this one, so that two versions of the kernels
 compare on one card in one call (in turns: parent, change, change,
-parent). --save writes every call's planes and cum under OUT; --check
-holds this run's bit for bit against them.
+parent). --save writes a digest of every call's planes and cum under
+OUT; --check holds this run's bit for bit against them
+(tools/replay.py).
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import sys
-import time
+if __package__:
+    from . import replay
+    from .bench_fanin import family
+else:           # run as a file: this directory is sys.path[0]
+    import replay
+    from bench_fanin import family
 
-HERE = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-REPS = 5
 ENTRIES = ("fullprob_fwd", "fullprob_bwd", "fullprob_fwd_fanin",
            "fullprob_bwd_fanin")
 
@@ -71,40 +70,6 @@ def plan_text(FF, name, kw):
     return ""
 
 
-def record(args, CLI, FF, family, n, L, entries=ENTRIES):
-    """The calls of the n x L family's --full-probability CLI run to the
-    named wrappers, recorded in their places and sorted by entry point."""
-    calls = []
-    real = {e: getattr(FF, e) for e in ENTRIES}
-
-    def recorder(name):
-        def fill(**kw):
-            if name in entries:
-                calls.append((name, kw))
-            return real[name](**kw)
-        return fill
-    work = os.path.join(HERE, "build", "bench_fullprob")
-    os.makedirs(work, exist_ok=True)
-    seqs, tree = family(n, L)
-    fas, nh = os.path.join(work, "family.fas"), os.path.join(work, "tree.nh")
-    with open(fas, "w") as f:
-        f.writelines(">%s\n%s\n" % s for s in seqs)
-    with open(nh, "w") as f:
-        f.write(tree + "\n")
-    for name in ENTRIES:
-        setattr(FF, name, recorder(name))
-    try:
-        rc = CLI.main(["-s", fas, "-t", nh, "-o", os.path.join(work, "out"),
-                       "--silent", "--device", args.device,
-                       "--full-probability"])
-        if rc:
-            raise SystemExit("the CLI returned %d" % rc)
-    finally:
-        for name in ENTRIES:
-            setattr(FF, name, real[name])
-    return sorted(calls, key=lambda c: ENTRIES.index(c[0]))
-
-
 def calls_454(args, FF, dev):
     """Both fan-in entry points on four 454-style pairs of 2047 bp
     (two of 100 with --small), shaped as chip_smoke.py's kernel_fullprob
@@ -131,86 +96,35 @@ def calls_454(args, FF, dev):
     return [("fullprob_fwd_fanin", fwd), ("fullprob_bwd_fanin", bwd)]
 
 
-def time_call(torch, fn, kw, dev):
-    """ms per call: CUDA events over REPS calls after the caller's
-    warm-up call on a card, one call by the host clock on the CPU."""
-    if dev.type == "cpu":
-        t = time.perf_counter()
-        fn(**kw)
-        return 1e3 * (time.perf_counter() - t)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(REPS):
-        fn(**kw)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / REPS
-
-
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda (default; raises without a card) launches "
-                        "kernels D and E; cpu runs their plain versions")
-    p.add_argument("--small", action="store_true",
-                   help="4 x 120 and 6 x 150 families and two 454 pairs "
-                        "of 100 bp (for the CPU)")
-    p.add_argument("--root", default=HERE,
-                   help="checkout whose pagan2_tpu_torch is timed")
-    p.add_argument("--save", help="directory to write outputs to")
-    p.add_argument("--check", help="directory of saved outputs to match")
-    args = p.parse_args(argv)
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    import torch
-    import pagan2_tpu_torch as PT
-    if os.path.dirname(os.path.dirname(os.path.abspath(PT.__file__))) \
-            != root:
-        raise SystemExit("pagan2_tpu_torch was imported from %s, not from "
-                         "--root %s: run this tool as a file"
-                         % (PT.__file__, root))
+    args = replay.parser(
+        __doc__.splitlines()[0], "kernels D and E",
+        "4 x 120 and 6 x 150 families and two 454 pairs of 100 bp (for "
+        "the CPU)").parse_args(argv)
+    torch, dev, root = replay.start(args)
     from pagan2_tpu_torch import cli as CLI
     from pagan2_tpu_torch.align import fullprob_fill as FF
-    from pagan2_tpu_torch.tools.bench_fanin import family
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda: torch.cuda.is_available() is "
-                             "False")
-        print("device: %s; package %s" % (torch.cuda.get_device_name(0),
-                                          root), flush=True)
-    else:
-        print("device: cpu (plain versions; times by the host clock, not "
-              "device times); package %s" % root, flush=True)
+    def record(n, L, entries=ENTRIES):
+        """The calls of the n x L family's --full-probability CLI run to
+        the named wrappers, sorted by entry point."""
+        return sorted(replay.record_cli(
+            CLI, FF, entries, *family(n, L), "bench_fullprob", args.device,
+            ("--full-probability",)), key=lambda c: ENTRIES.index(c[0]))
     main_fam, wide_fam = ((4, 120), (6, 150)) if args.small else \
         ((16, 1535), (6, 2000))
-    sources = [("%dx%d" % main_fam, record(args, CLI, FF, family,
-                                           *main_fam)),
+    sources = [("%dx%d" % main_fam, record(*main_fam)),
                ("%dx%d" % wide_fam, record(
-                   args, CLI, FF, family, *wide_fam,
-                   entries=("fullprob_fwd_fanin", "fullprob_bwd_fanin"))),
+                   *wide_fam, entries=("fullprob_fwd_fanin",
+                                       "fullprob_bwd_fanin"))),
                ("454", calls_454(args, FF, dev))]
     calls = [(what, name, kw) for what, cs in sources for name, kw in cs]
-    runs = {}
-    for k, (what, name, kw) in enumerate(calls):
-        fn = getattr(FF, name)
-        planes, cum = fn(**kw)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        same = None
-        path = os.path.join(args.save or args.check or "", "call%d.pt" % k)
-        if args.save:
-            os.makedirs(args.save, exist_ok=True)
-            torch.save((name, planes.cpu(), cum.cpu()), path)
-        if args.check:
-            rn, rp, rc = torch.load(path)
-            same = rn == name and all(
-                torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
-                for a, b in ((planes, rp), (cum, rc)))
-        del planes, cum
-        ms = time_call(torch, fn, kw, dev)
+    runs = []
+    for k, kw, ms, same in replay.replay(
+            args, torch, dev, "fullprob",
+            [(getattr(FF, name), kw, replay.REPS)
+             for _w, name, kw in calls]):
+        what, name = calls[k][:2]
         B, D, Lp = (kw["ms2"] if "ms2" in kw else kw["msp"]).shape
         slots = [kw[s].shape[2] for s in ("loff", "roff", "lfoff",
                                           "rfoff") if s in kw]
@@ -218,26 +132,14 @@ def main(argv=None):
                    K="%d/%d" % tuple(slots) if slots else "",
                    G=kw.get("G"), plan=plan_text(FF, name, kw), ms=ms,
                    us_per_diagonal=1e3 * ms / D, same=same)
-        runs.setdefault((what, name), []).append(rec)
+        runs.append(rec)
         print("%-8s %-18s B %d, D %d, Lp %d%s: %9.4f ms, %.4f us per "
               "diagonal%s%s"
               % (what, name, B, D, Lp, ", K %s, G %d" % (rec["K"], rec["G"])
                  if slots else "", ms, rec["us_per_diagonal"],
                  "; " + rec["plan"] if rec["plan"] else "",
-                 "" if same is None else
-                 ", equal to the saved outputs" if same
-                 else ", DIFFERS from the saved outputs"), flush=True)
-    summary = {}
-    for (what, name), r in runs.items():
-        summary.setdefault(what, {})[name] = dict(
-            calls=len(r), mean_ms=sum(x["ms"] for x in r) / len(r),
-            sum_ms=sum(x["ms"] for x in r))
-    print(json.dumps(dict(package=root, device=(
-        torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"),
-        runs=summary)))
-    if args.check and not all(x["same"] for r in runs.values() for x in r):
-        raise SystemExit("outputs differ from those under %s" % args.check)
-    return [x for r in runs.values() for x in r]
+                 replay.same_text(same)), flush=True)
+    return replay.finish(args, torch, dev, root, runs, ("source", "entry"))
 
 
 if __name__ == "__main__":

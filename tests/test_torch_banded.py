@@ -322,3 +322,68 @@ def test_cli_anchor_flags_reach_plan_band(monkeypatch):
                           TMODEL, settings("--memory-for-single-alignment",
                                            "0"), device="cpu")
     assert len(seen) == 1
+
+
+# Wk -> (build, threads, window positions a thread, diagonals staged)
+# of kernel C's launch plan
+BANDED_PLANS = [
+    (128, ("window", 128, 1, 32)),     # the megabase pair, w.max() 65
+    (256, ("window", 256, 1, 32)),     # long_family, the 10% pair
+    (384, ("window", 128, 3, 32)),     # long_family
+    (512, ("window", 256, 2, 32)),     # pair-end breaks
+    (640, ("window", 128, 5, 16)),
+    (1024, ("window", 256, 4, 8)),
+    (1152, ("block", 1024, 2, 16)),    # the wide window
+    (1280, ("window", 256, 5, 4)),
+    (1536, ("block", 1024, 2, 8)),
+    (5504, ("global", 1024, 6, 0)),    # the global ring
+]
+
+
+@pytest.mark.parametrize("Wk, want", BANDED_PLANS,
+                         ids=["Wk%d" % w for w, _p in BANDED_PLANS])
+def test_banded_plan(Wk, want):
+    """banded_plan's build, block and staging for the stripe widths the
+    paths give kernel C (the megabase pair's 128, the long family's 256
+    and 384, the band shapes') and around them, and its shared bytes
+    for that build."""
+    p = tb.banded_plan(Wk)
+    assert (p["build"], p["threads"], p["rows_a_thread"], p["stage"]) \
+        == want
+    td = p["stage"]
+    if p["build"] == "window":
+        assert p["smem"] == 144 * Wk + 2 * td * (4 * Wk + 80)
+    elif p["build"] == "block":
+        assert p["smem"] == 36 * Wk + 2 * td * (4 * Wk + 32)
+    else:
+        assert p["smem"] == 0
+
+
+def test_banded_plan_grid_limits():
+    """Over stripe widths up to 8,192: the window kernel takes exactly
+    the instantiations it has (threads x positions = Wk) and is chosen
+    wherever one fits in shared memory; the block kernel's threads are
+    min(1024, Wk), covering the stripe; the staged chunks and the ring
+    fit in shared memory; the global ring only where the block kernel's
+    ring and one staged diagonal do not."""
+    for Wk in range(128, 8193, 128):
+        p = tb.banded_plan(Wk)
+        threads = p["threads"]
+        assert 0 <= p["smem"] <= tb.MAX_SHARED_BYTES
+        assert threads % 32 == 0 and 32 <= threads <= 1024
+        built = (threads in tb.WINDOW_BUILDS
+                 and p["rows_a_thread"] in tb.WINDOW_BUILDS[threads])
+        if p["build"] == "window":
+            assert built and threads * p["rows_a_thread"] == Wk
+            assert 1 <= p["stage"] <= tb.WINDOW_MAX_STAGE
+        else:
+            assert threads == min(1024, Wk)
+            assert threads * p["rows_a_thread"] >= Wk
+            for t, rpts in tb.WINDOW_BUILDS.items():
+                if Wk % t == 0 and Wk // t in rpts:
+                    assert tb.window_plan(Wk, t)["stage"] == 0
+            if p["build"] == "block":
+                assert 1 <= p["stage"] <= tb.MAX_STAGE_DIAGONALS
+            else:
+                assert p["stage"] == 0
+                assert 36 * Wk + 2 * (4 * Wk + 32) > tb.MAX_SHARED_BYTES

@@ -261,6 +261,207 @@ def test_banded_kernel_matches_plain(cuda, half):
     assert bool(torch.isfinite(corner).any())
 
 
+def _banded_pair(rng, n, half, sub=0.1, Wk=None, **kw):
+    """banded_args of an n bp pair (sub substitutions) over a band of
+    half-width `half` about the diagonal (None: the whole matrix);
+    with Wk, the stripe is widened to Wk columns (zeros past the
+    window) and its schedule remade for it."""
+    base = rng.choice(list("ACGT"), size=n)
+    mut = base.copy()
+    idx = rng.random(n) < sub
+    mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+    g1 = build_leaf_graph("".join(base), alph.DNA)
+    g2 = build_leaf_graph("".join(mut[3:]), alph.DNA)
+    L, R = g1.num_sites() - 1, g2.num_sites() - 1
+    c = np.arange(L) * R // L
+    band = ((np.zeros(L, np.int64), np.full(L, R - 1)) if half is None
+            else (np.maximum(c - half, 0), np.minimum(c + half, R - 1)))
+    args, meta = tb.banded_args(g1, g2, MODEL, AlignSettings(), *band,
+                                "cuda")
+    if Wk is not None:
+        ms = torch.zeros((args["ms"].shape[0], Wk), dtype=torch.float32,
+                         device="cuda")
+        ms[:, :args["ms"].shape[1]] = args["ms"]
+        args["ms"] = ms
+        args["sched"] = torch.from_numpy(
+            tb.band_sched(meta["ilo"], meta["w"], Wk)).cuda()
+    return args
+
+
+def _banded_case(case, rng):
+    """kernel C's arguments on the card for one class of input."""
+    from dataclasses import replace
+    from pagan2_tpu_torch.align.oracle import mark_no_gap_penalty_sites
+    if case == "offset_jumps":
+        # window starts that jump far past +-1 (up and down), widths
+        # from 0, and offsets past +-Wk: clipped to +-Wk, or no source
+        args = _banded_pair(rng, 150, None)
+        Dn, Wk = args["ms"].shape
+        ilo = np.concatenate([[0], np.cumsum(rng.integers(-3, 200, Dn))])
+        w = rng.integers(0, 100, Dn + 1)
+        sched = torch.from_numpy(tb.band_sched(ilo % 140, w, Wk))
+        sched[::7, 2] = 100000
+        sched[::11, 3] = -100000
+        sched[::13, 4] = Wk
+        sched[::17, 4] = -Wk
+        args["sched"] = sched.cuda()
+        return args
+    if case == "pair_end":
+        r1, r2, mid = ("".join(rng.choice(list("ACGT"), k))
+                       for k in (40, 40, 30))
+        g1 = build_leaf_graph(r1 + mid + r2, alph.DNA)
+        g2 = build_leaf_graph(r1 + "0" + r2, alph.DNA, quality="I" * 81)
+        s = replace(AlignSettings(), pair_end_reads=True)
+        s = replace(s, x_read1_length=mark_no_gap_penalty_sites(g1),
+                    y_read1_length=mark_no_gap_penalty_sites(g2))
+        L, R = g1.num_sites() - 1, g2.num_sites() - 1
+        args, _m = tb.banded_args(g1, g2, MODEL, s, np.zeros(L, np.int64),
+                                  np.full(L, R - 1), "cuda")
+        assert int(args["iscal"][2]) >= 0 or int(args["iscal"][3]) >= 0
+        return args
+    if case == "dead_end":
+        base = "".join(rng.choice(list("ACGT"), 300))
+        g1 = build_leaf_graph(base, alph.DNA)
+        g2 = build_leaf_graph("ACGT" * 5 + base, alph.DNA)
+        L = g1.num_sites() - 1
+        args, _m = tb.banded_args(g1, g2, MODEL, AlignSettings(),
+                                  np.zeros(L, np.int64),
+                                  np.full(L, 3, np.int64), "cuda")
+        return args
+    if case == "corner_last_cell":
+        # the call cut to its first 400 diagonals, the corner moved to
+        # the last in-window cell of the last one
+        args = _banded_pair(rng, 600, 40)
+        n = 400
+        args = {"fscal": args["fscal"], "sched": args["sched"][:n],
+                "ms": args["ms"][:n], "iscal": args["iscal"].clone()}
+        args["iscal"][4] = n
+        args["iscal"][5] = args["sched"][-1, 1] - 1
+        return args
+    if case == "narrow_in_wide":
+        return _banded_pair(rng, 500, 15, Wk=384)
+    raise ValueError(case)
+
+
+def _global_banded_plan(Wk):
+    """The block kernel with its ring in global scratch, on a stripe Wk
+    wide (banded_plan takes it only past the shared budget)."""
+    return dict(tb.block_plan(Wk), build="global", stage=0, smem=0)
+
+
+def _forced_banded_plan(build, Wk):
+    """A plan of the named build for a stripe Wk wide."""
+    return {"window": tb.banded_plan, "block": tb.block_plan,
+            "global": _global_banded_plan}[build](Wk)
+
+
+def _banded_forced(monkeypatch, args, plan):
+    """Kernel C launched on `plan` against its plain version: codes
+    equal, corner bit-equal, one launch; returns the corner."""
+    monkeypatch.setattr(tb, "banded_plan", lambda Wk: plan)
+    n0 = tb.LAUNCHES
+    codes, corner = tb.banded_fill(**args)
+    pc, pk = tb.banded_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES == n0 + 1
+    assert torch.equal(codes, pc), int((codes != pc).sum())
+    assert torch.equal(_bits(corner), _bits(pk))
+    return corner
+
+
+BANDED_BUILDS = ["window", "block", "global"]
+BANDED_CASES = ["offset_jumps", "pair_end", "dead_end", "corner_last_cell",
+                "narrow_in_wide"]
+
+
+@pytest.mark.parametrize("build", BANDED_BUILDS)
+@pytest.mark.parametrize("case", BANDED_CASES)
+def test_banded_kernel_builds_match_plain(cuda, monkeypatch, case, build):
+    """Each build of kernel C (the window kernel; the block kernel; its
+    global ring) on each class of input: offsets far past +-1 and
+    clipped at +-Wk, pair-end breaks, a dead end, the corner at the last
+    in-window cell, and a window well below the stripe width (the
+    window kernel's blocks of rows past it skipped)."""
+    args = _banded_case(case, np.random.default_rng(len(case)))
+    Dn, Wk = args["ms"].shape
+    plan = _forced_banded_plan(build, Wk)
+    assert plan["build"] == build
+    if case == "narrow_in_wide":
+        assert 4 * int(args["sched"][:, 1].max()) < Wk
+    corner = _banded_forced(monkeypatch, args, plan)
+    # the synthetic schedule and the dead end reach no corner
+    assert bool(torch.isfinite(corner).any()) == (
+        case not in ("offset_jumps", "dead_end"))
+
+
+@pytest.mark.parametrize("threads, rpt", [
+    (t, r) for t, rpts in sorted(tb.WINDOW_BUILDS.items()) for r in rpts])
+def test_banded_window_kernel_every_template(cuda, threads, rpt):
+    """Every window-kernel instantiation (128 threads of 1, 3, 5 or 7
+    positions, 256 threads of 1-5), through banded_plan, on a band whose
+    widest window reaches the stripe's last block of rows."""
+    Wk = threads * rpt
+    rng = np.random.default_rng(Wk + rpt)
+    args = _banded_pair(rng, Wk + 200, Wk - 65, sub=0.05)
+    wmax = int(args["sched"][:, 1].max())
+    assert args["ms"].shape[1] == Wk and Wk - threads < wmax <= Wk
+    plan = tb.banded_plan(Wk)
+    assert (plan["build"], plan["threads"], plan["rows_a_thread"]) == (
+        "window", threads, rpt)
+    n0 = tb.LAUNCHES
+    codes, corner = tb.banded_fill(**args)
+    pc, pk = tb.banded_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES == n0 + 1
+    assert torch.equal(codes, pc), int((codes != pc).sum())
+    assert torch.equal(_bits(corner), _bits(pk))
+    assert bool(torch.isfinite(corner).any())
+
+
+# plans kernel C has no build for, on a stripe of 512 columns
+BANDED_REFUSED = {
+    "window_not_built": lambda: dict(tb.window_plan(512, 128),
+                                     rows_a_thread=4),
+    "window_short": lambda: dict(tb.window_plan(512, 256),
+                                 rows_a_thread=1),
+    "window_64_threads": lambda: tb.window_plan(512, 64),
+    "smem_mismatch": lambda: dict(tb.window_plan(512, 256), smem=1024),
+    "stage_past_32": lambda: dict(tb.window_plan(512, 256), stage=64),
+    "block_unstaged": lambda: dict(tb.block_plan(512), stage=0),
+    "block_threads": lambda: dict(tb.block_plan(512), threads=256),
+    "global_staged": lambda: dict(_global_banded_plan(512), stage=16),
+    "unknown_build": lambda: dict(tb.window_plan(512, 256),
+                                  build="nonesuch"),
+}
+
+
+@pytest.mark.parametrize("name", list(BANDED_REFUSED))
+def test_banded_kernel_takes_only_plans_it_has_built(cuda, monkeypatch,
+                                                     name):
+    """A plan kernel C has no build for (128 threads of 4 positions; 256
+    threads short of the stripe; 64 threads; shared bytes that do not
+    match; a chunk past 32 diagonals; a staged block with no chunk, or
+    short of min(1024, Wk) threads; a global ring with a chunk; an
+    unknown build) is refused: the wrapper raises and counts no launch,
+    and the next launch is not disturbed."""
+    rng = np.random.default_rng(9)
+    args = _banded_pair(rng, 400, 20, Wk=512)
+    plan = BANDED_REFUSED[name]()
+    with monkeypatch.context() as m:
+        m.setattr(tb, "banded_plan", lambda Wk: plan)
+        m.setattr(tb, "BUILDS", tb.BUILDS + ("nonesuch",))
+        n0 = tb.LAUNCHES
+        with pytest.raises(RuntimeError, match="viterbi_banded launch"):
+            tb.banded_fill(**args)
+        assert tb.LAUNCHES == n0
+    codes, corner = tb.banded_fill(**args)
+    pc, pk = tb.banded_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES == n0 + 1
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
+
+
 def _same_fills(out, ref):
     """Planes bit-equal; cum within D * eps * max(1, |cum|)."""
     (planes, cum), (pp, pc) = out, ref

@@ -391,6 +391,41 @@ def test_sampled_path_equals_reference(case, monkeypatch):
     assert len(paths) > 1
 
 
+# a 60 bp homopolymer fan-in pair on which the reference's own forward
+# and backward totals part by 3.1e-3 nats, in f64 too: past the 1e-3
+# that chip_smoke.py's kernel_fullprob phase holds its oracle pairs to,
+# inside the reference's 1% agreement window (ROADMAP Queue 3)
+TOTALS_PART_PAIR = (
+    "AAGATAATTCCGAGAAACGGCGAACGAGCCTCATGGCGATGTTACGTCTAATGGTGGACC",
+    "TAATTCCGAGCAACGGCGAACGAGCCTCATGGCGTTGTTAAGTCTAATTGTGGAAC")
+
+
+def test_fanin_totals_part_as_the_reference_does(monkeypatch):
+    """On TOTALS_PART_PAIR the port's |log fwd - log bwd| is the JAX
+    package's in f32 (within 1e-5), and both, and the reference's f64,
+    exceed 1e-3: the gap is the reference's, not kernels D and E's."""
+    a, b = TOTALS_PART_PAIR
+    _pallas_interpret(monkeypatch)
+    port = fp.FullProbPlanes(
+        build_leaf_graph(a, alph.DNA, homopolymer=True),
+        build_leaf_graph(b, alph.DNA, homopolymer=True), MODEL, FS,
+        device="cpu")
+    assert port.fanin
+    got = abs(port.log_total - port.log_total_bwd)
+    want = {}
+    for dtype in (np.float32, np.float64):
+        ref = rfp.FullProbPlanes(
+            ref_leaf(a, alph.DNA, homopolymer=True),
+            ref_leaf(b, alph.DNA, homopolymer=True), REF_MODEL,
+            ref_align.AlignSettings(), dtype=dtype)
+        want[dtype] = abs(ref.log_total - ref.log_total_bwd)
+    print("|log fwd - log bwd|: port %.6g, reference f32 %.6g, f64 %.6g"
+          % (got, want[np.float32], want[np.float64]))
+    assert abs(got - want[np.float32]) <= 1e-5
+    assert min(got, *want.values()) > 1e-3
+    assert max(got, *want.values()) < np.log(1.01)
+
+
 def test_merge_sampled_graph_round_trip():
     """--sample-additional-paths through align_pair: the merged graph
     holds the first path's sites and at least as many edges, and a
