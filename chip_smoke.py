@@ -74,10 +74,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                runs), sweep_linear (7 rows of kernel A) and bench_linear;
                every flag set of kernel F and kernel A launched, no plain
                version
-  timing       each kernel and its plain version on the inputs its path
-               gave it (the fan-in plain versions of D and E on the
-               largest recorded call only, their largest batch):
-               bit-equal, ms per launch (CUDA events) and the
+  timing       each kernel and its plain version on every call its path
+               gave it: bit-equal, ms per launch (CUDA events) and the
                lower bound (kernel C: bit-equal on the long_family calls;
                kernel, plain version and bound on the megabase call cut
                to its first 16,384 diagonals; the kernel and its bound
@@ -433,22 +431,26 @@ def main():
         return max(max_abs_err(out[0], ref[0]), max_abs_err(out[1], ref[1]))
 
     fp_err = {"fwd": 0.0, "bwd": 0.0}
-    # kernel E's placements met in kernel_fullprob: ring shared / hot /
-    # global, table shared / device, linear buffers shared / global
-    e_seen = set()
+    # kernels D's and E's placements met in kernel_fullprob: ring shared /
+    # hot / global, table shared / device, linear buffers shared / global
+    seen = {"D": set(), "E": set()}
 
-    def e_plan(name, kw):
-        """Kernel E's plan of one call as text; notes its placements."""
-        if name == "fullprob_bwd":
-            e_seen.add("linear buffers " + (
-                "shared" if FF.bwd_linear_plan(kw["ms2"].shape[2])["shared"]
-                else "global"))
-        elif name == "fullprob_bwd_fanin":
-            lo, ro = kw["lfoff"], kw["rfoff"]
-            p = FF.bwd_fanin_plan(lo.shape[1], kw["G"], lo.shape[2],
-                                  ro.shape[2], ro.shape[1])
-            e_seen.update(("ring " + p["placement"], "table " + (
+    def note_plan(name, kw):
+        """Kernel D's or E's plan of one call as text; notes its
+        placements."""
+        kernel, direction = ("D", "fwd") if name.startswith("fullprob_fwd") \
+            else ("E", "bwd")
+        if name.endswith("_fanin"):
+            lo, ro = (kw["loff"], kw["roff"]) if kernel == "D" else \
+                (kw["lfoff"], kw["rfoff"])
+            p = getattr(FF, direction + "_fanin_plan")(
+                lo.shape[1], kw["G"], lo.shape[2], ro.shape[2], ro.shape[1])
+            seen[kernel].update(("ring " + p["placement"], "table " + (
                 "shared" if p["rtab"] else "device")))
+        else:
+            p = getattr(FF, direction + "_linear_plan")(kw["ms2"].shape[2])
+            seen[kernel].add("linear buffers " + (
+                "shared" if p["shared"] else "global"))
         text = plan_text(FF, name, kw)
         return "; " + text if text else ""
 
@@ -472,7 +474,7 @@ def main():
                 "bit-equal, cum max |err| %g%s"
                 % (what, fn.__name__, tuple(out[0].shape),
                    ", G %d" % kw["G"] if "G" in kw else "",
-                   max_abs_err(out[1], ref[1]), e_plan(fn.__name__, kw)))
+                   max_abs_err(out[1], ref[1]), note_plan(fn.__name__, kw)))
 
     def linear_fp_calls(pairs):
         kw = FF.linear_batch_args(
@@ -528,29 +530,38 @@ def main():
         fail("kernel_fullprob: the deep-ring pair has ring depth %d"
              % calls[0][3]["G"])
     fullprob_check("fan-in deep ring", calls)
-    # kernel E's other plan branches: the linear buffers in device memory
-    # (past 4096 rows), a fan-in ring with no diagonal on chip (no 3
-    # diagonals of 6,600 rows fit) and a right-slot table too large for
-    # shared memory (15,000 columns of two homopolymer slots)
+    # kernels D's and E's other plan branches: the linear buffers in
+    # device memory (past 4096 rows), a fan-in ring with no diagonal on
+    # chip (no 3 diagonals of 6,600 rows fit) and a right-slot table too
+    # large for shared memory (E: 15,000 columns of two homopolymer
+    # slots; D: 7,500 columns of four backward-edge slots, as the
+    # homopolymer pair's six would make D's plain version take ~40 s)
     def seq(n):
         return "".join(rng.choice(list("ACGT"), size=n))
     fullprob_check("linear 4300 rows", linear_fp_calls(
         [(build_leaf_graph(seq(4300), alph.DNA),
-          build_leaf_graph(seq(400), alph.DNA))])[1:])
+          build_leaf_graph(seq(400), alph.DNA))]))
     fullprob_check("fan-in 6600 rows", fanin_fp_calls(
         [(build_leaf_graph(seq(6600), alph.DNA),
-          build_leaf_graph(seq(30), alph.DNA))])[1:])
+          build_leaf_graph(seq(30), alph.DNA))]))
     fullprob_check("fan-in 15000 columns", fanin_fp_calls(
         [(build_leaf_graph(seq(40), alph.DNA, homopolymer=True),
           build_leaf_graph(seq(15000), alph.DNA, homopolymer=True))])[1:])
+    wide = build_leaf_graph(seq(7500), alph.DNA)
+    for i in range(5, 7501, 7):
+        for o in (2, 3, 4):
+            wide.add_edge(i - o, i, 0.05 * o)
+    fullprob_check("fan-in 7500 columns", fanin_fp_calls(
+        [(build_leaf_graph(seq(40), alph.DNA), wide)])[:1])
     want = {"ring shared", "ring hot", "ring global", "table shared",
             "table device", "linear buffers shared",
             "linear buffers global"}
-    if not want <= e_seen:
-        fail("kernel_fullprob: kernel E's plans never chose %s"
-             % sorted(want - e_seen))
-    log("kernel_fullprob: kernel E's placements seen: %s"
-        % ", ".join(sorted(e_seen)))
+    for kernel in ("D", "E"):
+        if not want <= seen[kernel]:
+            fail("kernel_fullprob: kernel %s's plans never chose %s"
+                 % (kernel, sorted(want - seen[kernel])))
+        log("kernel_fullprob: kernel %s's placements seen: %s"
+            % (kernel, ", ".join(sorted(seen[kernel]))))
 
     # posteriors and totals against the f64 host oracle
     from dataclasses import replace as _replace
@@ -1143,37 +1154,29 @@ def main():
             B, D, kw["W"], kw["G"], fanin_launch(kw),
             "" if ms is None else ", %.3f us per diagonal" % (1e3 * ms / D))
 
-    def time_kernel(calls, real, plain, bound, same, reps, pick=None):
+    def time_kernel(calls, real, plain, bound, same, reps):
         """Per-launch means over a path's recorded calls: kernel ms,
         plain ms, bound ms and what bounds it, then the error, the
-        bound's two times and each call's kernel ms. Every call, or with
-        `pick` only the call of the largest pick(kw), is held bit-equal
-        to the plain version and gives the plain mean; kernel D's fan-in
-        plain version takes seconds a call, so its path compares and
-        times its largest call."""
+        bound's two times and each call's kernel ms. Every call is held
+        bit-equal to the plain version and gives the plain mean."""
         k_ms = p_ms = b_ms = err = by_bytes = by_ops = 0.0
         per_call = []
-        compared = range(len(calls)) if pick is None else \
-            [max(range(len(calls)), key=lambda n: pick(calls[n]))]
         for n, kw in enumerate(calls):
-            p = float("nan")
-            if n in compared:
-                # the plain version timed on the call that is compared
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                ref = plain(**kw)
-                t1.record()
-                out = real(**kw)
-                torch.cuda.synchronize()
-                if not (torch.equal(out[0], ref[0])
-                        and same(out[1], ref[1])):
-                    fail("timing: recorded call %d of %s differs from its "
-                         "plain version" % (n, real.__name__))
-                err = max(err, max_abs_err(out[1], ref[1]))
-                del out, ref
-                p = t0.elapsed_time(t1)
-                p_ms += p
+            # the plain version timed on the call it is compared on
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = plain(**kw)
+            t1.record()
+            out = real(**kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(out[0], ref[0]) and same(out[1], ref[1])):
+                fail("timing: recorded call %d of %s differs from its "
+                     "plain version" % (n, real.__name__))
+            err = max(err, max_abs_err(out[1], ref[1]))
+            del out, ref
+            p = t0.elapsed_time(t1)
+            p_ms += p
             k = cuda_ms(lambda: real(**kw), reps)
             per_call.append(k)
             nbytes, ops = bound(kw)
@@ -1185,7 +1188,7 @@ def main():
             k_ms, b_ms = k_ms + k, b_ms + 1e3 * max(tb, to)
             by_bytes, by_ops = by_bytes + tb, by_ops + to
         n = len(calls)
-        return (k_ms / n, p_ms / len(compared), b_ms / n,
+        return (k_ms / n, p_ms / n, b_ms / n,
                 "bytes" if by_bytes >= by_ops else "operations", err,
                 by_bytes, by_ops, per_call)
 
@@ -1205,9 +1208,8 @@ def main():
                                                   sum(fan_fp_ms)))
     for name, t in (("linear", lin_t), ("fanin", fan_t)):
         log("timing %s: kernel %.3f ms/launch over %d main-path calls, "
-            "plain %.1f ms (%s), bound %.5f ms (%s), bit-equal"
-            % (name, t[0], len(recorded[name]), t[1], "every call", t[2],
-               t[3]))
+            "plain %.1f ms (every call), bound %.5f ms (%s), bit-equal"
+            % (name, t[0], len(recorded[name]), t[1], t[2], t[3]))
     # kernels D and E on the calls the --full-probability run made:
     # each entry point timed on its own calls (planes bit-equal, cum
     # within D * eps * max(1, |cum|)); a kernel's line takes the mean
@@ -1216,22 +1218,17 @@ def main():
         return float((a - b).abs().max()) <= \
             a.shape[1] * EPS32 * max(1.0, float(b.abs().max()))
 
-    def fp_batch(kw):
-        return tuple((kw["ms2"] if "ms2" in kw else kw["msp"]).shape)
-
     fp_t = {}
     for k in FP_KEYS:
         m, n = KERNELS[k]
         fp_t[k] = time_kernel(rec_fp[k], getattr(m, n),
                               getattr(m, n + "_plain"), fullprob_bound,
-                              cum_close, 3,
-                              pick=fp_batch if k == "fp_fwd_fanin" else None)
+                              cum_close, 3)
         log("timing %s: kernel %.3f ms/launch over %d fullprob_path calls, "
-            "plain %.1f ms (%s), bound %.5f ms (%s), planes bit-equal, cum "
-            "max |err| %g" % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1],
-                              "largest batch" if k == "fp_fwd_fanin"
-                              else "every call", fp_t[k][2], fp_t[k][3],
-                              fp_t[k][4]))
+            "plain %.1f ms (every call), bound %.5f ms (%s), planes "
+            "bit-equal, cum max |err| %g"
+            % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1], fp_t[k][2],
+               fp_t[k][3], fp_t[k][4]))
 
     def kernel_entry(name, source, replaces, direction):
         """The kernels-line entry of D or E: per-launch means over its
@@ -1254,12 +1251,16 @@ def main():
                  else "operations", "library_ms": None,
                  "linear_ms": fp_t[keys[0]][0],
                  "fanin_ms": fp_t[keys[1]][0]}
-        if direction == "bwd":
-            entry["fanin_plans"] = [fanin_plan_text(FF, kw)
-                                    for kw in rec_fp[keys[1]]]
-            entry["fanin_us_per_diagonal"] = [
-                1e3 * ms / kw["msp"].shape[1]
-                for ms, kw in zip(fp_t[keys[1]][7], rec_fp[keys[1]])]
+        entry["linear_plans"] = [plan_text(FF, keys[0].replace(
+            "fp_", "fullprob_"), kw) for kw in rec_fp[keys[0]]]
+        entry["linear_us_per_diagonal"] = [
+            1e3 * ms / kw["ms2"].shape[1]
+            for ms, kw in zip(fp_t[keys[0]][7], rec_fp[keys[0]])]
+        entry["fanin_plans"] = [fanin_plan_text(FF, kw)
+                                for kw in rec_fp[keys[1]]]
+        entry["fanin_us_per_diagonal"] = [
+            1e3 * ms / kw["msp"].shape[1]
+            for ms, kw in zip(fp_t[keys[1]][7], rec_fp[keys[1]])]
         return entry
 
     # kernel C: bit-equal to its plain version on the long_family calls

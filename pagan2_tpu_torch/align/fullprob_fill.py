@@ -8,8 +8,9 @@ Replaces pagan2_tpu/align/fullprob_pallas.py (`_fwd_kernel`,
 pagan2_tpu/align/fullprob.py for fan-in graph pairs
 (`_build_fwd_fanin_gather` / `_build_bwd_fanin_gather` and the one-hot
 `_build_fwd_fanin` / `_build_bwd_fanin`): each source holds a linear and
-a fan-in entry point with runtime edge slots K, ring depth G and seed
-depth Gs.
+a fan-in entry point with edge slots K, ring depth G and seed depth
+Gs, launched as its launch plan (fwd_/bwd_linear_plan,
+fwd_/bwd_fanin_plan) says.
 
 Every diagonal of the three matrices is divided by its maximum and the
 logarithm of that maximum accumulated, so a plane value times
@@ -44,15 +45,9 @@ LAUNCHES = {"fullprob_fwd": 0, "fullprob_bwd": 0,
             "fullprob_fwd_fanin": 0, "fullprob_bwd_fanin": 0}
 PLAIN_CALLS = dict(LAUNCHES)
 
-# kernel D: rows whose diagonals (9 rows, 4 bytes a lane) fit shared
-# memory (longer left sides keep them in a global scratch), and the
-# largest fan-in ring kept in shared memory
-SHARED_ROWS = 4096
-SHARED_RING_BYTES = 200 * 1024
-
-# kernel E's launch plans: the fewest ring diagonals worth keeping on
-# chip in a split ring (d+1 and d+2 make almost every read), and the
-# largest fan-in with a templated build
+# kernels D's and E's launch plans: the fewest ring diagonals worth
+# keeping on chip in a split ring (the two newest make almost every
+# read), and the largest fan-in with a templated build
 MIN_HOT = 3
 TEMPLATE_K = 4
 
@@ -208,71 +203,99 @@ def _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G, seed=None):
     return B, D, Lp, Rr, KL, KR
 
 
-def _threads(Lp: int) -> int:
-    """Kernel D's block: a thread a lane up to 1024 lanes."""
-    return min(1024, -(-Lp // 32) * 32)
-
-
 def _block(lanes: int, rows: int) -> int:
     """Threads of a block whose threads own `rows` lanes each: whole
     warps, enough for `lanes`."""
     return -(-lanes // (rows * 32)) * 32
 
 
+def _linear_lanes(Lp: int, one: int):
+    """Lanes a thread and threads of kernel D's or E's linear entry point
+    on Lp lanes: 1 up to `one` lanes, 2 up to 2048, 4 up to 4096, in
+    blocks of at most 1024 threads, each lane's raw M, X, Y in registers
+    from one step to the next; past that 0, the build for any count in
+    a block of up to 1024 threads, which keeps them in a global buffer."""
+    rows = next((r for r, top in ((1, one), (2, 2048), (4, 4096))
+                 if Lp <= top), 0)
+    threads = _block(Lp, rows) if rows else min(1024, _block(Lp, 1))
+    return rows, threads
+
+
 def bwd_linear_plan(Lp: int) -> dict:
     """How kernel E's linear entry point is launched on Lp lanes:
 
-    - rows: lanes a thread, whose raw M, X, Y stay in registers from one
-      step to the next: 1 up to 512 lanes, 2 up to 2048, 4 up to 4096,
-      in blocks of at most 1024 threads; past that 0, the build for any
-      count, which keeps raw Y and M in a global buffer;
-    - threads: ceil(Lp / rows) rounded up to a warp (at most 1024);
+    - rows, threads: lanes a thread and the block (_linear_lanes, one
+      lane up to 512 lanes);
     - shared, smem: the X and q rows of two diagonals (16 (Lp + 1)
       bytes) in shared memory, or (rows 0) in a global buffer."""
-    rows = next((r for r, top in ((1, 512), (2, 2048), (4, 4096))
-                 if Lp <= top), 0)
-    threads = _block(Lp, rows) if rows else min(1024, _block(Lp, 1))
+    rows, threads = _linear_lanes(Lp, 512)
     shared = rows > 0
     return dict(rows=rows, threads=threads, shared=shared,
                 smem=16 * (Lp + 1) if shared else 0)
 
 
-def bwd_fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int) -> dict:
-    """How kernel E's fan-in entry point is launched on Lp lanes, ring
-    depth G, forward-edge fan-in KL x KR and Rr right-site rows:
+def fwd_linear_plan(Lp: int) -> dict:
+    """How kernel D's linear entry point is launched on Lp lanes:
+
+    - rows, threads: lanes a thread and the block (_linear_lanes), one
+      lane only up to 128 lanes, unlike E. On the H100 (tools/
+      bench_fullprob.py --lanes) D's step took 9-12% longer with two
+      lanes a thread than with one at 128 lanes, but 9% less at 256, 3-7%
+      less at 512 (two calls) and 18-42% less at 544 and 1,024; two beat
+      four by 7% at 2,016 lanes, and four beat the build for any count
+      1.6x at 2,112;
+    - shared, smem: the raw (M, X, Y) rows of the two newest diagonals
+      (16 bytes a lane: 32 (Lp + 1) bytes) in shared memory, or (rows 0)
+      three generations of them in a global buffer."""
+    rows, threads = _linear_lanes(Lp, 128)
+    shared = rows > 0
+    return dict(rows=rows, threads=threads, shared=shared,
+                smem=32 * (Lp + 1) if shared else 0)
+
+
+def _fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int,
+                cell: int) -> dict:
+    """How kernel D's or E's fan-in entry point is launched on Lp lanes,
+    ring depth G, fan-in KL x KR (the slots each kernel reads: D the
+    backward edges, E the forward edges), Rr right-site rows and `cell`
+    ring bytes a lane and diagonal (D 16, E 12):
 
     - rtab: the right-site slot table (8 KR Rr bytes) is copied to
       shared memory when it fits beside MIN_HOT ring diagonals, or
       alone where not even those fit (else it is read from device
-      memory; on the H100 the copy took 0.4 us off a 3 us step);
-    - placement and hot: "shared" keeps all G + 1 ring diagonals of q,
-      X and Y (12 Lp bytes each) in shared memory (hot = G + 1); "hot"
-      keeps the newest hot >= MIN_HOT there and every diagonal also in a
-      global ring; "global" keeps none on chip (hot = 0). On the H100 a
-      ring of 3 hot diagonals took the same time as one of 11: offsets
-      1 and 2 make almost every read;
+      memory; on the H100 the copy took 0.4 us off E's 3 us step);
+    - placement and hot: "shared" keeps all G + 1 ring diagonals of
+      three matrices (cell Lp bytes each) in shared memory (hot = G + 1);
+      "hot" keeps the newest hot >= MIN_HOT there and every diagonal
+      also in a global ring; "global" keeps none on chip (hot = 0). On
+      the H100 a ring of 3 hot diagonals took the same time as one of
+      11 for E: offsets 1 and 2 make almost every read;
     - KL, KR: the templated build (the fan-in itself up to TEMPLATE_K on
       both sides, else 0, 0: runtime K);
     - rows: lanes a thread, raw values in registers: 2 in blocks of up
       to 768 threads (384 for a templated fan-in past 2 x 2, whose
-      unrolled slot loops spilled registers at 512); for a templated
-      fan-in up to 2 x 2 then 4 in blocks of up to 512 (on the H100
-      1.35-1.5x faster than the build for any count at 2,016 and 2,048
-      lanes); past that 0, the runtime-K build for any count, whose raw
-      values wait in the ring (blocks of up to 1024 threads);
+      unrolled slot loops spilled registers at 512 in E); for a
+      templated fan-in up to 2 x 2 then 4 in blocks of up to 512; past
+      that 0, the runtime-K build for any count, whose raw values wait
+      in the ring (blocks of up to 1024 threads). On the H100 both
+      kernels' lane builds were timed: E's four lanes 1.35-1.5x faster
+      than the build for any count at 2,016 and 2,048 lanes; D's
+      (tools/bench_fullprob.py --lanes, K 1/2 and 2/2) 1.18-1.25x at
+      2,016, and D's two lanes templated 1.3-1.45x faster than four or
+      than either runtime-K build from 128 to 1,536 lanes;
     - threads: ceil(Lp / rows) rounded up to a warp;
     - smem: dynamic shared bytes (two rows of 32 warp maxima, G + 1
       inverse scales, the hot ring, the table), at most SHARED_BYTES."""
     GR = G + 1
     fixed = 4 * (64 + GR)
     table = 8 * KR * Rr
-    least = 12 * Lp * min(GR, MIN_HOT)
+    least = cell * Lp * min(GR, MIN_HOT)
     if fixed + least > SHARED_BYTES:
         least = 0
     rtab = fixed + table + least <= SHARED_BYTES
     if rtab:
         fixed += table
-    hot = min(GR, max(SHARED_BYTES - fixed, 0) // (12 * Lp))
+    hot = min(GR, max(SHARED_BYTES - fixed, 0) // (cell * Lp))
     if hot < min(GR, MIN_HOT):
         hot = 0
     placement = "shared" if hot == GR else "hot" if hot else "global"
@@ -288,39 +311,29 @@ def bwd_fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int) -> dict:
         threads = min(1024, _block(Lp, 1))
     return dict(KL=kl, KR=kr, rows=rows, threads=threads,
                 placement=placement, hot=hot, rtab=rtab,
-                smem=fixed + 12 * Lp * hot)
+                smem=fixed + cell * Lp * hot)
 
 
-def _launch_linear(name, rows, ms2, consts, iscal):
-    """One launch of kernel D's linear entry point; rows is its count of
-    state rows (what the global scratch holds past SHARED_ROWS)."""
+def bwd_fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int) -> dict:
+    """How kernel E's fan-in entry point is launched on Lp lanes, ring
+    depth G (its ring: rows of q, X, Y, 12 bytes a lane), forward-edge
+    fan-in KL x KR and Rr right-site rows (_fanin_plan)."""
+    return _fanin_plan(Lp, G, KL, KR, Rr, 12)
+
+
+def fwd_fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int) -> dict:
+    """How kernel D's fan-in entry point is launched on Lp lanes, ring
+    depth G (its ring: raw (M, X, Y, 0), 16 bytes a lane), backward-edge
+    fan-in KL x KR and Rr right-site rows (_fanin_plan)."""
+    return _fanin_plan(Lp, G, KL, KR, Rr, 16)
+
+
+def _launch_linear(name, plan, scratch, ms2, consts, iscal):
+    """One launch of kernel D's or E's linear entry point (`name`) as
+    `plan` (fwd_linear_plan, bwd_linear_plan) says; `scratch`: the shape
+    of a pair's global row buffer where the plan keeps none on chip."""
     B, D, Lp = ms2.shape
-    lib = kernels.load(name)
-    fn = getattr(lib, name + "_linear_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
-                         device=ms2.device)
-    cum = torch.empty((B, D), dtype=torch.float32, device=ms2.device)
-    use_shared = Lp <= SHARED_ROWS
-    gbuf = None if use_shared else torch.empty(
-        (B, rows, Lp), dtype=torch.float32, device=ms2.device)
-    with torch.cuda.device(ms2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ms2.data_ptr(), consts.data_ptr(), iscal.data_ptr(),
-                 planes.data_ptr(), cum.data_ptr(),
-                 0 if gbuf is None else gbuf.data_ptr(),
-                 B, D, Lp, int(use_shared), _threads(Lp), stream)
-    kernels.check(err, name)
-    return planes, cum
-
-
-def _launch_bwd_linear(plan, ms2, consts, iscal):
-    """One launch of kernel E's linear entry point as `plan`
-    (bwd_linear_plan) says."""
-    B, D, Lp = ms2.shape
-    fn = kernels.load("fullprob_bwd").fullprob_bwd_linear_launch
+    fn = getattr(kernels.load(name), name + "_linear_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
@@ -328,7 +341,7 @@ def _launch_bwd_linear(plan, ms2, consts, iscal):
                          device=ms2.device)
     cum = torch.empty((B, D), dtype=torch.float32, device=ms2.device)
     gbuf = None if plan["shared"] else torch.empty(
-        (B, 6, Lp + 1), dtype=torch.float32, device=ms2.device)
+        (B,) + scratch, dtype=torch.float32, device=ms2.device)
     with torch.cuda.device(ms2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ms2.data_ptr(), consts.data_ptr(), iscal.data_ptr(),
@@ -336,19 +349,27 @@ def _launch_bwd_linear(plan, ms2, consts, iscal):
                  0 if gbuf is None else gbuf.data_ptr(),
                  B, D, Lp, plan["rows"], int(plan["shared"]),
                  plan["threads"], plan["smem"], stream)
-    kernels.check(err, "fullprob_bwd")
+    kernels.check(err, name)
     return planes, cum
 
 
 def fullprob_fwd(ms2, consts, iscal):
     """Scaled forward planes of a batch of linear-chain pairs. ms2
     (B, D, Lp) f32: (msp * wl) * wr on diagonal d at row d. Returns
-    (planes (B, 3, D, Lp), cum (B, D))."""
+    (planes (B, 3, D, Lp), cum (B, D)).
+
+    On a CUDA tensor it launches kernel D as fwd_linear_plan(Lp) says:
+    one block a pair of the plan's threads, each owning `rows` lanes,
+    the row buffers in shared memory or (past 4096 lanes) in a global
+    scratch (B, 3, Lp + 1, 4). The kernel refuses a plan it has no build
+    for, and the wrapper raises on any launch error."""
     _check_linear(ms2, consts, iscal)
     if ms2.device.type == "cpu":
         PLAIN_CALLS["fullprob_fwd"] += 1
         return fullprob_fwd_plain(ms2, consts, iscal)
-    out = _launch_linear("fullprob_fwd", 9, ms2, consts, iscal)
+    Lp = ms2.shape[2]
+    out = _launch_linear("fullprob_fwd", fwd_linear_plan(Lp),
+                         (3, Lp + 1, 4), ms2, consts, iscal)
     LAUNCHES["fullprob_fwd"] += 1
     return out
 
@@ -367,65 +388,44 @@ def fullprob_bwd(ms2, consts, iscal):
     if ms2.device.type == "cpu":
         PLAIN_CALLS["fullprob_bwd"] += 1
         return fullprob_bwd_plain(ms2, consts, iscal)
-    out = _launch_bwd_linear(bwd_linear_plan(ms2.shape[2]), ms2, consts,
-                             iscal)
+    Lp = ms2.shape[2]
+    out = _launch_linear("fullprob_bwd", bwd_linear_plan(Lp), (6, Lp + 1),
+                         ms2, consts, iscal)
     LAUNCHES["fullprob_bwd"] += 1
     return out
 
 
-def _launch_fanin(name, msp, loff, lw, roff, rw, consts, iscal, G):
-    """One launch of kernel D's fan-in entry point, its ring in shared
-    memory up to SHARED_RING_BYTES."""
+def _launch_fanin(name, plan, ring, msp, loff, lw, roff, rw, consts,
+                  iscal, G, seed=None):
+    """One launch of kernel D's or E's fan-in entry point (`name`) as
+    `plan` (fwd_fanin_plan, bwd_fanin_plan) says; loff/lw, roff/rw: the
+    slots the kernel reads (D the backward edges, E the forward ones);
+    `ring`: the shape of a pair's global ring where the plan keeps not
+    all of it on chip; `seed` (kernel E): the seed block."""
     B, D, Lp = msp.shape
     Rr, KL, KR = roff.shape[1], loff.shape[2], roff.shape[2]
-    lib = kernels.load(name)
-    fn = getattr(lib, name + "_fanin_launch")
+    ins = [msp, loff, lw, roff, rw, consts, iscal]
+    depth = []
+    if seed is not None:
+        ins.append(seed)
+        depth.append(seed.shape[1])
+    fn = getattr(kernels.load(name), name + "_fanin_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
-                         device=msp.device)
-    cum = torch.empty((B, D), dtype=torch.float32, device=msp.device)
-    use_shared = 3 * (G + 1) * Lp * 4 <= SHARED_RING_BYTES
-    gring = None if use_shared else torch.empty(
-        (B, 3, G + 1, Lp), dtype=torch.float32, device=msp.device)
-    with torch.cuda.device(msp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(msp.data_ptr(), loff.data_ptr(), lw.data_ptr(),
-                 roff.data_ptr(), rw.data_ptr(), consts.data_ptr(),
-                 iscal.data_ptr(), 0, planes.data_ptr(), cum.data_ptr(),
-                 0 if gring is None else gring.data_ptr(),
-                 B, D, Lp, Rr, KL, KR, G, 0, int(use_shared),
-                 _threads(Lp), stream)
-    kernels.check(err, name + " (fan-in)")
-    return planes, cum
-
-
-def _launch_bwd_fanin(plan, msp, lfoff, lfw, rfoff, rfw, consts, iscal,
-                      seed, G):
-    """One launch of kernel E's fan-in entry point as `plan`
-    (bwd_fanin_plan) says."""
-    B, D, Lp = msp.shape
-    Rr, KL, KR = rfoff.shape[1], lfoff.shape[2], rfoff.shape[2]
-    fn = kernels.load("fullprob_bwd").fullprob_bwd_fanin_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 + \
-        [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (len(ins) + 3) + \
+        [ctypes.c_int] * (14 + len(depth)) + [ctypes.c_void_p]
     planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
                          device=msp.device)
     cum = torch.empty((B, D), dtype=torch.float32, device=msp.device)
     gring = None if plan["placement"] == "shared" else torch.empty(
-        (B, 3, G + 1, Lp), dtype=torch.float32, device=msp.device)
+        (B,) + ring, dtype=torch.float32, device=msp.device)
     with torch.cuda.device(msp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(msp.data_ptr(), lfoff.data_ptr(), lfw.data_ptr(),
-                 rfoff.data_ptr(), rfw.data_ptr(), consts.data_ptr(),
-                 iscal.data_ptr(), seed.data_ptr(), planes.data_ptr(),
+        err = fn(*[t.data_ptr() for t in ins], planes.data_ptr(),
                  cum.data_ptr(), 0 if gring is None else gring.data_ptr(),
-                 B, D, Lp, Rr, KL, KR, G, seed.shape[1], plan["hot"],
+                 B, D, Lp, Rr, KL, KR, G, *depth, plan["hot"],
                  int(plan["rtab"]), plan["KL"], plan["KR"], plan["rows"],
                  plan["threads"], plan["smem"], stream)
-    kernels.check(err, "fullprob_bwd (fan-in)")
+    kernels.check(err, name + " (fan-in)")
     return planes, cum
 
 
@@ -434,14 +434,25 @@ def fullprob_fwd_fanin(msp, loff, lw, roff, rw, consts, iscal, G: int):
     (B, D, Lp) sheared match probabilities; loff/lw (B, Lp, KL) and
     roff/rw (B, Rr, KR): per site the offsets (0 = empty slot) and
     weights of its backward edges; G the ring depth (no offset sum past
-    it is followed). Returns (planes (B, 3, D, Lp), cum (B, D))."""
+    it is followed). Returns (planes (B, 3, D, Lp), cum (B, D)).
+
+    On a CUDA tensor it launches kernel D as fwd_fanin_plan(Lp, G, KL,
+    KR, Rr) says: the (KL, KR) build up to 4 x 4, else the runtime-K
+    one; the right-slot table in shared memory when it fits; the ring of
+    G + 1 diagonals in shared memory, its newest diagonals there and all
+    of it in a global scratch (B, G + 1, Lp, 4), or all of it there; one
+    block a pair of the plan's threads, each owning `rows` lanes. The
+    kernel refuses a plan it has no build for, and the wrapper raises on
+    any launch error."""
     _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G)
     if msp.device.type == "cpu":
         PLAIN_CALLS["fullprob_fwd_fanin"] += 1
         return fullprob_fwd_fanin_plain(msp, loff, lw, roff, rw, consts,
                                         iscal, G)
-    out = _launch_fanin("fullprob_fwd", msp, loff, lw, roff, rw, consts,
-                        iscal, G)
+    Lp = msp.shape[2]
+    plan = fwd_fanin_plan(Lp, G, loff.shape[2], roff.shape[2], roff.shape[1])
+    out = _launch_fanin("fullprob_fwd", plan, (G + 1, Lp, 4), msp, loff, lw,
+                        roff, rw, consts, iscal, G)
     LAUNCHES["fullprob_fwd_fanin"] += 1
     return out
 
@@ -467,10 +478,11 @@ def fullprob_bwd_fanin(msp, lfoff, lfw, rfoff, rfw, consts, iscal, seed,
         PLAIN_CALLS["fullprob_bwd_fanin"] += 1
         return fullprob_bwd_fanin_plain(msp, lfoff, lfw, rfoff, rfw,
                                         consts, iscal, seed, G)
-    plan = bwd_fanin_plan(msp.shape[2], G, lfoff.shape[2], rfoff.shape[2],
+    Lp = msp.shape[2]
+    plan = bwd_fanin_plan(Lp, G, lfoff.shape[2], rfoff.shape[2],
                           rfoff.shape[1])
-    out = _launch_bwd_fanin(plan, msp, lfoff, lfw, rfoff, rfw, consts,
-                            iscal, seed, G)
+    out = _launch_fanin("fullprob_bwd", plan, (3, G + 1, Lp), msp, lfoff,
+                        lfw, rfoff, rfw, consts, iscal, G, seed)
     LAUNCHES["fullprob_bwd_fanin"] += 1
     return out
 

@@ -88,24 +88,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fullprob_common.cuh"
+
 namespace {
-
-// maximum over the block of the warp maxima in row[0 .. nw): every
-// warp reduces the whole row itself
-__device__ __forceinline__ float row_max(const float* row, int nw) {
-  const int l = threadIdx.x & 31;
-  float r = l < nw ? row[l] : 0.0f;
-  for (int o = 16; o > 0; o >>= 1)
-    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, o));
-  return r;
-}
-
-// the warp's maximum of v, written to row[warp] by its lane 0
-__device__ __forceinline__ void warp_max(float v, float* row) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) row[threadIdx.x >> 5] = v;
-}
 
 // ---------------------------------------------------------------- linear
 // ROWS: lanes a thread, raw M, X, Y in registers (0: any count, raw Y
@@ -557,82 +542,14 @@ __global__ void __launch_bounds__(MAXT) fullprob_bwd_fanin_kernel(
          false);
 }
 
-// lets `kernel` take smem bytes of dynamic shared memory; a refusal is
-// returned and cleared, so that no later launch reports it
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
-}
-
-template <int KLT, int KRT, int ROWS, bool ALLSH, int MAXT>
-int launch1(const FaninArgs& a, int B, int threads, size_t smem,
-            cudaStream_t st) {
-  if (threads > MAXT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(
-      fullprob_bwd_fanin_kernel<KLT, KRT, ROWS, ALLSH, MAXT>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fullprob_bwd_fanin_kernel<KLT, KRT, ROWS, ALLSH, MAXT>
-      <<<B, threads, smem, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The builds of one fan-in, each with the whole ring in shared memory
-// or split: two lanes a thread in blocks of up to 768 threads (384 past
-// a templated K 2 x 2, whose slot loops spilled registers at 512); up
-// to a templated K 2 x 2 also four lanes in blocks of up to 512 (on
-// the H100, 1.35-1.5x faster than the build for any count at 2,016 and
-// 2,048 lanes).
-template <int KLT, int KRT>
-int launch_k(const FaninArgs& a, int B, int rows, int threads, size_t smem,
-             cudaStream_t st) {
-  constexpr bool SMALL_K = KLT > 0 && KLT <= 2 && KRT <= 2;
-  constexpr int MAXT2 = (KLT <= 2 && KRT <= 2) ? 768 : 384;
-  const bool allsh = a.H == a.G + 1;
-  if (rows == 2)
-    return allsh ? launch1<KLT, KRT, 2, true, MAXT2>(a, B, threads, smem, st)
-                 : launch1<KLT, KRT, 2, false, MAXT2>(a, B, threads, smem,
-                                                      st);
-  if constexpr (SMALL_K) {
-    if (rows == 4)
-      return allsh
-                 ? launch1<KLT, KRT, 4, true, 512>(a, B, threads, smem, st)
-                 : launch1<KLT, KRT, 4, false, 512>(a, B, threads, smem, st);
+// the fan-in kernel, as fullprob_common.cuh's dispatch takes it
+struct FaninBuilds {
+  using Args = FaninArgs;
+  template <int KLT, int KRT, int ROWS, bool ALLSH, int MAXT>
+  static auto kernel() {
+    return fullprob_bwd_fanin_kernel<KLT, KRT, ROWS, ALLSH, MAXT>;
   }
-  return (int)cudaErrorInvalidValue;
-}
-
-#define BWD_ROW(kl)                                                        \
-  case kl:                                                                 \
-    switch (krt) {                                                         \
-      case 1: return launch_k<kl, 1>(a, B, rows, threads, smem, st);       \
-      case 2: return launch_k<kl, 2>(a, B, rows, threads, smem, st);       \
-      case 3: return launch_k<kl, 3>(a, B, rows, threads, smem, st);       \
-      case 4: return launch_k<kl, 4>(a, B, rows, threads, smem, st);       \
-      default: return (int)cudaErrorInvalidValue;                          \
-    }
-
-int dispatch(const FaninArgs& a, int klt, int krt, int B, int rows,
-             int threads, size_t smem, cudaStream_t st) {
-  if (klt == 0 && krt == 0) {
-    if (rows == 0)
-      return a.H == a.G + 1
-                 ? launch1<0, 0, 0, true, 1024>(a, B, threads, smem, st)
-                 : launch1<0, 0, 0, false, 1024>(a, B, threads, smem, st);
-    return launch_k<0, 0>(a, B, rows, threads, smem, st);
-  }
-  if (klt != a.KL || krt != a.KR) return (int)cudaErrorInvalidValue;
-  switch (klt) {
-    BWD_ROW(1)
-    BWD_ROW(2)
-    BWD_ROW(3)
-    BWD_ROW(4)
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+};
 
 }  // namespace
 
@@ -721,6 +638,6 @@ extern "C" int fullprob_bwd_fanin_launch(
       (size_t)smem < ((size_t)64 + G + 1 + (size_t)3 * hot * Lp +
                       (a.rtab ? (size_t)2 * Rr * KR : 0)) * 4)
     return (int)cudaErrorInvalidValue;
-  return dispatch(a, klt, krt, B, rows, threads, (size_t)smem,
-                  (cudaStream_t)stream);
+  return dispatch<FaninBuilds>(a, klt, krt, B, rows, threads,
+                               (size_t)smem, (cudaStream_t)stream);
 }

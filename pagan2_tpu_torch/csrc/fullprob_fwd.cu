@@ -1,79 +1,125 @@
-// Kernel D: scaled forward probability planes, one anti-diagonal a step.
+// Kernel D: scaled forward probability planes, anti-diagonals 0 .. D-1.
 //
 // Replaces the TPU kernel pagan2_tpu/align/fullprob_pallas.py::_fwd_kernel
 // (launched by fullprob_fwd_pallas) with its linear entry point, and the
 // XLA scan cores pagan2_tpu/align/fullprob.py::_build_fwd_fanin_gather
 // and ::_build_fwd_fanin with its fan-in entry point.
 //
-// Per diagonal d = i + j the three matrices are computed in probability
-// space from earlier diagonals, the maximum s over the job's diagonal is
-// taken (1 where it is 0), all three are multiplied by 1/s and
-// cum[d] = cum[d-1] + log(s): a stored value times exp(cum[d]) is the
-// true forward probability.
-//
+// Per diagonal d = i + j, from the diagonals before it:
 //   linear:  X(i,j) = (ext x1[i-1] + gcgo y1[i-1]) + nggo m1[i-1]
 //            Y(i,j) = (ext y1[i]   + gcgo x1[i])   + nggo m1[i]
 //            M(i,j) = ms2[d][i] ((ng2 m2[i-1] + gcng x2[i-1]) + gcng y2[i-1])
-//   with (m1,x1,y1) diagonal d-1 and (m2,x2,y2) diagonal d-2 multiplied by
-//   1/s of diagonal d-1, ms2 = (msp wl[i]) wr[j] folded by the caller.
-//
-//   fan-in:  X sums over the left site's backward-edge slots k with
+//   with (m1,x1,y1) diagonal d-1 and (m2,x2,y2) diagonal d-2, both in the
+//   units of diagonal d-1; ms2 = (msp wl[i]) wr[j] folded by the caller.
+//   fan-in:  X sums over the left site's BACKWARD-edge slots k with
 //            offset o: the same combination read at diagonal d-o, lane
 //            i-o, no weight; Y over the right site's slots at diagonal
 //            d-o, lane i; M = msp[d][i] * sum over slot pairs (kl, kr) of
 //            ((ng2 m + gcng x) + gcng y) at diagonal d-oL-oR, lane i-oL,
-//            times lw then rw. A value of diagonal e is used in the units
-//            of diagonal d-1: multiplied by 1/s of e+1, e+2, ..., d-1 in
-//            turn, as a ring rescaled at every step would hold it.
+//            times lw then rw.
+// Invalid cells are 0. The diagonal's maximum s (1 where it is 0)
+// divides its three rows, and cum[d] = cum[d-1] + log(s): a stored value
+// times exp(cum[d]) is the true forward probability.
 //
 // Every operation is one IEEE f32 operation in the order written (build
-// flag -fmad=false), so the planes equal the plain PyTorch version's
-// bit for bit. Sums over slots run in slot order.
+// flag -fmad=false); sums over slots run in slot order. So the planes
+// equal the plain versions' (align/fullprob_fill.py) bit for bit.
 //
-// Layout: one block per job, threads stride over the lanes i. A step
-// computes the raw diagonal into on-chip state, reduces its maximum
-// (warp shuffles, one shared row, a barrier), scales its own lanes,
-// writes them to the planes (B, 3, D, Lp) and ends in a second barrier.
-// Linear: three generations of M/X/Y (9 Lp floats) in shared memory up to
-// 4096 lanes, in a global scratch beyond. Fan-in: a ring of G + 1
-// generations in shared memory when it fits, else in a global scratch
-// that stays in L2. What bounds it on an H100 is the serial chain of
-// D dependent diagonals with two block barriers each, not bytes (16 B a
-// cell) or operations.
+// What bounds it on an H100: the serial chain of D = L + R - 1
+// diagonals of one job, one block per job. Bytes (16 per cell) and
+// operations are hundreds of times below the card's rates, so a step
+// costs its barrier, its reduction and its instruction issue. The
+// design (kernel E's, csrc/fullprob_bwd.cu, run forward), per step d:
+//  1. One block barrier. Each warp reduces the maximum of its raw cells
+//     with shuffles and writes it to a row of warp maxima (two rows,
+//     taken in turn by the parity of d); then the one __syncthreads. At
+//     the start of step d+1 every warp reduces that row itself, so every
+//     thread holds s, 1/s and cum of diagonal d with no second barrier,
+//     scales its own lanes of d from registers and writes the planes
+//     with streaming stores (nothing here reads them again). Diagonal
+//     D-1 is finished after the loop; diagonal 0 (M(0,0) = 1) enters as
+//     a raw diagonal whose maximum is 1.
+//  2. Raw values stored, scales applied on read. M, X and Y of d enter
+//     the ring (fan-in) or the row buffers (linear) raw, before the
+//     barrier. A reader at step d multiplies a value of diagonal e by
+//     1/s of e, e+1, ..., d-1 in that order: the plain version's own
+//     sequence of multiplies, its rescale once and then once a push. D's
+//     match value multiplies after the slot sum, so nothing is written a
+//     step late (unlike E's q). Every offset is >= 1 (oL + oR >= 2 for
+//     M), so every read of step d reaches diagonals finished before its
+//     barrier. Every thread keeps 1/s of d-1 and d-2 in registers; the
+//     older ones are in a shared ring of G+1 entries.
+//  3. Linear: X reads lane i-1 of d-1, Y lane i of d-1 (the thread's own,
+//     in registers) and M lane i-1 of d-2. The neighbour's raw M, X, Y of
+//     d-1 are read once, used for X at step d and kept in registers for
+//     M at step d+1, so shared memory holds only the rows of the two
+//     newest diagonals, taken in turn by parity, M, X and Y of a lane in
+//     one 16-byte slot (32 (Lp + 1) bytes). ms2 of d+1 is loaded during
+//     step d.
+//  4. Fan-in: the newest diagonals on chip. The ring holds raw M, X, Y
+//     of a lane in one 16-byte slot (one load and one address a source,
+//     one store a cell). It is in
+//     shared memory when its G+1 diagonals fit ("shared"); else the
+//     newest H >= 3 diagonals are there and every diagonal is also
+//     written to a global ring of G+1 ("hot": offsets o < H read shared
+//     memory, the skip edges of indels the global ring); else global
+//     only. Slots advance by counters, no division. A thread's lanes
+//     i = tid + r * threads never change: it loads its left site's
+//     backward-edge slots into registers once a launch. The right site
+//     j = d - i moves every step, so the job's right-site slot table is
+//     copied into shared memory once a launch when it fits beside the
+//     ring (else it is read from device memory through the same
+//     pointer). msp of d+1 is loaded during step d.
+//  5. Compile-time fan-in (KL, KR up to 4 x 4, or 0 x 0: runtime K) and
+//     lanes a thread (ROWS: linear 1, 2 or 4, fan-in 2, or 4 up to K
+//     2 x 2; raw values in registers; 0: any count, raw values read back
+//     from the buffer (linear, three generations in device memory) or
+//     the ring slot of d (fan-in)). The slot-0 sources are read without
+//     a branch; other slots behind one.
+// The launch plan (template, lanes a thread, threads, ring placement,
+// right-slot table, shared bytes) is align/fullprob_fill.py::
+// fwd_fanin_plan and ::fwd_linear_plan; the kernel only picks the build
+// the plan names and refuses a plan it has none for.
+//
+// Ring-slot safety (fan-in). Diagonal e sits in global slot e % (G+1)
+// and hot slot e % H. Step d writes M, X, Y of d (the slot of d) and
+// reads e in [d-G, d-1], the hot ring only for d - e < H. The slot of d
+// last held d-G-1 (d-H): no read of step d reaches it. A read of a
+// diagonal e < 0 finds a slot not yet written, which holds 0, as the
+// plain version's empty ring does. A source that is not read (slot 0
+// with no edge) reads diagonal d-1 at lane i and contributes 0. The 1/s
+// of d-1 enters its ring slot at step d; reads of step d take 1/s of
+// d-3 and older from the ring.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fullprob_common.cuh"
+
 namespace {
 
-// maximum of v over the block (v >= 0); holds one __syncthreads
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) red[w] = v;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) >> 5;
-  float r = (l < nw) ? red[l] : 0.0f;
-  for (int o = 16; o > 0; o >>= 1)
-    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, o));
-  return r;
-}
-
-template <bool SHARED>
+// ---------------------------------------------------------------- linear
+// ROWS: lanes a thread; raw M, X, Y of d-1 at lane i and of d-2 at lane
+// i-1 in registers, the rows of two generations (parity of d) in shared
+// memory. 0: any count, three generations of rows in gbuf. A row holds
+// (M, X, Y, 0) of lane i at i + 1; its slot 0 (lane -1) stays 0.
+template <int ROWS>
 __global__ void __launch_bounds__(1024) fullprob_fwd_linear_kernel(
     const float* __restrict__ ms2,     // (B, D, Lp), row d = diagonal d
     const float* __restrict__ consts,  // (B, 8)
     const int* __restrict__ iscal,     // (B, 2): L R
     float* __restrict__ planes,        // (B, 3, D, Lp): M X Y
     float* __restrict__ cum,           // (B, D)
-    float* gbuf,                       // (B, 9, Lp) when not SHARED
+    float4* gbuf,                      // (B, 3, Lp + 1) when ROWS == 0
     int D, int Lp) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
+  constexpr int RR = ROWS > 0 ? ROWS : 1;
+  extern __shared__ float4 rows4[];
+  __shared__ float wmax[64];
   const int b = blockIdx.x;
-  // [generation 0..2][M, X, Y][Lp]
-  float* sh = SHARED ? smem : gbuf + (size_t)b * 9 * Lp;
-  const int nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nw = (nt + 31) >> 5;
+  const int nrows = ROWS > 0 ? ROWS : (Lp + nt - 1) / nt;
+  const int LS = Lp + 1;   // a generation's row
+  float4* buf = ROWS > 0 ? rows4 : gbuf + (size_t)b * 3 * LS;
   const float ext = consts[b * 8 + 0];
   const float gcgo = consts[b * 8 + 1];
   const float nggo = consts[b * 8 + 2];
@@ -87,289 +133,510 @@ __global__ void __launch_bounds__(1024) fullprob_fwd_linear_kernel(
   float* pY = planes + ((size_t)b * 3 + 2) * D * Lp;
   float* cb = cum + (size_t)b * D;
 
-  // diagonal 0 in generation 0: M(0, 0) = 1, all else 0
-  for (int i = threadIdx.x; i < Lp; i += nt) {
-    for (int q = 0; q < 9; ++q) sh[q * Lp + i] = 0.0f;
-    if (i == 0) sh[0] = 1.0f;
-    pM[i] = (i == 0) ? 1.0f : 0.0f;
-    pX[i] = 0.0f;
-    pY[i] = 0.0f;
+  // generation 0 is diagonal 0: raw M(0, 0) = 1, all else 0
+  for (int q = tid; q < (ROWS > 0 ? 2 : 3) * LS; q += nt)
+    buf[q] = make_float4(q == 1 ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
+  // raw M, X, Y of d-1 at lane i; raw M, X, Y of d-2 at lane i-1; ms2 of
+  // d, loaded a step early
+  float Mr[RR], Xr[RR], Yr[RR], pm[RR], px[RR], py[RR], msn[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const int i = tid + r * nt;
+    Mr[r] = Xr[r] = Yr[r] = pm[r] = px[r] = py[r] = 0.0f;
+    msn[r] = ROWS > 0 && i < Lp ? __ldg(msb + Lp + i) : 0.0f;
   }
-  if (threadIdx.x == 0) cb[0] = 0.0f;
+  if (ROWS > 0 && tid == 0) Mr[0] = 1.0f;
   float cumv = 0.0f;
-  float invprev = 1.0f;    // 1/s of diagonal d-1
+  float inv1 = 1.0f, inv2 = 1.0f;   // 1/s of diagonals d-1, d-2
+  warp_max(tid == 0 ? 1.0f : 0.0f, wmax);
   __syncthreads();
 
+  // scale the lanes of diagonal e (raw maxima in wmax row e & 1; ROWS ==
+  // 0: raw values in generation `raw`), write its planes and cum
+  auto finish = [&](int e, const float4* raw) {
+    float s = row_max(wmax + 32 * (e & 1), nw);
+    if (!(s > 0.0f)) s = 1.0f;
+    const float inv = 1.0f / s;
+    inv2 = inv1;
+    inv1 = inv;
+    cumv = cumv + logf(s);
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
+      if (i >= Lp) continue;
+      float M, X, Y;
+      if constexpr (ROWS > 0) {
+        M = Mr[r]; X = Xr[r]; Y = Yr[r];
+      } else {
+        const float4 v = raw[i + 1];
+        M = v.x; X = v.y; Y = v.z;
+      }
+      __stcs(pM + (size_t)e * Lp + i, M * inv);
+      __stcs(pX + (size_t)e * Lp + i, X * inv);
+      __stcs(pY + (size_t)e * Lp + i, Y * inv);
+    }
+    if (tid == 0) cb[e] = cumv;
+  };
+
+  int gn1 = 0, gn2 = 2;   // ROWS == 0: generations of d-1 and d-2
   for (int d = 1; d < D; ++d) {
-    const float* g1 = sh + ((d - 1) % 3) * 3 * Lp;   // diagonal d-1
-    const float* g2 = sh + ((d + 1) % 3) * 3 * Lp;   // diagonal d-2
-    float* g0 = sh + (d % 3) * 3 * Lp;               // diagonal d
-    const float* msd = msb + (size_t)d * Lp;
+    const int gn0 = 3 - gn1 - gn2;
+    const float4* nb = buf + (ROWS > 0 ? ((d - 1) & 1) : gn1) * LS;  // d-1
+    const float4* b2 = buf + gn2 * LS;                                 // d-2
+    float4* wb = buf + (ROWS > 0 ? (d & 1) : gn0) * LS;                // d
+    finish(d - 1, nb);
+    float ms[RR];
+    if constexpr (ROWS > 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = tid + r * nt;
+        ms[r] = msn[r];
+        msn[r] = i < Lp && d + 1 < D
+                     ? __ldg(msb + (size_t)(d + 1) * Lp + i) : 0.0f;
+      }
+    }
     float lmax = 0.0f;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
       const int j = d - i;
       float M = 0.0f, X = 0.0f, Y = 0.0f;
       if (j >= 0 && j < R && i < L) {
+        // raw M, X, Y of d-1 at lane i-1
+        const float4 n4 = nb[i];
+        const float nm = n4.x, nx = n4.y, ny = n4.z;
+        float om, ox, oy, qm, qx, qy, msd;
+        if constexpr (ROWS > 0) {
+          om = Mr[r]; ox = Xr[r]; oy = Yr[r];
+          qm = pm[r]; qx = px[r]; qy = py[r];
+          msd = ms[r];
+          pm[r] = nm; px[r] = nx; py[r] = ny;
+        } else {
+          const float4 o4 = nb[i + 1], q4 = b2[i];
+          om = o4.x; ox = o4.y; oy = o4.z;
+          qm = q4.x; qx = q4.y; qy = q4.z;
+          msd = __ldg(msb + (size_t)d * Lp + i);
+        }
         if (i > 0) {
-          const float a = ext * g1[Lp + i - 1];
-          const float c = gcgo * g1[2 * Lp + i - 1];
-          const float e = nggo * g1[i - 1];
+          const float a = ext * (nx * inv1);
+          const float c = gcgo * (ny * inv1);
+          const float e = nggo * (nm * inv1);
           X = (a + c) + e;
         }
         if (j > 0) {
-          const float a = ext * g1[2 * Lp + i];
-          const float c = gcgo * g1[Lp + i];
-          const float e = nggo * g1[i];
+          const float a = ext * (oy * inv1);
+          const float c = gcgo * (ox * inv1);
+          const float e = nggo * (om * inv1);
           Y = (a + c) + e;
         }
         if (i > 0 && j > 0) {
-          const float m2 = g2[i - 1] * invprev;
-          const float x2 = g2[Lp + i - 1] * invprev;
-          const float y2 = g2[2 * Lp + i - 1] * invprev;
+          const float m2 = (qm * inv2) * inv1;
+          const float x2 = (qx * inv2) * inv1;
+          const float y2 = (qy * inv2) * inv1;
           const float a = ng2 * m2;
           const float c = gcng * x2;
           const float e = gcng * y2;
-          M = msd[i] * ((a + c) + e);
+          M = msd * ((a + c) + e);
         }
       }
-      g0[i] = M;
-      g0[Lp + i] = X;
-      g0[2 * Lp + i] = Y;
+      if (i < Lp) wb[i + 1] = make_float4(M, X, Y, 0.0f);
+      if constexpr (ROWS > 0) {
+        Mr[r] = M; Xr[r] = X; Yr[r] = Y;
+      }
       lmax = fmaxf(lmax, fmaxf(fmaxf(M, X), Y));
     }
-    float sc = block_max(lmax, red);
-    if (!(sc > 0.0f)) sc = 1.0f;
-    const float inv = 1.0f / sc;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
-      const float M = g0[i] * inv;
-      const float X = g0[Lp + i] * inv;
-      const float Y = g0[2 * Lp + i] * inv;
-      g0[i] = M;
-      g0[Lp + i] = X;
-      g0[2 * Lp + i] = Y;
-      pM[(size_t)d * Lp + i] = M;
-      pX[(size_t)d * Lp + i] = X;
-      pY[(size_t)d * Lp + i] = Y;
-    }
-    cumv = cumv + logf(sc);
-    if (threadIdx.x == 0) cb[d] = cumv;
-    invprev = inv;
+    warp_max(lmax, wmax + 32 * (d & 1));
     __syncthreads();
+    gn2 = gn1;
+    gn1 = gn0;
   }
+  finish(D - 1, buf + (ROWS > 0 ? ((D - 1) & 1) : gn1) * LS);
 }
 
-// (M, X, Y) of diagonal e at lane `lane`, in the units of diagonal d-1
-__device__ __forceinline__ void ring_read_fwd(
-    const float* ring, const float* invh, int GR, int Lp, int e, int lane,
-    int d, float& m, float& x, float& y) {
-  const float* row = ring + (size_t)(e % GR) * Lp + lane;
-  m = row[0];
-  x = row[(size_t)GR * Lp];
-  y = row[(size_t)2 * GR * Lp];
-  int s = (e + 1) % GR;
-  for (int t = e + 1; t < d; ++t) {
-    const float f = invh[s];
-    m = m * f;
-    x = x * f;
-    y = y * f;
-    s = (s + 1 == GR) ? 0 : s + 1;
-  }
-}
+// ---------------------------------------------------------------- fan-in
+struct FaninArgs {
+  const float* msp;     // (B, D, Lp)
+  const int* loff;      // (B, Lp, KL) backward-edge offsets (0: none)
+  const float* lw;      // (B, Lp, KL)
+  const int* roff;      // (B, Rr, KR)
+  const float* rw;      // (B, Rr, KR)
+  const float* consts;  // (B, 8)
+  const int* iscal;     // (B, 2)
+  float* planes;        // (B, 3, D, Lp)
+  float* cum;           // (B, D)
+  float4* gring;        // (B, G + 1, Lp) of (M, X, Y, 0) when H < G + 1
+  int D, Lp, Rr, KL, KR, G;
+  int H;                // diagonals kept in shared memory (G + 1: all)
+  int rtab;             // 1: the right-slot table copied to shared memory
+};
 
-template <bool SHARED>
-__global__ void __launch_bounds__(1024) fullprob_fwd_fanin_kernel(
-    const float* __restrict__ msp,     // (B, D, Lp)
-    const int* __restrict__ loff,      // (B, Lp, KL)
-    const float* __restrict__ lw,      // (B, Lp, KL)
-    const int* __restrict__ roff,      // (B, Rr, KR)
-    const float* __restrict__ rw,      // (B, Rr, KR)
-    const float* __restrict__ consts,  // (B, 8)
-    const int* __restrict__ iscal,     // (B, 2)
-    float* __restrict__ planes,        // (B, 3, D, Lp)
-    float* __restrict__ cum,           // (B, D)
-    float* gring,                      // (B, 3, G + 1, Lp) when not SHARED
-    int D, int Lp, int Rr, int KL, int KR, int G) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
+// KLT, KRT: the fan-in, or 0 for runtime K. ROWS: lanes a thread, raw
+// values of d-1 in registers (0: any count, read back from the ring slot
+// of d-1). ALLSH: the whole ring in shared memory (H == G + 1). MAXT: the
+// largest block it is launched with (sets the register budget).
+template <int KLT, int KRT, int ROWS, bool ALLSH, int MAXT>
+__global__ void __launch_bounds__(MAXT) fullprob_fwd_fanin_kernel(
+    FaninArgs a) {
+  constexpr int NL = KLT > 0 ? KLT : 1;
+  constexpr int RR = ROWS > 0 ? ROWS : 1;
+  extern __shared__ float4 sh4[];
   const int b = blockIdx.x;
-  const int GR = G + 1;
-  // SHARED: [invh GR][ring 3][GR][Lp]; else invh in smem, ring global
-  float* invh = smem;
-  float* ring = SHARED ? smem + GR : gring + (size_t)b * 3 * GR * Lp;
-  const size_t MS = (size_t)GR * Lp;   // matrix stride in the ring
-  const int nt = blockDim.x;
-  const float ext = consts[b * 8 + 0];
-  const float gcgo = consts[b * 8 + 1];
-  const float nggo = consts[b * 8 + 2];
-  const float ng2 = consts[b * 8 + 3];
-  const float gcng = consts[b * 8 + 4];
-  const int L = iscal[b * 2 + 0];
-  const int R = iscal[b * 2 + 1];
-  const float* mb = msp + (size_t)b * D * Lp;
-  const int* lo = loff + (size_t)b * Lp * KL;
-  const float* lwb = lw + (size_t)b * Lp * KL;
-  const int* ro = roff + (size_t)b * Rr * KR;
-  const float* rwb = rw + (size_t)b * Rr * KR;
-  float* pM = planes + ((size_t)b * 3 + 0) * D * Lp;
-  float* pX = planes + ((size_t)b * 3 + 1) * D * Lp;
-  float* pY = planes + ((size_t)b * 3 + 2) * D * Lp;
-  float* cb = cum + (size_t)b * D;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nw = (nt + 31) >> 5;
+  const int D = a.D, Lp = a.Lp, G = a.G, GR = a.G + 1, H = a.H;
+  const int KL = KLT > 0 ? KLT : a.KL;
+  const int KR = KRT > 0 ? KRT : a.KR;
+  const int nrows = ROWS > 0 ? ROWS : (Lp + nt - 1) / nt;
+  // shared: warp maxima [2][32], hot ring [H][Lp] of (M, X, Y, 0), 1/s
+  // ring [G+1], then (rtab) the right-site slot offsets and weights
+  // [Rr][KR]
+  float* wmax = reinterpret_cast<float*>(sh4);
+  float4* hot = sh4 + 16;
+  const size_t HS = (size_t)H * Lp;
+  float* invh = reinterpret_cast<float*>(hot + HS);
+  float4* gr = ALLSH ? nullptr : a.gring + (size_t)b * GR * Lp;
+  const float ext = a.consts[b * 8 + 0];
+  const float gcgo = a.consts[b * 8 + 1];
+  const float nggo = a.consts[b * 8 + 2];
+  const float ng2 = a.consts[b * 8 + 3];
+  const float gcng = a.consts[b * 8 + 4];
+  const int L = a.iscal[b * 2 + 0];
+  const int R = a.iscal[b * 2 + 1];
+  const float* mb = a.msp + (size_t)b * D * Lp;
+  const int* lo_g = a.loff + (size_t)b * Lp * KL;
+  const float* lw_g = a.lw + (size_t)b * Lp * KL;
+  const int* ro_g = a.roff + (size_t)b * a.Rr * KR;
+  const float* rw_g = a.rw + (size_t)b * a.Rr * KR;
+  int* rso_s = reinterpret_cast<int*>(invh + GR);
+  float* rsw_s = reinterpret_cast<float*>(rso_s + (size_t)a.Rr * KR);
+  const int* rso = a.rtab ? rso_s : ro_g;
+  const float* rsw = a.rtab ? rsw_s : rw_g;
+  float* pM = a.planes + ((size_t)b * 3 + 0) * D * Lp;
+  float* pX = a.planes + ((size_t)b * 3 + 1) * D * Lp;
+  float* pY = a.planes + ((size_t)b * 3 + 2) * D * Lp;
+  float* cb = a.cum + (size_t)b * D;
 
-  for (int i = threadIdx.x; i < Lp; i += nt) {
-    for (int q = 0; q < 3 * GR; ++q) ring[(size_t)q * Lp + i] = 0.0f;
-    if (i == 0) ring[0] = 1.0f;
-    pM[i] = (i == 0) ? 1.0f : 0.0f;
-    pX[i] = 0.0f;
-    pY[i] = 0.0f;
+  // slot 0 holds diagonal 0: raw M(0, 0) = 1, all else 0
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 one4 = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+  for (size_t q = tid; q < HS; q += nt) hot[q] = q == 0 ? one4 : zero4;
+  if constexpr (!ALLSH)
+    for (size_t q = tid; q < (size_t)GR * Lp; q += nt)
+      gr[q] = q == 0 ? one4 : zero4;
+  for (int g = tid; g < GR; g += nt) invh[g] = 1.0f;
+  if (a.rtab) {
+    for (int q = tid; q < a.Rr * KR; q += nt) {
+      rso_s[q] = __ldg(ro_g + q);
+      rsw_s[q] = __ldg(rw_g + q);
+    }
   }
-  for (int g = threadIdx.x; g < GR; g += nt) invh[g] = 1.0f;
-  if (threadIdx.x == 0) cb[0] = 0.0f;
+
+  // a left slot with no edge, past G or past lane 0 holds 0
+  auto left_off = [&](int i, int k) -> int {
+    const int o = __ldg(lo_g + (size_t)i * KL + k);
+    return (o > 0 && o <= G && o <= i) ? o : 0;
+  };
+  // the lanes' left-site slots, once a launch
+  int lo[RR][NL];
+  float lw[RR][NL];
+  if constexpr (KLT > 0) {
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      const int i = tid + r * nt;
+#pragma unroll
+      for (int k = 0; k < NL; ++k) {
+        lo[r][k] = i < Lp ? left_off(i, k) : 0;
+        lw[r][k] = i < Lp ? __ldg(lw_g + (size_t)i * KL + k) : 0.0f;
+      }
+    }
+  }
+  // raw M, X, Y of diagonal d-1 (ROWS > 0); msp of d, loaded a step early
+  float Mr[RR], Xr[RR], Yr[RR], msn[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const int i = tid + r * nt;
+    Mr[r] = Xr[r] = Yr[r] = 0.0f;
+    msn[r] = ROWS > 0 && i < Lp ? __ldg(mb + Lp + i) : 0.0f;
+  }
+  if (ROWS > 0 && tid == 0) Mr[0] = 1.0f;
+
   float cumv = 0.0f;
+  float inv1 = 1.0f, inv2 = 1.0f;  // 1/s of diagonals d-1, d-2
+  int sg = 1;                      // slot of d, global ring and invh
+  int shs = H > 1 ? 1 : 0;         // slot of d, hot ring
+  warp_max(tid == 0 ? 1.0f : 0.0f, wmax);
   __syncthreads();
 
+  // the finish of diagonal e (global slot g1, hot slot h1): s from
+  // warp-maxima row e & 1, its lanes scaled, planes, cum, 1/s
+  auto finish = [&](int e, int g1, int h1) {
+    float s = row_max(wmax + 32 * (e & 1), nw);
+    if (!(s > 0.0f)) s = 1.0f;
+    const float inv = 1.0f / s;
+    inv2 = inv1;
+    inv1 = inv;
+    cumv = cumv + logf(s);
+    // ROWS == 0: raw values wait in the slot of e, on chip where it is
+    const float4* raw = H > 0 ? hot + (size_t)h1 * Lp : gr + (size_t)g1 * Lp;
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
+      if (i >= Lp) continue;
+      float M, X, Y;
+      if constexpr (ROWS > 0) {
+        M = Mr[r]; X = Xr[r]; Y = Yr[r];
+      } else {
+        const float4 v = raw[i];
+        M = v.x; X = v.y; Y = v.z;
+      }
+      __stcs(pM + (size_t)e * Lp + i, M * inv);
+      __stcs(pX + (size_t)e * Lp + i, X * inv);
+      __stcs(pY + (size_t)e * Lp + i, Y * inv);
+    }
+    if (tid == 0) {
+      cb[e] = cumv;
+      invh[g1] = inv;
+    }
+  };
+
   for (int d = 1; d < D; ++d) {
-    float* g0 = ring + (size_t)(d % GR) * Lp;
-    const float* md = mb + (size_t)d * Lp;
-    float lmax = 0.0f;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
-      const int j = d - i;
-      float M = 0.0f, X = 0.0f, Y = 0.0f;
-      if (j >= 0 && j < R && i < L) {
-        float m, x, y;
-        if (i > 0) {
-          float acc = 0.0f;
-          for (int k = 0; k < KL; ++k) {
-            const int o = lo[i * KL + k];
-            if (o > 0 && o <= G && i - o >= 0 && d - o >= 0) {
-              ring_read_fwd(ring, invh, GR, Lp, d - o, i - o, d, m, x, y);
-              const float a = ext * x;
-              const float c = gcgo * y;
-              const float e = nggo * m;
-              acc = acc + ((a + c) + e);
-            }
-          }
-          X = acc;
-        }
-        if (j > 0) {
-          float acc = 0.0f;
-          for (int k = 0; k < KR; ++k) {
-            const int o = ro[j * KR + k];
-            if (o > 0 && o <= G && d - o >= 0) {
-              ring_read_fwd(ring, invh, GR, Lp, d - o, i, d, m, x, y);
-              const float a = ext * y;
-              const float c = gcgo * x;
-              const float e = nggo * m;
-              acc = acc + ((a + c) + e);
-            }
-          }
-          Y = acc;
-        }
-        if (i > 0 && j > 0) {
-          float acc = 0.0f;
-          for (int kl = 0; kl < KL; ++kl) {
-            const int ol = lo[i * KL + kl];
-            if (!(ol > 0 && i - ol >= 0)) continue;
-            const float wl = lwb[i * KL + kl];
-            for (int kr = 0; kr < KR; ++kr) {
-              const int orr = ro[j * KR + kr];
-              const int ot = ol + orr;
-              if (!(orr > 0 && ot <= G && d - ot >= 0)) continue;
-              ring_read_fwd(ring, invh, GR, Lp, d - ot, i - ol, d, m, x, y);
-              const float a = ng2 * m;
-              const float c = gcng * x;
-              const float e = gcng * y;
-              const float combo = (a + c) + e;
-              acc = acc + (combo * wl) * rwb[j * KR + kr];
-            }
-          }
-          M = md[i] * acc;
+    const int g1 = sg == 0 ? GR - 1 : sg - 1;
+    const int h1 = shs == 0 ? (H > 0 ? H - 1 : 0) : shs - 1;
+    finish(d - 1, g1, h1);
+
+    // raw (M, X, Y) of diagonal d-o at `lane` (1 <= o <= G)
+    auto rd = [&](int o, int lane) -> float4 {
+      int hs = shs - o;
+      hs += hs < 0 ? H : 0;
+      if constexpr (ALLSH) {
+        return hot[(size_t)hs * Lp + lane];
+      } else {
+        if (o < H) return hot[(size_t)hs * Lp + lane];
+        int gs = sg - o;
+        gs += gs < 0 ? GR : 0;
+        return gr[(size_t)gs * Lp + lane];
+      }
+    };
+    // the values of v times 1/s of diagonals d-n, d-n+1, ..., d-1, in
+    // that order
+    auto scale = [&](float4 v, int n) -> float4 {
+      if (n >= 3) {
+        int s = sg - n;
+        s += s < 0 ? GR : 0;
+        for (int t = n; t >= 3; --t) {
+          const float f = invh[s];
+          v.x = v.x * f; v.y = v.y * f; v.z = v.z * f;
+          s = s + 1 == GR ? 0 : s + 1;
         }
       }
-      g0[i] = M;
-      g0[MS + i] = X;
-      g0[2 * MS + i] = Y;
+      if (n >= 2) {
+        v.x = v.x * inv2; v.y = v.y * inv2; v.z = v.z * inv2;
+      }
+      v.x = v.x * inv1; v.y = v.y * inv1; v.z = v.z * inv1;
+      return v;
+    };
+    // the three sources' combinations of (M, X, Y) in the units of d-1
+    auto xterm = [&](float4 v) -> float {
+      return ((ext * v.y) + (gcgo * v.z)) + (nggo * v.x);
+    };
+    auto yterm = [&](float4 v) -> float {
+      return ((ext * v.z) + (gcgo * v.y)) + (nggo * v.x);
+    };
+    auto mterm = [&](float4 v) -> float {
+      return ((ng2 * v.x) + (gcng * v.y)) + (gcng * v.z);
+    };
+
+    float ms[RR];
+    if constexpr (ROWS > 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = tid + r * nt;
+        ms[r] = msn[r];
+        msn[r] = i < Lp && d + 1 < D
+                     ? __ldg(mb + (size_t)(d + 1) * Lp + i) : 0.0f;
+      }
+    }
+    float lmax = 0.0f;
+#pragma unroll
+    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
+      const int i = tid + r * nt;
+      const int j = d - i;
+      auto lof = [&](int k) -> int {
+        if constexpr (KLT > 0) return lo[r][k];
+        else return left_off(i, k);
+      };
+      auto lwf = [&](int k) -> float {
+        if constexpr (KLT > 0) return lw[r][k];
+        else return __ldg(lw_g + (size_t)i * KL + k);
+      };
+      auto rof = [&](int k) -> int { return rso[(size_t)j * KR + k]; };
+      auto rwf = [&](int k) -> float { return rsw[(size_t)j * KR + k]; };
+      float M = 0.0f, X = 0.0f, Y = 0.0f;
+      if (j >= 0 && j < R && i < L) {
+        // slot 0 of each side and the pair (0, 0), read together
+        // without a branch; a source that does not exist reads diagonal
+        // d-1 at lane i and contributes 0
+        const int ol0 = lof(0), or0 = rof(0);
+        const bool okA = ol0 > 0;
+        const bool okB = j > 0 && or0 > 0 && or0 <= G;
+        const bool okT = okA && okB && ol0 + or0 <= G;
+        const int oa = okA ? ol0 : 1, ob = okB ? or0 : 1;
+        const int ot = okT ? ol0 + or0 : 1;
+        const float4 va = rd(oa, okA ? i - ol0 : i);
+        const float4 vb = rd(ob, i);
+        const float4 vt = rd(ot, okT ? i - ol0 : i);
+        float A = 0.0f, Bs = 0.0f, T = 0.0f;
+        A = A + (okA ? xterm(scale(va, oa)) : 0.0f);
+#pragma unroll
+        for (int k = 1; k < KL; ++k) {
+          const int o = lof(k);
+          if (o > 0) A = A + xterm(scale(rd(o, i - o), o));
+        }
+        if (j > 0) {
+          Bs = Bs + (okB ? yterm(scale(vb, ob)) : 0.0f);
+#pragma unroll
+          for (int k = 1; k < KR; ++k) {
+            const int o = rof(k);
+            if (o > 0 && o <= G) Bs = Bs + yterm(scale(rd(o, i), o));
+          }
+          if (okT) T = T + (mterm(scale(vt, ot)) * lwf(0)) * rwf(0);
+#pragma unroll
+          for (int kl = 0; kl < KL; ++kl) {
+            const int ol = lof(kl);
+            if (ol <= 0) continue;
+            const float wl = lwf(kl);
+#pragma unroll
+            for (int kr = kl == 0 ? 1 : 0; kr < KR; ++kr) {
+              const int orr = rof(kr);
+              const int os = ol + orr;
+              if (!(orr > 0 && os <= G)) continue;
+              T = T + (mterm(scale(rd(os, i - ol), os)) * wl) * rwf(kr);
+            }
+          }
+        }
+        X = A;
+        Y = Bs;
+        if (i > 0 && j > 0) {
+          float msd;
+          if constexpr (ROWS > 0) msd = ms[r];
+          else msd = __ldg(mb + (size_t)d * Lp + i);
+          M = msd * T;
+        }
+      }
+      if (i < Lp) {
+        const float4 v = make_float4(M, X, Y, 0.0f);
+        if (H > 0) hot[(size_t)shs * Lp + i] = v;
+        if constexpr (!ALLSH) gr[(size_t)sg * Lp + i] = v;
+      }
+      if constexpr (ROWS > 0) {
+        Mr[r] = M; Xr[r] = X; Yr[r] = Y;
+      }
       lmax = fmaxf(lmax, fmaxf(fmaxf(M, X), Y));
     }
-    float sc = block_max(lmax, red);
-    if (!(sc > 0.0f)) sc = 1.0f;
-    const float inv = 1.0f / sc;
-    for (int i = threadIdx.x; i < Lp; i += nt) {
-      const float M = g0[i] * inv;
-      const float X = g0[MS + i] * inv;
-      const float Y = g0[2 * MS + i] * inv;
-      g0[i] = M;
-      g0[MS + i] = X;
-      g0[2 * MS + i] = Y;
-      pM[(size_t)d * Lp + i] = M;
-      pX[(size_t)d * Lp + i] = X;
-      pY[(size_t)d * Lp + i] = Y;
-    }
-    cumv = cumv + logf(sc);
-    if (threadIdx.x == 0) {
-      cb[d] = cumv;
-      invh[d % GR] = inv;
-    }
+    warp_max(lmax, wmax + 32 * (d & 1));
     __syncthreads();
+    sg = sg + 1 == GR ? 0 : sg + 1;
+    if (H > 0) shs = shs + 1 == H ? 0 : shs + 1;
   }
+  // diagonal D-1: its slots are the ones before the slot counters
+  finish(D - 1, sg == 0 ? GR - 1 : sg - 1,
+         shs == 0 ? (H > 0 ? H - 1 : 0) : shs - 1);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
+// the fan-in kernel, as fullprob_common.cuh's dispatch takes it
+struct FaninBuilds {
+  using Args = FaninArgs;
+  template <int KLT, int KRT, int ROWS, bool ALLSH, int MAXT>
+  static auto kernel() {
+    return fullprob_fwd_fanin_kernel<KLT, KRT, ROWS, ALLSH, MAXT>;
+  }
+};
 
 }  // namespace
 
+// The linear plan, as fullprob_fill.py::fwd_linear_plan computes it:
+// rows: lanes a thread (1, 2 or 4, with use_shared: the rows of two
+// diagonals, 16 bytes a lane, in smem bytes of shared memory; 0: any
+// count, three generations of rows in gbuf).
 extern "C" int fullprob_fwd_linear_launch(
     const void* ms2, const void* consts, const void* iscal, void* planes,
-    void* cum, void* gbuf, int B, int D, int Lp, int use_shared,
-    int threads, void* stream) {
+    void* cum, void* gbuf, int B, int D, int Lp, int rows, int use_shared,
+    int threads, int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (threads < 32 || threads > 1024 || threads % 32 ||
+      (rows > 0 && (long)rows * threads < Lp) || D < 2)
+    return (int)cudaErrorInvalidValue;
+  const float* m = (const float*)ms2;
+  const float* c = (const float*)consts;
+  const int* is = (const int*)iscal;
+  float* p = (float*)planes;
+  float* cu = (float*)cum;
+  float4* g = (float4*)gbuf;
   if (!use_shared) {
-    fullprob_fwd_linear_kernel<false><<<B, threads, 0, st>>>(
-        (const float*)ms2, (const float*)consts, (const int*)iscal,
-        (float*)planes, (float*)cum, (float*)gbuf, D, Lp);
+    if (rows != 0 || gbuf == nullptr) return (int)cudaErrorInvalidValue;
+    fullprob_fwd_linear_kernel<0><<<B, threads, 0, st>>>(m, c, is, p, cu, g,
+                                                         D, Lp);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)9 * Lp * sizeof(float);
-  cudaError_t err = allow_smem(fullprob_fwd_linear_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fullprob_fwd_linear_kernel<true><<<B, threads, smem, st>>>(
-      (const float*)ms2, (const float*)consts, (const int*)iscal,
-      (float*)planes, (float*)cum, (float*)gbuf, D, Lp);
-  return (int)cudaGetLastError();
+  if ((size_t)smem < (size_t)2 * (Lp + 1) * sizeof(float4))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (rows) {
+#define FWD_LIN(n)                                                          \
+  case n:                                                                   \
+    err = allow_smem(fullprob_fwd_linear_kernel<n>, (size_t)smem);          \
+    if (err != cudaSuccess) return (int)err;                                \
+    fullprob_fwd_linear_kernel<n><<<B, threads, smem, st>>>(m, c, is, p,    \
+                                                            cu, g, D, Lp);  \
+    return (int)cudaGetLastError();
+    FWD_LIN(1)
+    FWD_LIN(2)
+    FWD_LIN(4)
+#undef FWD_LIN
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// The fan-in plan, as fullprob_fill.py::fwd_fanin_plan computes it:
+// hot: diagonals kept in shared memory (G + 1: the whole ring; fewer:
+// all of them also in gring; 0: gring only); klt, krt: the templated
+// fan-in (0, 0: runtime K); rows: lanes a thread (2, or 4 up to a
+// templated K 2 x 2; 0: any count, runtime K only); threads: the
+// block; smem: dynamic shared bytes (warp maxima, hot ring of 16 bytes
+// a lane, 1/s ring and, with rtab, the right-slot table); rtab: 1 copies
+// the table to shared memory, 0 reads it from device memory.
 extern "C" int fullprob_fwd_fanin_launch(
     const void* msp, const void* loff, const void* lw, const void* roff,
-    const void* rw, const void* consts, const void* iscal,
-    const void* seed, void* planes, void* cum, void* gring, int B, int D,
-    int Lp, int Rr, int KL, int KR, int G, int Gs, int use_shared,
-    int threads, void* stream) {
-  (void)seed;
-  (void)Gs;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int GR = G + 1;
-  if (!use_shared) {
-    const size_t smem = (size_t)GR * sizeof(float);
-    cudaError_t err = allow_smem(fullprob_fwd_fanin_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fullprob_fwd_fanin_kernel<false><<<B, threads, smem, st>>>(
-        (const float*)msp, (const int*)loff, (const float*)lw,
-        (const int*)roff, (const float*)rw, (const float*)consts,
-        (const int*)iscal, (float*)planes, (float*)cum, (float*)gring, D,
-        Lp, Rr, KL, KR, G);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = ((size_t)GR + (size_t)3 * GR * Lp) * sizeof(float);
-  cudaError_t err = allow_smem(fullprob_fwd_fanin_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fullprob_fwd_fanin_kernel<true><<<B, threads, smem, st>>>(
-      (const float*)msp, (const int*)loff, (const float*)lw,
-      (const int*)roff, (const float*)rw, (const float*)consts,
-      (const int*)iscal, (float*)planes, (float*)cum, (float*)gring, D, Lp,
-      Rr, KL, KR, G);
-  return (int)cudaGetLastError();
+    const void* rw, const void* consts, const void* iscal, void* planes,
+    void* cum, void* gring, int B, int D, int Lp, int Rr, int KL, int KR,
+    int G, int hot, int rtab, int klt, int krt, int rows, int threads,
+    int smem, void* stream) {
+  FaninArgs a;
+  a.msp = (const float*)msp;
+  a.loff = (const int*)loff;
+  a.lw = (const float*)lw;
+  a.roff = (const int*)roff;
+  a.rw = (const float*)rw;
+  a.consts = (const float*)consts;
+  a.iscal = (const int*)iscal;
+  a.planes = (float*)planes;
+  a.cum = (float*)cum;
+  a.gring = (float4*)gring;
+  a.D = D;
+  a.Lp = Lp;
+  a.Rr = Rr;
+  a.KL = KL;
+  a.KR = KR;
+  a.G = G;
+  a.H = hot;
+  a.rtab = rtab != 0;
+  if (G < 1 || D < 2 || hot < 0 || hot > G + 1 ||
+      (hot <= G && gring == nullptr) || threads < 32 || threads % 32 ||
+      (rows > 0 && (long)rows * threads < Lp) ||
+      (size_t)smem < ((size_t)64 + G + 1 + (size_t)4 * hot * Lp +
+                      (a.rtab ? (size_t)2 * Rr * KR : 0)) * 4)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<FaninBuilds>(a, klt, krt, B, rows, threads,
+                               (size_t)smem, (cudaStream_t)stream);
 }

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc
 for Hopper (sm_90a) into its own shared library under the checkout's
 ignored `build/kernels/` directory, at first use and again whenever the
-source is newer than the library. The library is loaded with ctypes;
+source, or a header of csrc/ that it includes, is newer than the
+library. The library is loaded with ctypes;
 pointers and the stream travel as c_void_p. Nothing here runs when a
 module is imported, so the CPU tests (no nvcc, no card) import freely.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -49,10 +51,20 @@ def _paths(name: str):
             os.path.join(BUILD_DIR, "lib%s.so" % name))
 
 
+def _inputs(path: str) -> list:
+    """`path` and the csrc/ headers it includes ("..."), in turn."""
+    with open(path) as f:
+        names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+    out = [path]
+    for n in names:
+        out += _inputs(os.path.join(CSRC, n))
+    return out
+
+
 def _stale(name: str) -> bool:
     src, so = _paths(name)
-    return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src))
+    return (not os.path.exists(so) or os.path.getmtime(so)
+            < max(os.path.getmtime(p) for p in _inputs(src)))
 
 
 def _start(name: str):

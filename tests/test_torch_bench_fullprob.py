@@ -1,10 +1,12 @@
 """The kernel-D/E bench (pagan2_tpu_torch/tools/bench_fullprob.py) on
 the CPU at its small size: its --full-probability runs and its 454
-batch give a call of each entry point, kernel E's calls name their
-launch plan, and a second run is held bit for bit against the outputs
+batch give a call of each entry point, kernels D's and E's calls name
+their launch plans, and a second run is held bit for bit against the outputs
 the first one saved."""
 import pytest
+import torch
 
+from pagan2_tpu_torch.align import fullprob_fill as ff
 from pagan2_tpu_torch.tools import bench_fullprob
 
 
@@ -23,7 +25,8 @@ def test_bench_fullprob_runs_and_checks_on_cpu(saved):
     plans = {r["entry"]: r["plan"] for r in first}
     assert "threads x 1 rows" in plans["fullprob_bwd"]
     assert "templated" in plans["fullprob_bwd_fanin"]
-    assert plans["fullprob_fwd"] == plans["fullprob_fwd_fanin"] == ""
+    assert "threads x 1 rows, buffers shared" in plans["fullprob_fwd"]
+    assert "K 3/3 (templated)" in plans["fullprob_fwd_fanin"]
     again = bench_fullprob.main(["--device", "cpu", "--small",
                                  "--check", str(out)])
     key = ("source", "entry", "B", "D", "Lp", "K", "G")
@@ -35,8 +38,8 @@ def test_bench_fullprob_runs_and_checks_on_cpu(saved):
 def test_bench_fullprob_times_the_wide_and_454_fanin_shapes(saved):
     """Past the main family: the 6-leaf family's fan-in calls (both
     entry points, wider than the 4-leaf family's) and the 454 batch's
-    pairs (backward edges K 3/3, forward K 2/2), each with kernel E's
-    plan."""
+    pairs (backward edges K 3/3, forward K 2/2), each with kernel D's
+    or E's plan."""
     _out, first = saved
     by = {}
     for r in first:
@@ -48,5 +51,48 @@ def test_bench_fullprob_times_the_wide_and_454_fanin_shapes(saved):
     b454 = by["454"]
     assert [(r["entry"], r["B"], r["K"]) for r in b454] == [
         ("fullprob_fwd_fanin", 2, "3/3"), ("fullprob_bwd_fanin", 2, "2/2")]
-    assert all(r["plan"].startswith("K ") for r in wide + b454
-               if r["entry"] == "fullprob_bwd_fanin")
+    assert all(r["plan"].startswith("K ") for r in wide + b454)
+
+
+def _call(Lp, K=None):
+    """Tensors shaped as one of kernel D's calls (values unused)."""
+    if K is None:
+        return "fullprob_fwd", dict(ms2=torch.zeros(1, 8, Lp))
+    return "fullprob_fwd_fanin", dict(
+        loff=torch.zeros(1, Lp, K, dtype=torch.int32),
+        roff=torch.zeros(1, 200, K, dtype=torch.int32), G=26)
+
+
+@pytest.mark.parametrize("Lp,K,builds", [
+    (512, None, 4), (544, None, 4), (1024, None, 4), (1536, None, 3),
+    (2016, None, 3), (2112, None, 2),
+    (1536, 2, 4), (2016, 2, 2), (2016, 1, 2), (2112, 2, 1), (2048, 3, 1),
+    (768, 3, 3)])
+def test_lane_plans_list_every_build_once_the_plans_first(Lp, K, builds):
+    """--lanes: kernel D's lane builds that can take a call, the plan's
+    own first, each once, each with enough lanes and a block its build
+    takes (linear up to 1,024 threads; fan-in two lanes up to 768, 384
+    past a templated K 2 x 2, four up to 512 and only up to K 2 x 2,
+    any count runtime K only)."""
+    name, kw = _call(Lp, K)
+    got = bench_fullprob.lane_plans(ff, name, kw)
+    plans = [p for _t, p in got]
+    own = ff.fwd_linear_plan(Lp) if K is None else \
+        ff.fwd_fanin_plan(Lp, 26, K, K, 200)
+    assert plans[0] == own and len(plans) == builds
+    assert len({t for t, _p in got}) == builds
+    for p in plans:
+        rows = p["rows"] or -(-Lp // p["threads"])
+        assert rows * p["threads"] >= Lp and p["threads"] % 32 == 0
+        assert p["threads"] <= 1024
+        if K is None:
+            assert p["shared"] == (p["rows"] > 0)
+            continue
+        assert (p["KL"], p["KR"]) in ((0, 0), (K, K))
+        assert p["placement"] == own["placement"]
+        if p["rows"] == 4:
+            assert p["KL"] and K <= 2 and p["threads"] <= 512
+        elif p["rows"] == 2:
+            assert p["threads"] <= (768 if K <= 2 or not p["KL"] else 384)
+        else:
+            assert p["KL"] == 0

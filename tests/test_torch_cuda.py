@@ -474,7 +474,7 @@ def _same_fills(out, ref):
 @pytest.mark.parametrize("sizes", [[70], [300, 257, 129], [4200]])
 def test_fullprob_linear_kernels_match_plain(cuda, sizes):
     """Kernels D and E, linear entry points: one pair, a ragged batch,
-    and a left side past SHARED_ROWS (state in global scratch)."""
+    and a left side past 4096 lanes (row buffers in global scratch)."""
     rng = np.random.default_rng(len(sizes))
     pairs = [_related(rng, n) for n in sizes]
     if sizes == [4200]:
@@ -482,7 +482,8 @@ def test_fullprob_linear_kernels_match_plain(cuda, sizes):
                                                 alph.DNA))]
     inps = [fp.linear_fullprob_inputs(*p, MODEL) for p in pairs]
     args = ff.linear_batch_args(inps, cuda)
-    assert (args["ms2"].shape[2] > ff.SHARED_ROWS) == (sizes == [4200])
+    assert (not ff.fwd_linear_plan(args["ms2"].shape[2])["shared"]) \
+        == (sizes == [4200])
     n0 = dict(ff.LAUNCHES)
     fwd = ff.fullprob_fwd(**args)
     bwd = ff.fullprob_bwd(**args)
@@ -498,7 +499,9 @@ def test_fullprob_linear_kernels_match_plain(cuda, sizes):
 def test_fullprob_fanin_kernels_match_plain(cuda, case):
     """Kernels D and E, fan-in entry points: homopolymer graphs (ring in
     shared memory), ancestors with a 12-bp deletion edge (deep ring),
-    and 1,600-site graphs whose ring lives in global scratch."""
+    and 1,600-site graphs whose ring does not fit shared memory (kernel
+    D keeps its newest diagonals there, all of them in global
+    scratch)."""
     rng = np.random.default_rng(5)
     if case == "ancestors":
         base = rng.choice(list("ACGT"), size=200)
@@ -522,8 +525,10 @@ def test_fullprob_fanin_kernels_match_plain(cuda, case):
     fkw, bkw = ff.fanin_batch_args([inp], cuda)
     if case == "ancestors":
         assert fkw["G"] >= 14
-    ring = 3 * (fkw["G"] + 1) * fkw["msp"].shape[2] * 4
-    assert (ring > ff.SHARED_RING_BYTES) == (case == "wide")
+    lo, ro = fkw["loff"], fkw["roff"]
+    plan = ff.fwd_fanin_plan(lo.shape[1], fkw["G"], lo.shape[2],
+                             ro.shape[2], ro.shape[1])
+    assert (plan["placement"] != "shared") == (case == "wide")
     n0 = dict(ff.LAUNCHES)
     fwd = ff.fullprob_fwd_fanin(**fkw)
     bwd = ff.fullprob_bwd_fanin(**bkw)
@@ -556,7 +561,7 @@ def _bwd_shape_case(case, rng):
     """(entry point, its keywords, expected plan entries) of one shape
     class of kernel E."""
     if case.startswith("linear"):
-        sizes = {"linear_rows1": [300], "linear_rows2": [1100, 700],
+        sizes = {"linear_rows1": [100], "linear_rows2": [1100, 700],
                  "linear_rows4": [3000], "linear_global": [4300],
                  "linear_ragged": [520, 90, 260]}[case]
         pairs = [(build_leaf_graph("".join(rng.choice(list("ACGT"), n)),
@@ -699,6 +704,170 @@ def test_fullprob_bwd_takes_only_plans_it_has_built(cuda, monkeypatch,
     torch.cuda.synchronize()
     assert ff.LAUNCHES[name] == n0 + 1
     assert float(out[0].max()) == 1.0
+
+def _bwd_graph(rng, n, k=1):
+    """A leaf graph of n sites whose every 7th site from k + 1 on also
+    has backward edges from -2 .. -k (backward fan-in k, the slots
+    kernel D reads)."""
+    g = build_leaf_graph("".join(rng.choice(list("ACGT"), n)), alph.DNA)
+    for i in range(k + 1, n + 1, 7):
+        for o in range(2, k + 1):
+            g.add_edge(i - o, i, 0.05 * o)
+    return g
+
+
+def _fwd_shape_case(case, rng):
+    """(entry point, its keywords, expected plan entries) of one shape
+    class of kernel D."""
+    if case.startswith("linear"):
+        sizes = {"linear_rows1": [100], "linear_rows2": [1100, 700],
+                 "linear_rows4": [3000], "linear_global": [4300],
+                 "linear_ragged": [520, 90, 260]}[case]
+        pairs = [(build_leaf_graph("".join(rng.choice(list("ACGT"), n)),
+                                   alph.DNA),
+                  build_leaf_graph("".join(rng.choice(list("ACGT"),
+                                                      min(n, 400))),
+                                   alph.DNA)) for n in sizes]
+        kw = ff.linear_batch_args([fp.linear_fullprob_inputs(*p, MODEL)
+                                   for p in pairs], "cuda")
+        want = {"linear_rows1": dict(rows=1), "linear_rows2": dict(rows=2),
+                "linear_rows4": dict(rows=4),
+                "linear_global": dict(rows=0, shared=False),
+                "linear_ragged": dict(rows=2, shared=True)}[case]
+        return "linear", kw, want
+    G = None
+    if case.startswith("k"):                     # "k<KL>x<KR>"
+        kl, kr = (int(v) for v in case[1:].split("x"))
+        g = [(_bwd_graph(rng, 90, kl), _bwd_graph(rng, 80, kr))]
+        templ = max(kl, kr) <= ff.TEMPLATE_K
+        want = dict(KL=kl if templ else 0, KR=kr if templ else 0,
+                    placement="shared", rtab=True)
+    elif case == "ring_hot":                     # H < G + 1
+        g = [(_bwd_graph(rng, 1100, 2), _bwd_graph(rng, 60, 2))]
+        G, want = 40, dict(placement="hot", rows=2)
+    elif case == "ring_global":                  # no diagonal on chip
+        g = [(_bwd_graph(rng, 6600, 2), _bwd_graph(rng, 30, 1))]
+        want = dict(placement="global", hot=0, rows=0)
+    elif case == "rows4":                        # K 2 x 2 past 1536 lanes
+        g = [(_bwd_graph(rng, 1800, 2), _bwd_graph(rng, 50, 2))]
+        want = dict(rows=4, KL=2, KR=2)
+    elif case == "rows4_hot":                    # the same, a hot split
+        g = [(_bwd_graph(rng, 1800, 2), _bwd_graph(rng, 50, 2))]
+        G, want = 30, dict(rows=4, KL=2, KR=2, placement="hot")
+    elif case == "rows0_k3":                     # past 768 lanes at K 3
+        g = [(_bwd_graph(rng, 1800, 3), _bwd_graph(rng, 50, 2))]
+        want = dict(rows=0, KL=0, KR=0)
+    elif case == "rows0_hot":                    # the same, a hot split
+        g = [(_bwd_graph(rng, 1800, 3), _bwd_graph(rng, 50, 2))]
+        G, want = 30, dict(rows=0, placement="hot")
+    elif case == "rows0_shared":                 # runtime lanes, whole ring
+        g = [(_bwd_graph(rng, 2500, 1), _bwd_graph(rng, 40, 1))]
+        want = dict(rows=0, placement="shared")
+    elif case == "rtab_device":                  # right slots too many
+        g = [(_bwd_graph(rng, 40, 2), _bwd_graph(rng, 15000, 2))]
+        want = dict(rtab=False, KL=2, KR=2)
+    elif case == "ragged_batch":
+        g = [(_bwd_graph(rng, 200, 3), _bwd_graph(rng, 150, 2)),
+             (_bwd_graph(rng, 130, 1), _bwd_graph(rng, 190, 3)),
+             (_bwd_graph(rng, 60, 2), _bwd_graph(rng, 70, 1))]
+        want = dict(KL=3, KR=3)
+    elif case == "deep_ring":
+        g = [(_fwd_graph(rng, 300, 2, skip=44), _bwd_graph(rng, 260, 2))]
+        want = {}
+    elif case == "ring_g1":                      # G = 1: one offset
+        g = [(_bwd_graph(rng, 120, 1), _bwd_graph(rng, 100, 1))]
+        G, want = 1, dict(placement="shared", hot=2)
+    elif case == "offsets_past_g":
+        g = [(_bwd_graph(rng, 150, 4), _bwd_graph(rng, 140, 3))]
+        G, want = 3, dict(KL=4, KR=3)
+    else:
+        raise ValueError(case)
+    kw, _b = ff.fanin_batch_args([fp.fanin_fullprob_inputs(a, b, MODEL)
+                                  for a, b in g], "cuda", G=G)
+    if case == "deep_ring":
+        assert kw["G"] >= 42
+    return "fanin", kw, want
+
+
+FWD_SHAPES = (["linear_rows1", "linear_rows2", "linear_rows4",
+               "linear_global", "linear_ragged", "ring_hot", "ring_global",
+               "rows4", "rows4_hot", "rows0_k3", "rows0_hot",
+               "rows0_shared", "rtab_device", "ragged_batch", "deep_ring",
+               "ring_g1", "offsets_past_g", "k6x2"]
+              + ["k%dx%d" % (kl, kr) for kl in range(1, 5)
+                 for kr in range(1, 5)])
+
+
+@pytest.mark.parametrize("case", FWD_SHAPES)
+def test_fullprob_fwd_shape_classes(cuda, case):
+    """Kernel D against its plain version on each shape class of its
+    launch plans: every templated backward-edge fan-in and the runtime-K
+    build, each ring placement (shared, a hot split, global), one, two
+    and four lanes a thread (fan-in two, and four up to K 2 x 2) and the
+    build for any count, each of them with the ring whole and split, the
+    right-slot table in shared and in device memory, linear buffers
+    shared and global, ragged batches, a deep ring, G = 1 and offsets
+    past G; planes bit-equal, cum within D * eps * max(1, |cum|)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    kind, kw, want = _fwd_shape_case(case, rng)
+    if kind == "linear":
+        plan = ff.fwd_linear_plan(kw["ms2"].shape[2])
+        fn, plain, name = ff.fullprob_fwd, ff.fullprob_fwd_plain, \
+            "fullprob_fwd"
+    else:
+        lo, ro = kw["loff"], kw["roff"]
+        plan = ff.fwd_fanin_plan(lo.shape[1], kw["G"], lo.shape[2],
+                                 ro.shape[2], ro.shape[1])
+        fn, plain, name = ff.fullprob_fwd_fanin, \
+            ff.fullprob_fwd_fanin_plain, "fullprob_fwd_fanin"
+    assert {k: plan[k] for k in want} == want
+    n0 = ff.LAUNCHES[name]
+    out = fn(**kw)
+    ref = plain(**kw)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES[name] == n0 + 1
+    _same_fills(out, ref)
+    assert float(out[0].max()) == 1.0
+
+
+@pytest.mark.parametrize("entry, change", [
+    ("fanin", dict(rows=3)),
+    ("fanin", dict(rows=4, threads=384, KL=0, KR=0)),
+    ("fanin", dict(KL=5, KR=5)),
+    ("fanin", dict(threads=1024)), ("fanin", dict(rows=0)),
+    ("linear", dict(rows=3)), ("linear", dict(shared=False))])
+def test_fullprob_fwd_takes_only_plans_it_has_built(cuda, monkeypatch,
+                                                    entry, change):
+    """Kernel D refuses a plan it has no build for (three lanes a
+    thread; four lanes with runtime K; a fan-in past 4 x 4 as a
+    template; 1024 threads of two lanes at K 2 x 2; the build for any
+    lane count with a templated fan-in; linear buffers in device memory
+    with lanes in registers): the wrapper raises and counts no launch,
+    and the next launch is not disturbed."""
+    rng = np.random.default_rng(3)
+    if entry == "fanin":
+        kw, _b = ff.fanin_batch_args([fp.fanin_fullprob_inputs(
+            _bwd_graph(rng, 1500, 2), _bwd_graph(rng, 60, 2), MODEL)],
+            "cuda")
+        fn, name, planner = ff.fullprob_fwd_fanin, "fullprob_fwd_fanin", \
+            "fwd_fanin_plan"
+    else:
+        kw = ff.linear_batch_args([fp.linear_fullprob_inputs(
+            *_related(rng, 1500), MODEL)], "cuda")
+        fn, name, planner = ff.fullprob_fwd, "fullprob_fwd", \
+            "fwd_linear_plan"
+    plan = getattr(ff, planner)
+    with monkeypatch.context() as m:
+        m.setattr(ff, planner, lambda *a: dict(plan(*a), **change))
+        n0 = ff.LAUNCHES[name]
+        with pytest.raises(RuntimeError, match="fullprob_fwd.* launch"):
+            fn(**kw)
+        assert ff.LAUNCHES[name] == n0
+    out = fn(**kw)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES[name] == n0 + 1
+    assert float(out[0].max()) == 1.0
+
 
 def _same_probe(out, ref, codes=True):
     if codes:

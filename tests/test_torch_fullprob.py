@@ -525,9 +525,9 @@ def test_bwd_fanin_plan(key, want):
         + 12 * Lp * p["hot"] <= ff.SHARED_BYTES
 
 
-@pytest.mark.parametrize("K", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 3)])
-def test_bwd_fanin_plan_limits(K):
-    """Over a grid of lane counts, ring depths and right sides: shared
+def _check_fanin_plan_limits(planner, K, cell):
+    """Over a grid of lane counts, ring depths and right sides (`cell`:
+    ring bytes a lane and diagonal): shared
     bytes within the H100's 227 KB; the right-slot table on chip exactly
     when it fits beside MIN_HOT ring diagonals (or alone, where those do
     not fit); the whole ring on chip
@@ -542,24 +542,24 @@ def test_bwd_fanin_plan_limits(K):
                9000):
         for G in (1, 2, 6, 26, 64):
             for Rr in (8, 1536, 20000):
-                p = ff.bwd_fanin_plan(Lp, G, KL, KR, Rr)
+                p = planner(Lp, G, KL, KR, Rr)
                 GR, table = G + 1, 8 * KR * Rr
                 fixed = 4 * (64 + GR) + table * p["rtab"]
-                assert p["smem"] == fixed + 12 * Lp * p["hot"] \
+                assert p["smem"] == fixed + cell * Lp * p["hot"] \
                     <= ff.SHARED_BYTES
-                least = 12 * Lp * min(GR, ff.MIN_HOT)
+                least = cell * Lp * min(GR, ff.MIN_HOT)
                 if 4 * (64 + GR) + least > ff.SHARED_BYTES:
                     least = 0
                 assert p["rtab"] == (4 * (64 + GR) + table + least
                                      <= ff.SHARED_BYTES)
-                fits = fixed + 12 * Lp * GR <= ff.SHARED_BYTES
+                fits = fixed + cell * Lp * GR <= ff.SHARED_BYTES
                 assert (p["placement"] == "shared") == fits
                 if fits:
                     assert p["hot"] == GR
                 elif p["hot"]:
                     assert p["placement"] == "hot"
                     assert ff.MIN_HOT <= p["hot"] <= G
-                    assert fixed + 12 * Lp * (p["hot"] + 1) \
+                    assert fixed + cell * Lp * (p["hot"] + 1) \
                         > ff.SHARED_BYTES
                 else:
                     assert p["placement"] == "global"
@@ -578,6 +578,14 @@ def test_bwd_fanin_plan_limits(K):
                     assert t == min(1024, -(-Lp // 32) * 32)
 
 
+@pytest.mark.parametrize("K", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 3)])
+def test_bwd_fanin_plan_limits(K):
+    """Kernel E's fan-in plans keep the limits of _check_fanin_plan_limits
+    (K: its forward-edge fan-in; its ring holds q, X and Y, 12 bytes a
+    lane and diagonal)."""
+    _check_fanin_plan_limits(ff.bwd_fanin_plan, K, 12)
+
+
 @pytest.mark.parametrize("Lp, want", [
     (32, (1, 32, True)), (512, (1, 512, True)), (513, (2, 288, True)),
     (1536, (2, 768, True)), (2048, (2, 1024, True)),
@@ -587,6 +595,61 @@ def test_bwd_linear_plan(Lp, want):
     p = ff.bwd_linear_plan(Lp)
     assert (p["rows"], p["threads"], p["shared"]) == want
     assert p["smem"] == (16 * (Lp + 1) if p["shared"] else 0)
+    assert p["smem"] <= ff.SHARED_BYTES
+    if p["rows"]:
+        assert p["threads"] * p["rows"] >= Lp
+
+
+# ----------------------------------------------------------------------
+# kernel D's launch plans (plain Python; the kernel refuses any other)
+@pytest.mark.parametrize("key, want", [
+    # the --full-probability run's fan-in calls: 16 x 1535 ancestors,
+    # backward edges K 2/2
+    ((1536, 26, 2, 2, 1536), (2, 2, 2, 768, "hot", 8, True)),
+    ((768, 14, 2, 2, 768), (2, 2, 2, 384, "shared", 15, True)),
+    ((768, 26, 3, 3, 768), (3, 3, 2, 384, "hot", 17, True)),
+    # 454 pairs of 2047 bp (backward K 3/3: runtime K, any lane count)
+    # and a 6 x 2000 family's ancestors (four lanes a thread)
+    ((2048, 6, 3, 3, 2048), (0, 0, 0, 1024, "hot", 5, True)),
+    ((2016, 26, 2, 2, 2001), (2, 2, 4, 512, "hot", 6, True)),
+    # a hot split at a deep ring, runtime K of two lanes, G = 1
+    ((1100, 40, 2, 2, 60), (2, 2, 2, 576, "hot", 13, True)),
+    ((96, 8, 6, 2, 80), (0, 0, 2, 64, "shared", 9, True)),
+    ((3000, 1, 1, 1, 100), (0, 0, 0, 1024, "shared", 2, True)),
+    # no diagonal on chip; a right-slot table too large for it
+    ((6624, 3, 1, 1, 31), (0, 0, 0, 1024, "global", 0, True)),
+    ((64, 4, 2, 2, 15001), (2, 2, 2, 32, "shared", 5, False))])
+def test_fwd_fanin_plan(key, want):
+    p = ff.fwd_fanin_plan(*key)
+    assert (p["KL"], p["KR"], p["rows"], p["threads"], p["placement"],
+            p["hot"], p["rtab"]) == want
+    Lp, G, KL, KR, Rr = key
+    assert p["smem"] == 4 * (64 + G + 1) + 8 * KR * Rr * p["rtab"] \
+        + 16 * Lp * p["hot"] <= ff.SHARED_BYTES
+
+
+@pytest.mark.parametrize("K", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 3)])
+def test_fwd_fanin_plan_limits(K):
+    """Kernel D's fan-in plans keep the limits of _check_fanin_plan_limits
+    (K: its backward-edge fan-in; its ring holds raw (M, X, Y, 0), 16
+    bytes a lane and diagonal)."""
+    _check_fanin_plan_limits(ff.fwd_fanin_plan, K, 16)
+
+
+@pytest.mark.parametrize("Lp, want", [
+    (32, (1, 32, True)), (512, (2, 256, True)), (513, (2, 288, True)),
+    (1536, (2, 768, True)), (2048, (2, 1024, True)),
+    (4096, (4, 1024, True)), (4097, (0, 1024, False)),
+    (20000, (0, 1024, False)), (128, (1, 128, True)),
+    (129, (2, 96, True))])
+def test_fwd_linear_plan(Lp, want):
+    """Kernel D's linear plan: one lane a thread up to 128 lanes (E's up
+    to 512), two up to 2048, four up to 4096; the raw (M, X, Y, 0) rows
+    of two diagonals (32 (Lp + 1) bytes) in shared memory, or three
+    generations in a global buffer for the build for any count."""
+    p = ff.fwd_linear_plan(Lp)
+    assert (p["rows"], p["threads"], p["shared"]) == want
+    assert p["smem"] == (32 * (Lp + 1) if p["shared"] else 0)
     assert p["smem"] <= ff.SHARED_BYTES
     if p["rows"]:
         assert p["threads"] * p["rows"] >= Lp
