@@ -10,8 +10,11 @@ full-probability and sampling path end to end through the port's CLI.
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build        nvcc for sm_90a, one process per source, started together
   kernel_linear  kernel A vs linear_fill_plain: 8 jobs at 2047 x 2047, a
-               ragged banded batch and 2 jobs past 4096 rows; codes and
-               corner scores bit-equal
+               ragged banded batch and 2 jobs past 4096 rows
+               (tools/bench_linear_calls.py's linear_batches), 4 x 120 and
+               2 x 3,000 against 700; codes and corner scores bit-equal,
+               each batch with its launch plan and us per diagonal, every
+               build of the plan (1, 2 and 4 rows a thread, global) met
   kernel_fanin   kernel B vs fanin_fill_plain: 454-style K3/3 graphs at
                16 x 2047 (kernel timed), over-cap ancestor graphs, a
                windowed case; codes and snapshots bit-equal
@@ -82,9 +85,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                on the whole megabase call; kernels D and E per entry
                point on the calls of the --full-probability run, planes
                bit-equal, kernel E with its launch plans and us per
-               diagonal; kernel B on every call of the main path and
-               of the --full-probability run, bit-equal, with its
-               launch plan and us per diagonal)
+               diagonal; kernels A and B on every call of the main path
+               and of the --full-probability run, bit-equal, with their
+               launch plans and us per diagonal)
   trace        the main path and the --full-probability path once more
                under torch.profiler: the device's busy share and time by
                kernel
@@ -230,6 +233,9 @@ def main():
         plan_text as banded_plan_text
     from pagan2_tpu_torch.tools.bench_fullprob import (fanin_plan_text,
                                                        plan_text)
+    from pagan2_tpu_torch.tools.bench_linear_calls import (
+        batch_args as linear_batch_args, linear_batches,
+        plan_text as linear_plan_text)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -254,11 +260,10 @@ def main():
     rng = np.random.default_rng(11)
 
     # ---- kernel_linear ----
+    lin_builds = set()
+
     def linear_check(inps, bands, what):
-        Lp = VL.batch_rows(inps)
-        jobs = [VL.linear_job_arrays(VL._add_scalar_params(x), Lp, band=b)
-                for x, b in zip(inps, bands)]
-        args = VL.linear_batch_args(jobs, dev)
+        args = linear_batch_args(VL, inps, bands, dev)
         codes, corner = VL.linear_fill(**args)
         pc, pk = VL.linear_fill_plain(**args)
         torch.cuda.synchronize()
@@ -271,38 +276,39 @@ def main():
                  % (what, corner.tolist(), pk.tolist()))
         if not bool(torch.isfinite(corner).any(dim=1).all()):
             fail("kernel_linear %s: a job never reached its corner" % what)
-        log("kernel_linear %s: %d jobs, Lp %d, D %d: bit-equal"
-            % (what, len(inps), Lp, args["ms"].shape[1]))
+        B, D, Lp = args["ms"].shape
+        lin_builds.add(VL.linear_plan(Lp)["rows"])
+        ms = cuda_ms(lambda: VL.linear_fill(**args), 3)
+        log("kernel_linear %s: %d jobs, Lp %d, D %d: bit-equal; %s, %.3f "
+            "ms, %.3f us per diagonal" % (what, B, Lp, D,
+                                          linear_plan_text(VL, Lp), ms,
+                                          1e3 * ms / D))
         return max_abs_err(corner, pk)
 
     lin_err = 0.0
-    inps = []
-    for _ in range(8):
-        base = rng.choice(list("ACGT"), size=2047)
-        g1 = build_leaf_graph("".join(base), alph.DNA)
-        g2 = build_leaf_graph(mutate(rng, base), alph.DNA)
-        inps.append(prepare_sheared(g1, g2, model, settings, np.float32))
-    lin_err = max(lin_err, linear_check(inps, [None] * 8, "8x2047"))
-    inps, bands = [], []
-    for n in (300, 777, 1200, 1531):
-        base = rng.choice(list("ACGT"), size=n)
-        g1 = build_leaf_graph("".join(base), alph.DNA)
-        g2 = build_leaf_graph(mutate(rng, base)[: n - n // 17], alph.DNA)
-        x = prepare_sheared(g1, g2, model, settings, np.float32)
-        c = np.arange(x["L"]) * x["R"] // x["L"]
-        bands.append((np.maximum(c - 40, 0),
-                      np.minimum(c + 40, x["R"] - 1)))
-        inps.append(x)
-    lin_err = max(lin_err, linear_check(inps, bands, "ragged banded"))
-    # past 4096 rows the three diagonals live in global scratch
-    inps = []
-    for n, m in ((5000, 1900), (4500, 2400)):
-        base = rng.choice(list("ACGT"), size=n)
-        g1 = build_leaf_graph("".join(base), alph.DNA)
-        g2 = build_leaf_graph(mutate(rng, base[n // 3: n // 3 + m]),
-                              alph.DNA)
-        inps.append(prepare_sheared(g1, g2, model, settings, np.float32))
-    lin_err = max(lin_err, linear_check(inps, [None] * 2, "5000 rows"))
+    # 8 x 2047, a ragged banded batch and 2 jobs past 4096 rows (the
+    # global build), drawn from rng as before
+    for what, inps, bands in linear_batches(rng, model, settings):
+        lin_err = max(lin_err, linear_check(inps, bands, what))
+    # the plan's other builds, from a generator of their own: one row a
+    # thread (4 x 120) and four (2 x 3,000 against 700)
+    rng_l = np.random.default_rng(13)
+    for what, shape in (("4x120", [(120, 120)] * 4),
+                        ("2x3000", [(3000, 700)] * 2)):
+        inps = []
+        for n, m in shape:
+            base = rng_l.choice(list("ACGT"), size=n)
+            inps.append(VL._add_scalar_params(prepare_sheared(
+                build_leaf_graph("".join(base), alph.DNA),
+                build_leaf_graph(mutate(rng_l, base[:m]), alph.DNA), model,
+                settings, np.float32)))
+        lin_err = max(lin_err, linear_check(inps, [None] * len(inps),
+                                            what))
+    if lin_builds != {r for r, _top in VL.LANES} | {0}:
+        fail("kernel_linear: the batches met the builds %s of kernel A, "
+             "not every one" % sorted(lin_builds))
+    log("kernel_linear: every build of kernel A met (rows a thread %s)"
+        % sorted(lin_builds))
 
     # ---- kernel_fanin ----
     def fanin_check(inps, what, timed=False, **kw):
@@ -1148,7 +1154,10 @@ def main():
                 banded_plan_text(VB, kw), "" if ms is None else
                 ", %.3f us per diagonal" % (1e3 * ms / kw["ms"].shape[0]))
         if "ms" in kw:
-            return "B, D, Lp = %s" % (tuple(kw["ms"].shape),)
+            return "B, D, Lp = %s; %s%s" % (
+                tuple(kw["ms"].shape),
+                linear_plan_text(VL, kw["ms"].shape[2]), "" if ms is None
+                else ", %.3f us per diagonal" % (1e3 * ms / kw["ms"].shape[1]))
         B, D = kw["ilo"].shape
         return "B %d, D %d, W %d, G %d, %s%s" % (
             B, D, kw["W"], kw["G"], fanin_launch(kw),
@@ -1200,7 +1209,15 @@ def main():
     # run, each held bit-equal to its plain version
     fan_fp_t = time_kernel(rec_fp["fanin"], VF.fanin_fill,
                            VF.fanin_fill_plain, fanin_bound, same_floats, 3)
-    lin_err = max(lin_err, lin_t[4])
+    # kernel A also on the call of the --full-probability run, held
+    # bit-equal to its plain version
+    lin_fp_t = time_kernel(rec_fp["linear"], VL.linear_fill,
+                           VL.linear_fill_plain, linear_bound, same_floats,
+                           5)
+    log("timing linear_fill: the %d call(s) of the fullprob_path run take "
+        "%.3f ms a launch, bit-equal" % (len(rec_fp["linear"]),
+                                         lin_fp_t[0]))
+    lin_err = max(lin_err, lin_t[4], lin_fp_t[4])
     fan_err = max(fan_err, fan_t[4], fan_fp_t[4])
     fan_fp_ms = fan_fp_t[7]
     log("timing fanin_fill: the %d full-width calls of the fullprob_path "
@@ -1344,7 +1361,12 @@ def main():
          "replaces": "pagan2_tpu/align/viterbi_pallas.py:58",
          "launches": counts["linear"], "max_abs_err": lin_err,
          "ms": lin_t[0], "plain_ms": lin_t[1], "bound_ms": lin_t[2],
-         "bound_by": lin_t[3], "library_ms": None},
+         "bound_by": lin_t[3], "library_ms": None,
+         "plans": [linear_plan_text(VL, kw["ms"].shape[2])
+                   for kw in recorded["linear"]],
+         "us_per_diagonal": [1e3 * ms / kw["ms"].shape[1] for ms, kw in
+                             zip(lin_t[7], recorded["linear"])],
+         "fullprob_calls_ms": lin_fp_t[7]},
         {"name": "viterbi_fanin", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_fanin.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_fanin.py:140",

@@ -38,7 +38,7 @@ import torch
 
 from .. import kernels
 from ..kernels import SHARED_BYTES
-from .viterbi_linear import batch_rows, shear_table
+from .viterbi_linear import _block, batch_rows, shear_table
 
 # kernel launches and plain-version calls made by each wrapper
 LAUNCHES = {"fullprob_fwd": 0, "fullprob_bwd": 0,
@@ -201,12 +201,6 @@ def _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G, seed=None):
     if G < 1:
         raise ValueError("G must be positive (G=%d)" % G)
     return B, D, Lp, Rr, KL, KR
-
-
-def _block(lanes: int, rows: int) -> int:
-    """Threads of a block whose threads own `rows` lanes each: whole
-    warps, enough for `lanes`."""
-    return -(-lanes // (rows * 32)) * 32
 
 
 def _linear_lanes(Lp: int, one: int):

@@ -31,8 +31,12 @@ LAUNCHES = 0          # kernel A launches (one per linear_fill on CUDA)
 PLAIN_CALLS = 0       # linear_fill_plain calls made by linear_fill
 
 _BIG = np.int32(2 ** 30)     # "never valid" lower bound sentinel
-# rows whose three diagonals (9 * Lp * 4 bytes) fit shared memory
+# rows whose three diagonals (9 * Lp * 4 bytes) fit shared memory (kernel
+# F's layout, viterbi_linear_probe)
 SHARED_ROWS = 4096
+# kernel A's lane builds: rows a thread and the most rows each is planned
+# for; past the last, the global build
+LANES = ((1, 128), (2, 2048), (4, 4096))
 
 
 def _add_scalar_params(inp):
@@ -172,18 +176,47 @@ def _check_args(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
     return B, D, Lp
 
 
-def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
-    """Fill a batch of linear-chain pairs. ms: (B, D, Lp) f32 folded
-    match-score diagonals (row d = diagonal d); per-row vectors (B, Lp);
-    fscal (B, 8) f32 [gext, gend, lgo, lng, orp0]; iscal (B, 8) int32
-    [L, R]. Returns (codes (B, D, Lp) uint8, corner (B, 3) f32: M, X, Y
-    at cell (L-1, R-1))."""
-    global LAUNCHES, PLAIN_CALLS
-    B, D, Lp = _check_args(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal)
-    if ms.device.type == "cpu":
-        PLAIN_CALLS += 1
-        return linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal,
-                                 iscal)
+def _block(lanes: int, rows: int) -> int:
+    """Threads of a block whose threads own `rows` lanes (rows) each:
+    whole warps, enough for `lanes` (kernels A, D and E)."""
+    return -(-lanes // (rows * 32)) * 32
+
+
+def linear_plan(Lp: int) -> dict:
+    """How kernel A is launched on Lp rows:
+
+    - rows: rows a thread, each thread's rows consecutive, their M, X, Y
+      in registers from one diagonal to the next (LANES: 1 up to 128
+      rows, 2 up to 2048, 4 up to 4096; on the H100, tools/
+      bench_linear_calls.py --lanes, one row a thread led at 64 and 128
+      rows, two from 256 to 2,048 and four past that); 0, the global
+      build (threads strided over the rows, three diagonals in a global
+      scratch), past 4096 rows or on rows that are not a whole number
+      of warps (no caller makes such a batch: batch_rows rounds up to a
+      warp);
+    - threads: the block, whole warps, at most 1024;
+    - diagonals: where the diagonals live between steps, "registers"
+      (and a shared row of warp-edge values) or "global"."""
+    rows = next((r for r, top in LANES if Lp <= top), 0) \
+        if Lp % 32 == 0 else 0
+    if rows:
+        return dict(rows=rows, threads=_block(Lp, rows),
+                    diagonals="registers")
+    return dict(rows=0, threads=min(1024, _block(Lp, 1)),
+                diagonals="global")
+
+
+def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
+    """One launch of kernel A as `plan` (linear_plan) says. A plan with
+    no build raises ValueError before anything is launched."""
+    B, D, Lp = ms.shape
+    rows, threads = plan["rows"], plan["threads"]
+    if rows not in (0,) + tuple(r for r, _top in LANES) or \
+            not 32 <= threads <= 1024 or threads % 32 or \
+            (rows and (Lp % 32 or rows * threads < Lp)) or \
+            plan["diagonals"] != ("registers" if rows else "global"):
+        raise ValueError("kernel A has no build for the plan %s on %d rows"
+                         % (plan, Lp))
     lib = kernels.load("viterbi_linear")
     fn = lib.viterbi_linear_launch
     fn.restype = ctypes.c_int
@@ -191,22 +224,41 @@ def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
         [ctypes.c_void_p]
     codes = torch.empty((B, D, Lp), dtype=torch.uint8, device=ms.device)
     corner = torch.empty((B, 3), dtype=torch.float32, device=ms.device)
-    # three diagonals of M/X/Y: shared memory up to SHARED_ROWS rows,
-    # an L2-resident global scratch beyond
-    use_shared = Lp <= SHARED_ROWS
-    gbuf = None if use_shared else torch.empty(
+    gbuf = None if rows else torch.empty(
         (B, 9, Lp), dtype=torch.float32, device=ms.device)
-    threads = min(1024, -(-Lp // 32) * 32)
     with torch.cuda.device(ms.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ms.data_ptr(), gexti.data_ptr(), ol.data_ptr(),
                  vlox.data_ptr(), vloy.data_ptr(), vhi.data_ptr(),
                  fscal.data_ptr(), iscal.data_ptr(), codes.data_ptr(),
                  corner.data_ptr(), 0 if gbuf is None else gbuf.data_ptr(),
-                 B, D, Lp, int(use_shared), threads, stream)
+                 B, D, Lp, rows, threads, stream)
     kernels.check(err, "viterbi_linear")
-    LAUNCHES += 1
     return codes, corner
+
+
+def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
+    """Fill a batch of linear-chain pairs. ms: (B, D, Lp) f32 folded
+    match-score diagonals (row d = diagonal d); per-row vectors (B, Lp);
+    fscal (B, 8) f32 [gext, gend, lgo, lng, orp0]; iscal (B, 8) int32
+    [L, R]. Returns (codes (B, D, Lp) uint8, corner (B, 3) f32: M, X, Y
+    at cell (L-1, R-1)).
+
+    On a CUDA tensor it launches kernel A as linear_plan(Lp) says; the
+    kernel refuses a plan it has no build for, and the wrapper raises on
+    any launch error. The inputs are linear_job_arrays' (rows >= L and
+    columns >= R never valid): kernel A skips the warps whose cells have
+    no source in the matrix on that rule."""
+    global LAUNCHES, PLAIN_CALLS
+    B, D, Lp = _check_args(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal)
+    if ms.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal,
+                                 iscal)
+    out = _launch_linear(linear_plan(Lp), ms, gexti, ol, vlox, vloy, vhi,
+                         fscal, iscal)
+    LAUNCHES += 1
+    return out
 
 
 def linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):

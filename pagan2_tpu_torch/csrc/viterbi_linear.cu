@@ -13,35 +13,97 @@
 // TARGET cell: bm bits 0-1, bx 2-3, by 4-5 (the Pallas kernel's packed
 // f32 words and its source-lane roll do not exist here).
 //
-// Layout: one block per job; threads stride over the left rows i; one
-// anti-diagonal d = i + j per step. M/X/Y of the last three diagonals
-// (9 * Lp * 4 bytes) live in dynamic shared memory up to Lp = 4096
-// (144 KB) and in a global scratch, resident in the 50 MB L2, beyond;
-// a step reads diagonals d-1 and d-2 and writes d into the third slot,
-// and needs one __syncthreads. Device memory sees only the folded
-// match-score diagonal read (4 B/cell, coalesced over i) and the code
-// byte written (1 B/cell, coalesced).
-//
 // What bounds it on an H100: not bytes (5 B/cell against 3.35 TB/s) and
 // not operations (~30 f32 compare/add/select per cell against 67
 // TFLOP/s) but the serial chain of D = L + R - 1 dependent diagonals,
 // each ending in a block-wide barrier, with only B blocks (one per job)
-// on 132 SMs. The design keeps every dependency on chip (shared memory,
-// or L2 past 4096 rows) so a step costs a barrier plus Lp / blockDim
-// cells per thread; making
-// it faster (several jobs per block, warp-shuffle i-1 shifts, clusters
-// splitting one job's rows) is later work.
+// on 132 SMs. So a step costs its barrier, the latency of its chain and
+// the cycles its instructions take to dispatch, and the design cuts all
+// three.
+//
+// The lane builds (ROWS = 1, 2 or 4 rows a thread, up to 4096 rows):
+//  1. A thread owns ROWS consecutive rows i0 .. i0 + ROWS - 1 (i0 = tid
+//     * ROWS). Their M, X, Y of diagonal d-1 stay in registers from one
+//     step to the next. Row i-1 of the thread's first row is the last
+//     row of the thread below: by __shfl_up_sync inside a warp, and
+//     across warps from a shared row of warp-edge values (the last
+//     row's M, X, Y of each warp, two rows taken in turn by the parity
+//     of d). So a step needs one __syncthreads. (On the H100 a handoff
+//     from warp to warp by flags in shared memory, and a split-phase
+//     mbarrier that let a warp finish its step past the barrier, both
+//     kept the outputs but took 1.7-5x longer a step than the barrier.)
+//  2. M at (i, j) reads only diagonal d-2 at row i-1: the values that X
+//     read at step d-1. So step d-1 takes M's maximum and its code for
+//     step d (mc, bm) right after X's, and no value of d-2 is kept.
+//  3. The per-row inputs (gexti[i], ol[i-1] and the validity bounds,
+//     shifted into bounds on jb = d - i0) are loaded once a launch.
+//     jb moves by one a step; the j-dependent selects (gj, orp) and the
+//     masks compare jb with per-row constants: no device-memory load
+//     is left on the step but the match score, and no division.
+//  4. The match score of diagonal d+1 (and of d+2 with one row a
+//     thread, whose short step does not hide one load) is loaded (one
+//     4, 8 or 16-byte load a thread and diagonal) while step d runs.
+//     The codes of a thread's rows are built in place in one word from
+//     pre-shifted constants and leave in one 1, 2 or 4-byte store,
+//     coalesced over the warp.
+//  5. Out-of-matrix warps are skipped, exactly: a cell whose three
+//     sources (i-1, j), (i, j-1), (i-1, j-1) all lie outside the
+//     matrix (j >= R+1, j <= -1 or i >= L+1) has every candidate at
+//     -inf, so code 0 and M, X, Y -inf in the plain version too. A warp
+//     whose rows wlo .. whi all lie there on diagonal d (d outside
+//     [wlo, min(whi, L) + R], or wlo > L) stores code 0 and sets its
+//     lanes to -inf without computing. This rests on the prep's bounds:
+//     rows >= L and columns >= R never valid, vlox and vloy >= 0
+//     (linear_job_arrays).
+//  6. The corner capture is tested once a diagonal, in the thread that
+//     owns row L-1.
+// The global build (ROWS 0, past 4096 rows or a row count that is not a
+// whole number of warps): one block per job, threads strided over the
+// rows, M/X/Y of the last three diagonals (9 * Lp * 4 bytes) in a
+// global scratch resident in the 50 MB L2.
+//
+// The launch plan (rows a thread, threads) is align/viterbi_linear.py::
+// linear_plan; the kernel only takes a plan it has a build for and
+// refuses any other.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-// SHARED: the three diagonals live in shared memory (Lp <= 4096); else
-// in the global scratch gbuf. A template parameter, so the shared path
-// compiles to shared-memory loads and stores.
-template <bool SHARED>
-__global__ void viterbi_linear_kernel(
+constexpr unsigned FULL = 0xffffffffu;
+
+// a + b clamped to INT_MAX (b >= 0): a row's bound on j shifted into a
+// bound on jb = j + k keeps its meaning for every jb a launch reaches
+__device__ __forceinline__ int add_sat(int a, int b) {
+  return a > 0x7fffffff - b ? 0x7fffffff : a + b;
+}
+
+template <int ROWS> struct Vec;
+template <> struct Vec<1> {
+  typedef float F;
+  typedef uint8_t C;
+};
+template <> struct Vec<2> {
+  typedef float2 F;
+  typedef uint16_t C;
+};
+template <> struct Vec<4> {
+  typedef float4 F;
+  typedef uint32_t C;
+};
+
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float (&v)[ROWS], const float* p) {
+  const typename Vec<ROWS>::F t =
+      __ldg(reinterpret_cast<const typename Vec<ROWS>::F*>(p));
+  const float* f = reinterpret_cast<const float*>(&t);
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) v[k] = f[k];
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
     const float* __restrict__ ms,      // (B, D, Lp) folded, row d = diag d
     const float* __restrict__ gexti,   // (B, Lp)
     const float* __restrict__ ol,      // (B, Lp)
@@ -52,12 +114,201 @@ __global__ void viterbi_linear_kernel(
     const int* __restrict__ iscal,     // (B, 8): L R
     uint8_t* __restrict__ codes,       // (B, D, Lp)
     float* __restrict__ corner,        // (B, 3)
-    float* __restrict__ gbuf,          // (B, 9, Lp) when not SHARED
     int D, int Lp) {
-  extern __shared__ float smem[];
+  typedef typename Vec<ROWS>::C Code;
+  // diagonals of match scores loaded ahead: two for one row a thread
+  // (whose short step does not hide one load), one for two and four
+  constexpr int AHEAD = ROWS == 1 ? 2 : 1;
+  // last row's M, X, Y of each warp, by the parity of its diagonal
+  __shared__ float4 edge[2][32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const float NEG = -CUDART_INF_F;
+  const float gext = fscal[b * 8 + 0];
+  const float gend = fscal[b * 8 + 1];
+  const float lgo = fscal[b * 8 + 2];
+  const float lng = fscal[b * 8 + 3];
+  const float orp0 = fscal[b * 8 + 4];
+  const int L = iscal[b * 8 + 0];
+  const int R = iscal[b * 8 + 1];
+  const int cornerd = L + R - 2;
+  const int ctid = (L - 1) / ROWS, kc = (L - 1) - ctid * ROWS;
+  const int i0 = tid * ROWS;
+  // Lp is a whole number of warps: a thread's rows all exist or none
+  const bool live = i0 < Lp;
+  // the diagonals on which this warp has a cell to compute: row i has
+  // one on d iff d - R <= i <= min(d, L)
+  const int wlo = w * 32 * ROWS;
+  const int dfirst = wlo;
+  const int dlast =
+      (wlo <= L && wlo < Lp) ? min(wlo + 32 * ROWS - 1, L) + R : -1;
+  const size_t rowoff = (size_t)b * Lp + i0;
+  const float* msp = ms + (size_t)b * D * Lp + i0;
+  Code* cp = reinterpret_cast<Code*>(codes + (size_t)b * D * Lp + i0);
+
+  // per-row inputs, once a launch; bounds on j shifted to bounds on jb
+  float gx[ROWS], olp[ROWS];
+  int lox[ROWS], loy[ROWS], hi[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int i = i0 + k;
+    gx[k] = live ? gexti[rowoff + k] : 0.0f;
+    olp[k] = live && i > 0 ? ol[rowoff + k - 1] : 0.0f;
+    lox[k] = live ? add_sat(vlox[rowoff + k], k) : 0x7fffffff;
+    loy[k] = live ? add_sat(vloy[rowoff + k], k) : 0x7fffffff;
+    hi[k] = live ? add_sat(vhi[rowoff + k], k) : -1;
+  }
+
+  // diagonal 0: M(0, 0) = 0, all else -inf. M's maximum and code for
+  // diagonal 1 come from diagonal -1 (all -inf): -inf and code 0.
+  float Mr[ROWS], Xr[ROWS], Yr[ROWS], mcn[ROWS];
+  uint32_t bmn = 0;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    Mr[k] = (i0 + k == 0) ? 0.0f : NEG;
+    Xr[k] = Yr[k] = mcn[k] = NEG;
+  }
+  // the match scores of diagonals d+1 .. d+AHEAD during step d
+  float msq[AHEAD][ROWS];
+  auto fetch = [&](float (&v)[ROWS], int e) {
+    if (live && e < D && e >= dfirst && e <= dlast)
+      load_rows<ROWS>(v, msp + (size_t)e * Lp);
+  };
+#pragma unroll
+  for (int a = 0; a < AHEAD; ++a) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) msq[a][k] = 0.0f;
+    fetch(msq[a], 1 + a);
+  }
+  if (live) cp[0] = (Code)(0x3F3F3F3Fu);
+  if (tid == 0) {
+    corner[b * 3 + 0] = NEG;
+    corner[b * 3 + 1] = NEG;
+    corner[b * 3 + 2] = NEG;
+  }
+  if (lane == 31)
+    edge[0][w] = make_float4(Mr[ROWS - 1], Xr[ROWS - 1], Yr[ROWS - 1], 0.f);
+  __syncthreads();
+
+  auto step = [&](int d) {
+    const bool active = d >= dfirst && d <= dlast;
+    float msd[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      msd[k] = msq[0][k];
+#pragma unroll
+      for (int a = 0; a + 1 < AHEAD; ++a) msq[a][k] = msq[a + 1][k];
+    }
+    fetch(msq[AHEAD - 1], d + AHEAD);
+    uint32_t code = 0;
+    if (active) {
+      // row i0 - 1 on diagonal d-1: the thread below, or the warp below
+      float pm = __shfl_up_sync(FULL, Mr[ROWS - 1], 1);
+      float px = __shfl_up_sync(FULL, Xr[ROWS - 1], 1);
+      float py = __shfl_up_sync(FULL, Yr[ROWS - 1], 1);
+      if (lane == 0) {
+        const float4 e = w > 0 ? edge[(d - 1) & 1][w - 1]
+                               : make_float4(NEG, NEG, NEG, 0.f);
+        pm = e.x;
+        px = e.y;
+        py = e.z;
+      }
+      const int jb = d - i0;            // j of row i0 + k is jb - k
+      const int jr = jb - (R - 1);      // == k where j == R - 1
+      uint32_t bmnext = 0;
+      float Mn[ROWS], Xn[ROWS], Yn[ROWS];
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        // row i's code byte is byte k of the thread's word; its bits
+        // are built in place: bm 0-1, bx 2-3, by 4-5
+        const int sh = 8 * k;
+        // M, X, Y of diagonal d-1 at row i-1 and at row i
+        const float m1p = k == 0 ? pm : Mr[k - 1];
+        const float x1p = k == 0 ? px : Xr[k - 1];
+        const float y1p = k == 0 ? py : Yr[k - 1];
+        const float m1 = Mr[k], x1 = Xr[k], y1 = Yr[k];
+        // X: gap consuming left site i (ext, double, open)
+        const float gj = (jb == k || jr == k) ? gend : gext;
+        const float t1 = m1p + lng;
+        const float cx0 = x1p + gj;
+        const float cx1 = y1p + lgo;
+        const float cx2 = t1 + olp[k];
+        const float v01 = fmaxf(cx0, cx1);
+        const float xc = fmaxf(v01, cx2);
+        const uint32_t bx =
+            (cx2 > v01) ? 8u << sh : ((cx1 > cx0) ? 4u << sh : 0u);
+        // Y: gap consuming right site j (ext, double, open)
+        const float orp = (jb == k + 1) ? orp0 : lgo;
+        const float cy0 = y1 + gx[k];
+        const float cy1 = x1 + lgo;
+        const float cy2 = (m1 + lng) + orp;
+        const float w01 = fmaxf(cy0, cy1);
+        const float yc = fmaxf(w01, cy2);
+        const uint32_t by =
+            (cy2 > w01) ? 32u << sh : ((cy1 > cy0) ? 16u << sh : 0u);
+        // M of d from (mc, bm) taken at step d-1
+        const bool okx = jb >= lox[k] && jb <= hi[k];
+        const bool oky = jb >= loy[k] && jb <= hi[k];
+        Xn[k] = okx ? xc : NEG;
+        Yn[k] = oky ? yc : NEG;
+        Mn[k] = (okx && oky) ? mcn[k] + msd[k] : NEG;
+        code += bx + by;
+        // M's maximum and code at (i, j+1) on diagonal d+1: the values
+        // of row i-1 on diagonal d-1 that X just read
+        const float u01 = fmaxf(t1, x1p);
+        mcn[k] = fmaxf(u01, y1p);
+        bmnext += (y1p > u01) ? 2u << sh : ((x1p > t1) ? 1u << sh : 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        Mr[k] = Mn[k];
+        Xr[k] = Xn[k];
+        Yr[k] = Yn[k];
+      }
+      code += bmn;
+      bmn = bmnext;
+    } else {
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) Mr[k] = Xr[k] = Yr[k] = mcn[k] = NEG;
+      bmn = 0;
+    }
+    if (live) cp[(size_t)d * (Lp / ROWS)] = (Code)code;
+    if (lane == 31)
+      edge[d & 1][w] = make_float4(Mr[ROWS - 1], Xr[ROWS - 1],
+                                   Yr[ROWS - 1], 0.f);
+    if (d == cornerd && tid == ctid) {
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k)
+        if (k == kc) {
+          corner[b * 3 + 0] = Mr[k];
+          corner[b * 3 + 1] = Xr[k];
+          corner[b * 3 + 2] = Yr[k];
+        }
+    }
+    __syncthreads();
+  };
+  if constexpr (AHEAD == 2) {
+    // two steps a turn, so the two match-score buffers swap names, not
+    // values
+#pragma unroll 2
+    for (int d = 1; d < D; ++d) step(d);
+  } else {
+    for (int d = 1; d < D; ++d) step(d);
+  }
+}
+
+// The global build: threads stride over the rows; the three diagonals
+// live in the global scratch gbuf (B, 9, Lp).
+__global__ void viterbi_linear_global_kernel(
+    const float* __restrict__ ms, const float* __restrict__ gexti,
+    const float* __restrict__ ol, const int* __restrict__ vlox,
+    const int* __restrict__ vloy, const int* __restrict__ vhi,
+    const float* __restrict__ fscal, const int* __restrict__ iscal,
+    uint8_t* __restrict__ codes, float* __restrict__ corner,
+    float* __restrict__ gbuf, int D, int Lp) {
   const int b = blockIdx.x;
   // [gen 0..2][mat M,X,Y][Lp]
-  float* sh = SHARED ? smem : gbuf + (size_t)b * 9 * Lp;
+  float* sh = gbuf + (size_t)b * 9 * Lp;
   const int nt = blockDim.x;
   const float NEG = -CUDART_INF_F;
   const float gext = fscal[b * 8 + 0];
@@ -150,31 +401,46 @@ __global__ void viterbi_linear_kernel(
 
 }  // namespace
 
+// The plan, as viterbi_linear.py::linear_plan computes it: rows a thread
+// (1, 2 or 4: Lp a whole number of warps, rows * threads >= Lp, at most
+// 1024 threads; 0: the global build, gbuf (B, 9, Lp) required) and
+// threads. Any other plan is refused with cudaErrorInvalidValue.
 extern "C" int viterbi_linear_launch(
     const void* ms, const void* gexti, const void* ol, const void* vlox,
     const void* vloy, const void* vhi, const void* fscal,
     const void* iscal, void* codes, void* corner, void* gbuf, int B,
-    int D, int Lp, int use_shared, int threads, void* stream) {
+    int D, int Lp, int rows, int threads, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!use_shared) {
-    viterbi_linear_kernel<false><<<B, threads, 0, st>>>(
-        (const float*)ms, (const float*)gexti, (const float*)ol,
-        (const int*)vlox, (const int*)vloy, (const int*)vhi,
-        (const float*)fscal, (const int*)iscal, (uint8_t*)codes,
-        (float*)corner, (float*)gbuf, D, Lp);
+  if (threads < 32 || threads > 1024 || threads % 32 || D < 2 || Lp < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* m = (const float*)ms;
+  const float* gx = (const float*)gexti;
+  const float* o = (const float*)ol;
+  const int* lx = (const int*)vlox;
+  const int* ly = (const int*)vloy;
+  const int* h = (const int*)vhi;
+  const float* fs = (const float*)fscal;
+  const int* is = (const int*)iscal;
+  uint8_t* c = (uint8_t*)codes;
+  float* k = (float*)corner;
+  if (rows == 0) {
+    if (gbuf == nullptr) return (int)cudaErrorInvalidValue;
+    viterbi_linear_global_kernel<<<B, threads, 0, st>>>(
+        m, gx, o, lx, ly, h, fs, is, c, k, (float*)gbuf, D, Lp);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)9 * Lp * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        viterbi_linear_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (Lp % 32 || (long)rows * threads < Lp) return (int)cudaErrorInvalidValue;
+  switch (rows) {
+#define LIN_LANES(n)                                                       \
+  case n:                                                                  \
+    viterbi_linear_lanes_kernel<n><<<B, threads, 0, st>>>(                 \
+        m, gx, o, lx, ly, h, fs, is, c, k, D, Lp);                         \
+    return (int)cudaGetLastError();
+    LIN_LANES(1)
+    LIN_LANES(2)
+    LIN_LANES(4)
+#undef LIN_LANES
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  viterbi_linear_kernel<true><<<B, threads, smem, st>>>(
-      (const float*)ms, (const float*)gexti, (const float*)ol,
-      (const int*)vlox, (const int*)vloy, (const int*)vhi,
-      (const float*)fscal, (const int*)iscal, (uint8_t*)codes,
-      (float*)corner, (float*)gbuf, D, Lp);
-  return (int)cudaGetLastError();
 }

@@ -1,0 +1,263 @@
+"""Bench of kernel A (the linear-chain wavefront) on the calls real runs
+give it: chip_smoke.py's 16 x 1535 family (bench.py's generator, seed 5)
+through the CLI with default flags and with --full-probability (one
+batch of 8 leaf pairs each), the JAX bench tool's 8 x 4095 batch
+(tools/bench_linear.py: rows 4096, diagonals padded to TD 16), and
+chip_smoke.py's kernel_linear batches (linear_batches: 8 x 2047, a
+ragged banded batch and 2 jobs past 4096 rows). Prints each call's
+source, B, D, Lp, kernel A's launch plan, ms (CUDA events over REPS
+launches after one warm-up) and us per diagonal, then the probe's
+all-off floor (kernel F's probe step with codes, match score, masks and
+corner all off, on its 16 x 2047 batch: the barrier and the recurrence
+chain alone) in us per diagonal, and last a JSON line with the mean and
+the sum of each source's calls.
+
+    python -m pagan2_tpu_torch.tools.bench_linear_calls [--device cpu --small]
+    python pagan2_tpu_torch/tools/bench_linear_calls.py --root DIR [--save OUT]
+    python pagan2_tpu_torch/tools/bench_linear_calls.py --check OUT
+    python pagan2_tpu_torch/tools/bench_linear_calls.py --lanes
+
+Run as a file, --root times the pagan2_tpu_torch package of the
+checkout DIR instead of this one, so that two versions of the kernel
+compare on one card in one call (in turns: parent, change, change,
+parent). --save writes a digest of every call's codes and corner under
+OUT; --check holds this run's bit for bit against them
+(tools/replay.py).
+
+--lanes (a card only) times kernel A's builds instead: on a batch of 8
+pairs at each row count of LANE_ROWS (32 to 4,096), every build that
+can take it (lane_plans: 1, 2 and 4 rows a thread, and the global
+build) is launched, held bit for bit against the build its plan names,
+and timed; each line marks the plan's own.
+"""
+from __future__ import annotations
+
+import time
+
+if __package__:
+    from . import replay
+    from .bench_fanin import family
+else:           # run as a file: this directory is sys.path[0]
+    import replay
+    from bench_fanin import family
+
+# --lanes: the row counts Lp whose batches (8 pairs of Lp - 1 bp) are
+# timed with every build
+LANE_ROWS = (32, 64, 128, 256, 512, 768, 1024, 1536, 2048, 2560, 3072,
+             4096)
+# --lanes: seconds of untimed launches on the first batch before
+# anything is timed
+WARM_UP_S = 1.0
+
+
+def linear_batches(rng, model, settings, small=False):
+    """chip_smoke.py's kernel_linear batches, drawn from `rng` in its
+    order: 8 pairs of 2047 bp; a ragged batch of 4 pairs (300-1531 bp,
+    the right side cut by 1/17) with bands of +-40 columns; 2 jobs past
+    4096 rows (5000 x 1900, 4500 x 2400). Returns [(name, inputs,
+    bands)]: prepare_sheared dicts with _add_scalar_params applied.
+    small: the same kinds at a few hundred bp (for the CPU)."""
+    import numpy as np
+    from pagan2_tpu_torch.align.viterbi_linear import _add_scalar_params
+    from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
+    from pagan2_tpu_torch.graph import build_leaf_graph
+    from pagan2_tpu_torch.models import alphabets as alph
+
+    def mutate(base):
+        mut = base.copy()
+        idx = rng.random(len(base)) < 0.1
+        mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+        return "".join(mut)
+
+    def prep(s1, s2):
+        return _add_scalar_params(prepare_sheared(
+            build_leaf_graph(s1, alph.DNA), build_leaf_graph(s2, alph.DNA),
+            model, settings, np.float32))
+
+    n8, ragged, big = ((4, 100), (60, 77, 120, 153),
+                       ((300, 100), (250, 120))) if small else \
+        ((8, 2047), (300, 777, 1200, 1531), ((5000, 1900), (4500, 2400)))
+    out = []
+    inps = []
+    for _ in range(n8[0]):
+        base = rng.choice(list("ACGT"), size=n8[1])
+        inps.append(prep("".join(base), mutate(base)))
+    out.append(("%dx%d" % n8, inps, [None] * n8[0]))
+    inps, bands = [], []
+    for n in ragged:
+        base = rng.choice(list("ACGT"), size=n)
+        x = prep("".join(base), mutate(base)[: n - n // 17])
+        c = np.arange(x["L"]) * x["R"] // x["L"]
+        bands.append((np.maximum(c - 40, 0),
+                      np.minimum(c + 40, x["R"] - 1)))
+        inps.append(x)
+    out.append(("ragged banded", inps, bands))
+    inps = []
+    for n, m in big:
+        base = rng.choice(list("ACGT"), size=n)
+        inps.append(prep("".join(base), mutate(base[n // 3: n // 3 + m])))
+    out.append(("%d rows" % big[0][0], inps, [None] * len(big)))
+    return out
+
+
+def batch_args(VL, inps, bands, dev):
+    """Kernel A's arguments for a batch of prepare_sheared dicts."""
+    Lp = VL.batch_rows(inps)
+    return VL.linear_batch_args(
+        [VL.linear_job_arrays(x, Lp, band=b) for x, b in zip(inps, bands)],
+        dev)
+
+
+def plan_text(VL, Lp):
+    """Kernel A's launch plan on Lp rows as text ("" for a package
+    without linear_plan: the parent of the lane builds)."""
+    if not hasattr(VL, "linear_plan"):
+        return ""
+    return build_text(VL.linear_plan(Lp))
+
+
+def build_text(p):
+    """One of kernel A's builds as text."""
+    if p["rows"]:
+        return "%d threads x %d rows, diagonals in registers" % (
+            p["threads"], p["rows"])
+    return "%d threads, diagonals in global scratch (global build)" \
+        % p["threads"]
+
+
+def lane_plans(VL, Lp):
+    """Every build of kernel A that can take Lp rows, as [(label, plan)],
+    the plan's own first: 1, 2 and 4 rows a thread where the block holds
+    Lp rows in at most 1024 threads (Lp a whole number of warps), and
+    the global build."""
+    own = VL.linear_plan(Lp)
+    cands = []
+    if Lp % 32 == 0:
+        cands = [dict(rows=r, threads=VL._block(Lp, r),
+                      diagonals="registers") for r, _top in VL.LANES
+                 if VL._block(Lp, r) <= 1024]
+    cands.append(dict(rows=0, threads=min(1024, VL._block(Lp, 1)),
+                      diagonals="global"))
+    cands = [own] + [c for c in cands if c != own]
+    return [(build_text(p), p) for p in cands]
+
+
+def time_lanes(args, torch, VL, common):
+    """--lanes: each batch of LANE_ROWS with every build of lane_plans,
+    held bit for bit against the plan's own build and timed. Returns the
+    runs."""
+    runs = []
+    for Lp in LANE_ROWS:
+        inps, _cells = common.pair_jobs(8, Lp - 1)
+        kw = batch_args(VL, inps, [None] * len(inps), args.device)
+        B, D, _Lp = kw["ms"].shape
+        t = time.perf_counter()
+        while not runs and time.perf_counter() - t < WARM_UP_S:
+            # the card's clocks up before the first timing
+            VL.linear_fill(**kw)
+            torch.cuda.synchronize()
+        ref = None
+        for k, (text, plan) in enumerate(lane_plans(VL, Lp)):
+            out = VL._launch_linear(plan, **kw)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref, same = out, True
+            else:
+                same = torch.equal(out[0], ref[0]) and torch.equal(
+                    out[1].view(torch.int32), ref[1].view(torch.int32))
+            ms = replay.time_call(
+                torch, lambda p=plan: VL._launch_linear(p, **kw), {},
+                replay.REPS)
+            runs.append(dict(source="8x%d" % (Lp - 1), B=B, D=D, Lp=Lp,
+                             build=text, rows=plan["rows"], plan=k == 0,
+                             ms=ms, us_per_diagonal=1e3 * ms / D,
+                             same=same))
+            print("%-8s B %d, D %d, Lp %d: %-50s %9.4f ms, %.4f us per "
+                  "diagonal%s%s" % (runs[-1]["source"], B, D, Lp, text, ms,
+                                    1e3 * ms / D,
+                                    " (plan)" if k == 0 else "",
+                                    "" if same else
+                                    ", DIFFERS from the plan's build"),
+                  flush=True)
+    return runs
+
+
+def probe_floor(args, torch, dev):
+    """The probe's all-off case (kernel F: codes, match score, masks and
+    corner off) on its 16 x 2047 batch (2 x 100 with --small), TD 16:
+    (ms, us per diagonal); on the CPU its plain version by the host
+    clock."""
+    from pagan2_tpu_torch.align import viterbi_linear_probe as VP
+    from pagan2_tpu_torch.tools import common
+    opts = ("nobp", "noms", "nomask", "nocorner")
+    inps, _cells = common.pair_jobs(*((2, 100) if args.small
+                                      else (16, 2047)))
+    kw = VP.probe_args(common.job_arrays(inps), dev, 16)
+    ms = common.time_ms(lambda: VP.probe_fill(**kw, TD=16, opts=opts), dev)
+    return ms, 1e3 * ms / kw["ms"].shape[0]
+
+
+def main(argv=None):
+    p = replay.parser(
+        __doc__.splitlines()[0], "kernel A",
+        "a 4 x 200 family, a 2 x 200 batch and kernel_linear's batches at "
+        "a few hundred bp (for the CPU)")
+    p.add_argument("--lanes", action="store_true",
+                   help="time kernel A's builds on LANE_ROWS' batches (a "
+                        "card only)")
+    args = p.parse_args(argv)
+    if args.lanes and args.device != "cuda":
+        raise SystemExit("--lanes launches kernel A's builds: a card only")
+    torch, dev, root = replay.start(args)
+    import numpy as np
+    from pagan2_tpu_torch import cli as CLI
+    from pagan2_tpu_torch.align import AlignSettings
+    from pagan2_tpu_torch.align import viterbi_linear as VL
+    from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
+    from pagan2_tpu_torch.tools import common
+    from pagan2_tpu_torch.tools.sweep_linear import padded_args
+    if args.lanes:
+        runs = time_lanes(args, torch, VL, common)
+        if not all(r["same"] for r in runs):
+            raise SystemExit("a build differs from the plan's")
+        return replay.finish(args, torch, dev, root, runs,
+                             ("source", "build"))
+
+    seqs, tree = family(*((4, 200) if args.small else (16, 1535)))
+    calls = [(run, kw) for run, flags in (("main", ()), (
+        "fullprob", ("--full-probability",))) for _n, kw in replay.record_cli(
+            CLI, VL, ("linear_fill",), seqs, tree, "bench_linear_calls",
+            args.device, flags)]
+    B, N = (2, 200) if args.small else (8, 4095)
+    inps, _cells = common.pair_jobs(B, N)
+    calls.append(("%dx%d" % (B, N),
+                  padded_args(common.job_arrays(inps), dev, 16)[0]))
+    for name, inps, bands in linear_batches(
+            np.random.default_rng(11), ModelFactory(alph.DNA)
+            .alignment_model(0.2), AlignSettings(), args.small):
+        calls.append((name, batch_args(VL, inps, bands, dev)))
+
+    runs = []
+    for k, kw, ms, same in replay.replay(
+            args, torch, dev, "linear",
+            [(VL.linear_fill, kw, replay.REPS) for _w, kw in calls]):
+        B, D, Lp = kw["ms"].shape
+        rec = dict(source=calls[k][0], B=B, D=D, Lp=Lp,
+                   plan=plan_text(VL, Lp), ms=ms,
+                   us_per_diagonal=1e3 * ms / D, same=same)
+        runs.append(rec)
+        print("%-14s B %d, D %d, Lp %d: %9.4f ms, %.4f us per diagonal%s%s"
+              % (rec["source"], B, D, Lp, ms, rec["us_per_diagonal"],
+                 "; " + rec["plan"] if rec["plan"] else "",
+                 replay.same_text(same)), flush=True)
+    floor_ms, floor_us = probe_floor(args, torch, dev)
+    print("probe all-off floor (kernel F, %s): %.4f ms, %.4f us per "
+          "diagonal" % ("2x100" if args.small else "16x2047", floor_ms,
+                        floor_us), flush=True)
+    for r in runs:
+        r["floor_us_per_diagonal"] = floor_us
+    return replay.finish(args, torch, dev, root, runs, ("source",))
+
+
+if __name__ == "__main__":
+    main()

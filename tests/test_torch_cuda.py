@@ -52,21 +52,53 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
-@pytest.mark.parametrize("sizes", [[70], [300, 257, 129], [4200]])
-def test_linear_kernel_matches_plain(cuda, sizes):
-    rng = np.random.default_rng(len(sizes))
+# kernel A's batches: left sides, whether the right sides are cut short
+# (keeps the plain version quick), whether each job has a band, and the
+# rows a thread its plan must take (0: the global build)
+LINEAR_CASES = {
+    "rows1": ([70], False, False, 1),
+    "rows1_batch": ([100, 57, 29], False, False, 1),
+    "rows2": ([1100, 700], False, False, 2),
+    "rows4": ([3000], True, False, 4),
+    "global": ([4200], True, False, 0),
+    "ragged": ([520, 90, 260], False, False, 2),
+    "banded": ([600, 450], False, True, 2),
+}
+
+
+def _linear_case(case, dev):
+    sizes, short, banded, _rows = LINEAR_CASES[case]
+    rng = np.random.default_rng(len(sizes) + 10 * list(LINEAR_CASES)
+                                .index(case))
     pairs = [_related(rng, n) for n in sizes]
-    if sizes == [4200]:
+    if short:
         # a short partner keeps the plain version quick
-        pairs = [(pairs[0][0], build_leaf_graph("ACGTTGCA" * 8,
-                                                alph.DNA))]
+        pairs = [(g1, build_leaf_graph("ACGTTGCA" * 8, alph.DNA))
+                 for g1, _g2 in pairs]
     inps = [tl._add_scalar_params(prepare_sheared(
         *p, MODEL, AlignSettings(), np.float32)) for p in pairs]
+    bands = [None] * len(inps)
+    if banded:
+        bands = []
+        for x in inps:
+            c = np.arange(x["L"]) * x["R"] // x["L"]
+            bands.append((np.maximum(c - 30, 0),
+                          np.minimum(c + 30, x["R"] - 1)))
     Lp = tl.batch_rows(inps)
-    # past SHARED_ROWS the kernel keeps its diagonals in global scratch
-    assert (Lp > tl.SHARED_ROWS) == (sizes == [4200])
-    args = tl.linear_batch_args([tl.linear_job_arrays(x, Lp)
-                                 for x in inps], cuda)
+    return tl.linear_batch_args([tl.linear_job_arrays(x, Lp, band=b)
+                                 for x, b in zip(inps, bands)], dev)
+
+
+@pytest.mark.parametrize("case", list(LINEAR_CASES))
+def test_linear_kernel_matches_plain(cuda, case):
+    """Kernel A against linear_fill_plain on the whole (B, D, Lp) codes
+    array and the corner bits, on a batch that takes each build of its
+    plan (one, two and four rows a thread; the global build past 4096
+    rows), a ragged batch (rows past a short job's L: skipped warps)
+    and a banded one."""
+    args = _linear_case(case, cuda)
+    assert tl.linear_plan(args["ms"].shape[2])["rows"] \
+        == LINEAR_CASES[case][3]
     n0 = tl.LAUNCHES
     codes, corner = tl.linear_fill(**args)
     pc, pk = tl.linear_fill_plain(**args)
@@ -74,6 +106,46 @@ def test_linear_kernel_matches_plain(cuda, sizes):
     assert tl.LAUNCHES == n0 + 1
     assert torch.equal(codes, pc)
     assert torch.equal(_bits(corner), _bits(pk))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 0])
+def test_linear_every_build_matches_plain(cuda, rows):
+    """Each build of kernel A, launched on one ragged banded batch (Lp
+    544) whatever its plan says, against linear_fill_plain."""
+    args = _linear_case("ragged", cuda)
+    Lp = args["ms"].shape[2]
+    plan = dict(rows=rows, threads=tl._block(Lp, rows or 1),
+                diagonals="registers" if rows else "global")
+    codes, corner = tl._launch_linear(plan, **args)
+    pc, pk = tl.linear_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
+
+
+@pytest.mark.parametrize("rows,threads", [(3, 192), (2, 128), (1, 2048),
+                                          (4, 100)])
+def test_linear_kernel_refuses_plans_it_has_no_build_for(cuda, rows,
+                                                         threads):
+    """The kernel's own launcher (past the wrapper's check) refuses a
+    plan it has no build for: cudaErrorInvalidValue, nothing launched."""
+    import ctypes
+    from pagan2_tpu_torch import kernels
+    args = _linear_case("ragged", cuda)       # Lp 544
+    B, D, Lp = args["ms"].shape
+    fn = kernels.load("viterbi_linear").viterbi_linear_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    codes = torch.zeros((B, D, Lp), dtype=torch.uint8, device=cuda)
+    corner = torch.zeros((B, 3), device=cuda)
+    ins = [args[k].data_ptr() for k in ("ms", "gexti", "ol", "vlox",
+                                         "vloy", "vhi", "fscal", "iscal")]
+    err = fn(*ins, codes.data_ptr(), corner.data_ptr(), 0, B, D, Lp, rows,
+             threads, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1                  # cudaErrorInvalidValue
+    assert not bool(codes.any())
 
 
 @pytest.mark.parametrize("windowed", [False, True])

@@ -100,3 +100,94 @@ def test_linear_plain_matches_pallas_interpret(seed, sizes, w):
     args2 = inputs_from_reference(ref_jobs)
     codes2, corner2 = linear_fill(**args2)
     assert torch.equal(corner2, corner)
+
+
+# ----------------------------------------------------------------------
+# What kernel A's Hopper design relies on, pinned on the CPU.
+from pagan2_tpu_torch.align import viterbi_linear as tl
+from pagan2_tpu_torch.tools.sweep_linear import padded_args
+
+
+@pytest.mark.parametrize("Lp,rows,threads", [
+    (32, 1, 32), (128, 1, 128), (160, 2, 96), (512, 2, 256),
+    (544, 2, 288), (1536, 2, 768),
+    (2048, 2, 1024), (2080, 4, 544), (4064, 4, 1024), (4096, 4, 1024),
+    (4128, 0, 1024), (5024, 0, 1024), (100, 0, 128)])
+def test_linear_plan_branches(Lp, rows, threads):
+    """linear_plan: one, two or four consecutive rows a thread in a block
+    of whole warps up to 1024 threads (the lane builds, up to 4096 rows:
+    four rows x 1024 threads), the global build past 4096 rows and on a
+    row count that is not a whole number of warps."""
+    p = tl.linear_plan(Lp)
+    assert (p["rows"], p["threads"]) == (rows, threads)
+    assert p["diagonals"] == ("registers" if rows else "global")
+    assert p["threads"] % 32 == 0 and p["threads"] <= 1024
+    if rows:
+        assert rows * threads >= Lp > rows * (threads - 32)
+        assert rows == next(r for r, top in tl.LANES if Lp <= top)
+
+
+def _skip_batch(kind):
+    """Kernel A arguments of one batch kind, on the CPU."""
+    rng = np.random.default_rng(7)
+    model = ModelFactory(alph.DNA).alignment_model(0.2)
+    sizes, w = {"square": ([(90, 90), (70, 70)], None),
+                "ragged": ([(150, 120), (40, 61), (97, 5)], None),
+                "banded": ([(130, 140), (120, 100)], 8),
+                "padded": ([(110, 96), (60, 75)], None)}[kind]
+    inps, bands = [], []
+    for n1, n2 in sizes:
+        g1, g2 = _pair(rng, n1, n2)
+        inp = tl._add_scalar_params(prepare_sheared(
+            g1, g2, model, AlignSettings(), np.float32))
+        inps.append(inp)
+        bands.append(None if w is None else _band(inp["L"], inp["R"], w))
+    Lp = tl.batch_rows(inps)
+    jobs = [tl.linear_job_arrays(x, Lp, band=b) for x, b in zip(inps, bands)]
+    if kind == "padded":
+        return padded_args(jobs, "cpu", 64)[0]
+    return tl.linear_batch_args(jobs, "cpu")
+
+
+@pytest.mark.parametrize("kind", ["square", "ragged", "banded", "padded"])
+def test_cells_with_no_source_in_the_matrix_have_code_0(kind):
+    """The rule kernel A's warp skip rests on, held on linear_fill_plain
+    (the bar): a cell whose three sources (i-1, j), (i, j-1), (i-1, j-1)
+    all lie outside the matrix, j >= R+1, j <= -1 or i >= L+1, has code
+    0 (every candidate -inf), on square, ragged (rows past a short
+    job's L), banded and padded-D (sweep_linear.padded_args) batches.
+    Row L and column R do not qualify: some of their codes are not 0."""
+    kw = _skip_batch(kind)
+    codes, _corner = tl.linear_fill_plain(**kw)
+    B, D, Lp = codes.shape
+    d = torch.arange(D)[:, None]
+    i = torch.arange(Lp)[None, :]
+    j = d - i
+    edge = torch.zeros((), dtype=torch.bool)
+    for b in range(B):
+        L, R = (int(v) for v in kw["iscal"][b, :2])
+        skip = (j >= R + 1) | (j <= -1) | (i >= L + 1)
+        skip[0] = False                       # row 0: the 0x3F sentinel
+        assert int(skip.sum()) > 0
+        assert not bool(codes[b][skip].any())
+        border = ((i == L) & (j >= 0) & (j <= R)) | \
+            ((j == R) & (i >= 0) & (i <= L))
+        edge = edge | codes[b][border & ~skip].bool().any()
+    assert bool(edge)
+
+
+@pytest.mark.parametrize("plan", [
+    dict(rows=3, threads=64, diagonals="registers"),
+    dict(rows=1, threads=32, diagonals="registers"),
+    dict(rows=2, threads=2048, diagonals="registers"),
+    dict(rows=4, threads=48, diagonals="registers"),
+    dict(rows=0, threads=64, diagonals="registers"),
+    dict(rows=2, threads=64, diagonals="global")],
+    ids=["rows3", "too_few_threads", "block_past_1024", "part_warp",
+         "global_named_registers", "lanes_named_global"])
+def test_linear_wrapper_refuses_a_plan_with_no_build(plan):
+    """Kernel A's launcher refuses a plan it has no build for before it
+    loads or launches anything (so here, on the CPU, too)."""
+    kw = _skip_batch("square")           # Lp 96
+    with pytest.raises(ValueError, match="no build"):
+        tl._launch_linear(plan, **kw)
