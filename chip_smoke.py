@@ -40,15 +40,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                posteriors of a small linear and a small fan-in pair
                against the f64 host oracle
   kernel_probe   kernel F (the probe's and the bisect's ablation
-               variants of the linear step) vs its plain versions: every
-               flag set of both entry points on 4 x 511 bp pairs and on
-               random 4 x 512 rows, and past 4096 rows (global scratch);
-               then at the tools' sizes (plain timed): the probe's seven
-               flag sets on its 16 x 2047 batch, the bisect's six at
-               8 x 1024 x 2048 and its full variant at 32 x 256 x 2048
-               and 8 x 4096 x 8192; codes (where defined) and corner
-               rows bit-equal; the probe's base case equal to kernel A
-               on the 16 x 2047 batch
+               variants of the linear step, on kernel A's lane builds)
+               vs its plain versions: every flag set of both entry
+               points on 4 x 511 bp pairs and on random 4 x 512 rows,
+               on batches whose plan takes one row a thread (3 x 127
+               ragged, 2 x 96 random rows), four (2 x 2079 ragged and
+               2 x 2080 random rows: the last warp partial) and the
+               global build (past 4096 rows); then at the tools' sizes
+               (plain timed): the probe's seven flag sets on its
+               16 x 2047 batch, the bisect's six at 8 x 1024 x 2048 and
+               its full variant at 32 x 256 x 2048 and 8 x 4096 x 8192;
+               codes (where defined) and corner rows bit-equal, each
+               batch with its launch plan and us per diagonal, every
+               flag set meeting every build of the plan; the probe's
+               base case equal to kernel A on the 16 x 2047 batch
   small_oracle the device path against the host oracle on small pairs
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
@@ -187,6 +192,31 @@ def fanin_launch(kw):
                                    p["rows"]))
 
 
+def ptxas_kernels(report):
+    """(kernel, registers, spill-store bytes) of each kernel of kernel
+    F's nvcc -Xptxas -v report; a template's flag set and rows a thread
+    read from its mangled name (global: the global build)."""
+    import re
+    out, name, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            args = [int(a) for a in re.findall(r"Li(\d+)E", name)]
+            what = ("lanes flags %d rows %d" % tuple(args[:2])
+                    if "lanes" in name and len(args) >= 2 else
+                    "global flags %d" % args[0] if args else name)
+            out.append((what, int(m.group(1)), spill))
+            name = None
+    return sorted(out)
+
+
 def cuda_ms(fn, reps):
     """Milliseconds per call of fn on the current stream (CUDA events,
     after one warm-up call)."""
@@ -249,11 +279,19 @@ def main():
     t0 = time.time()
     kernels.build("viterbi_linear", "viterbi_fanin", "viterbi_banded",
                   "fullprob_fwd", "fullprob_bwd", "viterbi_linear_probe")
-    log("build: %.1f s" % (time.time() - t0))
+    log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in sorted(kernels.BUILD_SECONDS.items(),
+                                          key=lambda kv: -kv[1]))))
     for name, out in kernels.BUILD_LOG.items():
+        if name == "viterbi_linear_probe":
+            continue
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log("ptxas %s: %s" % (name, line.strip()))
+    for fn, regs, spill in ptxas_kernels(
+            kernels.BUILD_LOG.get("viterbi_linear_probe", "")):
+        log("ptxas viterbi_linear_probe %s: %d registers, %d bytes spill "
+            "stores" % (fn, regs, spill))
 
     model = ModelFactory(alph.DNA).alignment_model(0.2)
     settings = AlignSettings()
@@ -600,6 +638,15 @@ def main():
 
     # ---- kernel_probe: kernel F against its plain versions ----
     probe_err = {"probe": 0.0, "bisect": 0.0}
+    from pagan2_tpu_torch.align import viterbi_linear_probe as VP
+    from pagan2_tpu_torch.tools import common as TC
+    from pagan2_tpu_torch.tools.bench_probe import plan_text as \
+        probe_plan_text
+    from pagan2_tpu_torch.tools.bisect_linear import bisect_inputs
+    # the builds of kernel F's plan each flag set met
+    probe_builds = {"%s:%s" % (t, v): set() for t, vs in (
+        ("probe", VP.PROBE_VARIANTS), ("bisect", VP.BISECT_VARIANTS))
+        for v in vs}
 
     def probe_run(tool, v, kw, plain=False):
         """One flag set of kernel F's probe or bisect entry point, or its
@@ -613,9 +660,11 @@ def main():
 
     def probe_check(tool, what, kw, variants):
         """Codes (where defined: not under the probe's nobp) and corner
-        rows of every flag set bit-equal to the plain version's; returns
-        the plain version's ms per flag set."""
-        plain_ms = {}
+        rows of every flag set bit-equal to the plain version's, each
+        kernel launch timed; returns the plain version's ms per flag
+        set."""
+        plain_ms, us = {}, {}
+        Dpk, B, Lp = kw["ms"].shape
         for v in variants:
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
@@ -636,33 +685,52 @@ def main():
                 probe_err[tool] = max(probe_err[tool], max_abs_err(o, r))
             plain_ms[v] = t0.elapsed_time(t1)
             del out, ref
-        Dpk, B, Lp = kw["ms"].shape
-        log("kernel_probe %s %s: B %d, Dpk %d, Lp %d: %s bit-equal (plain "
-            "ms %s)" % (tool, what, B, Dpk, Lp, ", ".join(variants),
-                        ", ".join("%.1f" % plain_ms[v] for v in variants)))
+            us[v] = 1e3 * cuda_ms(lambda: probe_run(tool, v, kw), 3) / Dpk
+            probe_builds["%s:%s" % (tool, v)].add(
+                VP.probe_plan(Lp)["rows"])
+        log("kernel_probe %s %s: B %d, Dpk %d, Lp %d, %s: %s bit-equal; us "
+            "per diagonal %s (plain ms %s)"
+            % (tool, what, B, Dpk, Lp, probe_plan_text(VP, Lp),
+               ", ".join(variants), ", ".join("%.4f" % us[v]
+                                              for v in variants),
+               ", ".join("%.1f" % plain_ms[v] for v in variants)))
         return plain_ms
-
-    from pagan2_tpu_torch.align import viterbi_linear_probe as VP
-    from pagan2_tpu_torch.tools import common as TC
-    from pagan2_tpu_torch.tools.bisect_linear import bisect_inputs
 
     def bisect_kw(*shape):
         return bisect_inputs(*shape, dev)
+
+    def probe_kw(pairs, seed):
+        """probe_args of pairs of (left, right) sites: a random left side
+        and, as its right side, its first sites with 10% redrawn."""
+        rng_p = np.random.default_rng(seed)
+        inps = []
+        for n1, n2 in pairs:
+            base = rng_p.choice(list("ACGT"), size=n1)
+            inps.append(VL._add_scalar_params(prepare_sheared(
+                build_leaf_graph("".join(base), alph.DNA),
+                build_leaf_graph(mutate(rng_p, base[:n2]), alph.DNA),
+                model, settings, np.float32)))
+        return VP.probe_args(TC.job_arrays(inps), dev)
 
     inps, _c = TC.pair_jobs(4, 511)
     probe_check("probe", "4x511", VP.probe_args(TC.job_arrays(inps), dev),
                 VP.PROBE_VARIANTS)
     probe_check("bisect", "4x512x1024", bisect_kw(4, 512, 1024),
                 VP.BISECT_VARIANTS)
-    # past 4096 rows the three diagonals live in global scratch: a
-    # 4,200-site left side cut to its first 512 diagonals
-    rng_f = np.random.default_rng(12)
-    base = rng_f.choice(list("ACGT"), size=4200)
-    xg = VL._add_scalar_params(prepare_sheared(
-        build_leaf_graph("".join(base), alph.DNA),
-        build_leaf_graph(mutate(rng_f, base[:64]), alph.DNA), model,
-        settings, np.float32))
-    kw = VP.probe_args(TC.job_arrays([xg]), dev)
+    # one row a thread (Lp 128, one job filling it, the others leaving
+    # rows past L), four (Lp 2080: the last warp partial, row Lp - 1
+    # live) and the global build past 4096 rows (a 4,200-site left side
+    # cut to its first 512 diagonals); the bisect's at 96, 2080 and 4224
+    # rows, Dpk past Lp so that the wrap from row Lp - 1 is live
+    probe_check("probe", "3x127 ragged", probe_kw(
+        [(127, 40), (90, 70), (60, 20)], 14), VP.PROBE_VARIANTS)
+    probe_check("bisect", "2x96x256", bisect_kw(2, 96, 256),
+                VP.BISECT_VARIANTS)
+    probe_check("probe", "2x2079 ragged", probe_kw(
+        [(2079, 30), (1500, 60)], 15), VP.PROBE_VARIANTS)
+    probe_check("bisect", "2x2080x2304", bisect_kw(2, 2080, 2304),
+                VP.BISECT_VARIANTS)
+    kw = probe_kw([(4200, 64)], 12)
     kw["ms"] = kw["ms"][:512].contiguous()
     probe_check("probe", "4200 rows", kw, VP.PROBE_VARIANTS)
     probe_check("bisect", "1x4224x256", bisect_kw(1, 4224, 256),
@@ -671,8 +739,8 @@ def main():
     # its plain version (timed): the probe's seven on its 16 x 2047 batch
     # (its TD cases only pad to the same Dpk 4096), the bisect's six at
     # 8 x 1024 x 2048 and its full variant at 32 x 256 x 2048 and at
-    # 8 x 4096 x 8192 (the top of the shared-memory path); then the
-    # probe's base case against kernel A
+    # 8 x 4096 x 8192 (the top of the lane builds); then the probe's
+    # base case against kernel A
     inps, _c = TC.pair_jobs(16, 2047)
     jobs16 = TC.job_arrays(inps)
     kw = VP.probe_args(jobs16, dev)
@@ -684,6 +752,14 @@ def main():
     for shape in ((32, 256, 2048), (8, 4096, 8192)):
         probe_check("bisect", "x".join(map(str, shape)), bisect_kw(*shape),
                     ("full",))
+    every = {r for r, _top in VL.LANES} | {0}
+    short = {k: sorted(every - b) for k, b in probe_builds.items()
+             if b != every}
+    if short:
+        fail("kernel_probe: flag sets that missed builds of kernel F's "
+             "plan: %s" % json.dumps(short))
+    log("kernel_probe: every flag set of both entry points met every build "
+        "of kernel F's plan (rows a thread %s)" % sorted(every))
     bp, fM, fX, fY = VP.probe_fill(**kw)
     codes, corner = VL.linear_fill(**VL.linear_batch_args(jobs16, dev))
     torch.cuda.synchronize()
@@ -1409,7 +1485,8 @@ def main():
             "plain_ms": plain_ms, "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None,
             "timed_on": "%s tool, %s, B %d, Dpk %d"
-            % (tool, res["case"], res["B"], res["Dpk"])})
+            % (tool, res["case"], res["B"], res["Dpk"]),
+            "plan": probe_plan_text(VP, res["Lp"])})
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps(kernels_line))
     print(smi)

@@ -31,9 +31,6 @@ LAUNCHES = 0          # kernel A launches (one per linear_fill on CUDA)
 PLAIN_CALLS = 0       # linear_fill_plain calls made by linear_fill
 
 _BIG = np.int32(2 ** 30)     # "never valid" lower bound sentinel
-# rows whose three diagonals (9 * Lp * 4 bytes) fit shared memory (kernel
-# F's layout, viterbi_linear_probe)
-SHARED_ROWS = 4096
 # kernel A's lane builds: rows a thread and the most rows each is planned
 # for; past the last, the global build
 LANES = ((1, 128), (2, 2048), (4, 4096))
@@ -206,15 +203,23 @@ def linear_plan(Lp: int) -> dict:
                 diagonals="global")
 
 
+def has_build(plan, Lp: int) -> bool:
+    """Whether the builds of kernels A and F (one, two or four rows a
+    thread in whole warps, or the global build) take `plan` on Lp
+    rows."""
+    rows, threads = plan["rows"], plan["threads"]
+    return rows in (0,) + tuple(r for r, _top in LANES) and \
+        32 <= threads <= 1024 and threads % 32 == 0 and \
+        not (rows and (Lp % 32 or rows * threads < Lp)) and \
+        plan["diagonals"] == ("registers" if rows else "global")
+
+
 def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
     """One launch of kernel A as `plan` (linear_plan) says. A plan with
     no build raises ValueError before anything is launched."""
     B, D, Lp = ms.shape
     rows, threads = plan["rows"], plan["threads"]
-    if rows not in (0,) + tuple(r for r, _top in LANES) or \
-            not 32 <= threads <= 1024 or threads % 32 or \
-            (rows and (Lp % 32 or rows * threads < Lp)) or \
-            plan["diagonals"] != ("registers" if rows else "global"):
+    if not has_build(plan, Lp):
         raise ValueError("kernel A has no build for the plan %s on %d rows"
                          % (plan, Lp))
     lib = kernels.load("viterbi_linear")

@@ -17,7 +17,8 @@ TPU. The probe's `vmem_mb` is a Mosaic VMEM limit with no CUDA
 counterpart and is not taken.
 
 Device rule: a CPU tensor takes the plain version; a CUDA tensor
-launches kernel F or raises.
+launches kernel F as probe_plan(Lp) (kernel A's launch plan) says, or
+raises.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .viterbi_linear import SHARED_ROWS, linear_batch_args
+from .viterbi_linear import has_build, linear_batch_args, linear_plan
 
 # flag bits, as in the CUDA source
 NOBP, NOMS, NOMASK, NOCORNER, NOROLL = 1, 2, 4, 8, 16
@@ -132,8 +133,30 @@ def _check_args(fscal, iscal, gexti, ol, vlo, vhi, ms, TD):
     return Dpk, B, Lp
 
 
-def _launch(entry, key, flags, neg, fscal, iscal, gexti, ol, vlo, vhi, ms):
+def probe_plan(Lp: int) -> dict:
+    """How kernel F is launched on Lp rows: kernel A's plan
+    (viterbi_linear.linear_plan), so that F's flag sets split A's step
+    on the build A runs. rows: 1, 2 or 4 consecutive rows a thread, their
+    M, X, Y in registers (1 up to 128 rows, 2 up to 2048, 4 up to 4096);
+    0, the global build (threads strided over the rows, three diagonals
+    in a global scratch) past 4096 rows or on rows that are not a whole
+    number of warps; threads: the block."""
+    return linear_plan(Lp)
+
+
+def _launch(plan, entry, key, flags, neg, fscal, iscal, gexti, ol, vlo,
+            vhi, ms):
+    """One launch of kernel F's `entry` as `plan` (probe_plan) says. A
+    plan with no build raises ValueError before anything is loaded or
+    launched."""
     Dpk, B, Lp = ms.shape
+    rows, threads = plan["rows"], plan["threads"]
+    if not has_build(plan, Lp):
+        raise ValueError("kernel F has no build for the plan %s on %d rows"
+                         % (plan, Lp))
+    if rows and ms.data_ptr() % (4 * rows):
+        raise ValueError("ms must be aligned to %d bytes for the %d-row "
+                         "build" % (4 * rows, rows))
     lib = kernels.load("viterbi_linear_probe")
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
@@ -142,10 +165,8 @@ def _launch(entry, key, flags, neg, fscal, iscal, gexti, ol, vlo, vhi, ms):
     bp = torch.empty((Dpk, B, Lp), dtype=torch.int8, device=ms.device)
     fM, fX, fY = (torch.empty((B, Lp), dtype=torch.float32,
                               device=ms.device) for _ in range(3))
-    use_shared = Lp <= SHARED_ROWS
-    gbuf = None if use_shared else torch.empty(
+    gbuf = None if rows else torch.empty(
         (B, 9, Lp), dtype=torch.float32, device=ms.device)
-    threads = min(1024, -(-Lp // 32) * 32)
     with torch.cuda.device(ms.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(fscal.data_ptr(), iscal.data_ptr(), gexti.data_ptr(),
@@ -153,7 +174,7 @@ def _launch(entry, key, flags, neg, fscal, iscal, gexti, ol, vlo, vhi, ms):
                  ms.data_ptr(), bp.data_ptr(), fM.data_ptr(),
                  fX.data_ptr(), fY.data_ptr(),
                  0 if gbuf is None else gbuf.data_ptr(), neg, B, Dpk, Lp,
-                 int(use_shared), threads, flags, stream)
+                 rows, threads, flags, stream)
     if err == -1:
         raise RuntimeError("%s has no instantiation for flags %d" %
                            (entry, flags))
@@ -177,8 +198,8 @@ def probe_fill(fscal, iscal, gexti, ol, vlo, vhi, ms, TD: int = 16,
     if ms.device.type == "cpu":
         PLAIN_CALLS[key] += 1
         return probe_fill_plain(*args, opts=opts)
-    return _launch("viterbi_probe_launch", key, _flags(name), PROBE_NEG,
-                   *args)
+    return _launch(probe_plan(ms.shape[2]), "viterbi_probe_launch", key,
+                   _flags(name), PROBE_NEG, *args)
 
 
 def bisect_fill(fscal, iscal, gexti, ol, vlo, vhi, ms, variant: str = "",
@@ -194,8 +215,8 @@ def bisect_fill(fscal, iscal, gexti, ol, vlo, vhi, ms, variant: str = "",
     if ms.device.type == "cpu":
         PLAIN_CALLS[key] += 1
         return bisect_fill_plain(*args, variant=variant)
-    return _launch("viterbi_bisect_launch", key, _flags(name), BISECT_NEG,
-                   *args)
+    return _launch(probe_plan(ms.shape[2]), "viterbi_bisect_launch", key,
+                   _flags(name), BISECT_NEG, *args)
 
 
 # ----------------------------------------------------------------------

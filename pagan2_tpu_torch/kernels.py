@@ -15,6 +15,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -34,6 +35,8 @@ SHARED_BYTES = 227 * 1024
 _libs: dict = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
 BUILD_LOG: dict = {}
+# seconds each source's nvcc took (the sources build side by side)
+BUILD_SECONDS: dict = {}
 
 
 def nvcc_path() -> str:
@@ -73,13 +76,20 @@ def _start(name: str):
     tmp = "%s.%d.tmp" % (so, os.getpid())
     cmd = [nvcc_path()] + NVCC_FLAGS + EXTRA_FLAGS.get(name, []) + \
         ["-o", tmp, src]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, so
+    # nvcc's report goes to a file, so that no process waits on a full
+    # pipe while another one is awaited
+    log = open(tmp + ".log", "w+")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, log, tmp, so
 
 
-def _finish(name: str, proc, tmp: str, so: str):
-    out, _ = proc.communicate()
+def _finish(name: str, proc, log, tmp: str, so: str):
+    proc.wait()
+    log.seek(0)
+    out = log.read()
+    log.close()
+    os.remove(log.name)
     BUILD_LOG[name] = out
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed for csrc/%s.cu:\n%s" % (name, out))
@@ -88,13 +98,22 @@ def _finish(name: str, proc, tmp: str, so: str):
 
 def build(*names: str) -> None:
     """Compile the named kernels that are missing or stale, one nvcc
-    process per source, all started together."""
+    process per source, all started together; BUILD_SECONDS gets each
+    one's time."""
     todo = [n for n in names if _stale(n)]
+    t0 = time.time()
     started = [(n,) + _start(n) for n in todo]
+    running = {n: proc for n, proc, *_rest in started}
+    while running:
+        for n, proc in list(running.items()):
+            if proc.poll() is not None:
+                BUILD_SECONDS[n] = time.time() - t0
+                del running[n]
+        time.sleep(0.05)
     errors = []
-    for n, proc, tmp, so in started:
+    for n, proc, log, tmp, so in started:
         try:
-            _finish(n, proc, tmp, so)
+            _finish(n, proc, log, tmp, so)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:

@@ -60,7 +60,8 @@ def main(argv=None):
                             "  Dpk %d  bound %.5f ms (%s)"
                             % (Dpk, bound, by)), flush=True)
         results.append(dict(case=name, variant=VP.probe_variant(opts),
-                            TD=TD, B=B, N=N, Dpk=Dpk, ms=ms,
+                            TD=TD, B=B, N=N, Lp=kw["ms"].shape[2],
+                            Dpk=Dpk, ms=ms,
                             us_per_diag=1e3 * ms / Dpk,
                             gcups=cells / (ms * 1e-3) / 1e9,
                             bound_ms=bound, bound_by=by))

@@ -955,8 +955,8 @@ def _same_probe(out, ref, codes=True):
                          ids=lambda o: "+".join(o) or "base")
 def test_probe_kernel_matches_plain(cuda, opts, rows):
     """Kernel F's probe entry point, every flag set: two 511 bp pairs
-    (diagonals in shared memory), and a 4,200-site left side against 64
-    sites cut to its first 512 diagonals (global scratch)."""
+    (two rows a thread), and a 4,200-site left side against 64 sites cut
+    to its first 512 diagonals (the global build)."""
     if rows == 511:
         inps, _cells = pair_jobs(2, 511)
     else:
@@ -968,7 +968,7 @@ def test_probe_kernel_matches_plain(cuda, opts, rows):
     kw = VP.probe_args(job_arrays(inps), cuda, TD=16)
     if rows > 511:
         kw["ms"] = kw["ms"][:512].contiguous()
-    assert (kw["ms"].shape[2] > tl.SHARED_ROWS) == (rows > 511)
+    assert (VP.probe_plan(kw["ms"].shape[2])["rows"] == 0) == (rows > 511)
     key = "probe:" + VP.probe_variant(opts)
     n0 = VP.LAUNCHES[key]
     out = VP.probe_fill(**kw, opts=opts)
@@ -986,8 +986,8 @@ def test_probe_kernel_matches_plain(cuda, opts, rows):
                          ids=lambda v: v or "full")
 def test_bisect_kernel_matches_plain(cuda, variant, shape):
     """Kernel F's bisect entry point, every variant, on the tool's random
-    inputs: 512 and 4,096 rows (shared memory, the latter its top) and
-    4,224 rows (global scratch)."""
+    inputs: 512 and 4,096 rows (two and four rows a thread, the latter
+    the top of the lane builds) and 4,224 rows (the global build)."""
     kw = bisect_inputs(*shape, cuda)
     key = "bisect:" + VP.bisect_variant(variant)
     n0 = VP.LAUNCHES[key]
@@ -996,6 +996,102 @@ def test_bisect_kernel_matches_plain(cuda, variant, shape):
     torch.cuda.synchronize()
     assert VP.LAUNCHES[key] == n0 + 1
     _same_probe(out, ref)
+
+
+# kernel F's batches for each build of its plan: the probe's pairs (left
+# and right sites; one job fills Lp, so row Lp - 1 is live and the roll
+# shows, the others leave rows past L) and the bisect's random inputs (B,
+# Lp, Dpk; Dpk past Lp, so the last warp and the wrap are live). Lp 128,
+# 1024, 2080 (four rows: 544 threads, the last warp partial) and past
+# 4096; the bisect's global build on 100 rows, not whole warps.
+PROBE_BUILDS = {1: [(127, 40), (90, 70), (60, 20)],
+                2: [(1023, 40), (700, 60)],
+                4: [(2079, 30), (1500, 60)],
+                0: [(4223, 20), (3000, 40)]}
+BISECT_BUILDS = {1: (2, 96, 256), 2: (2, 544, 1152), 4: (2, 2080, 2304),
+                 0: (2, 100, 256)}
+
+
+def _probe_build_batch(rows, dev):
+    rng = np.random.default_rng(40 + rows)
+    inps = []
+    for n1, n2 in PROBE_BUILDS[rows]:
+        g1, _g2 = _related(rng, n1)
+        base = rng.choice(list("ACGT"), size=n2)
+        inps.append(tl._add_scalar_params(prepare_sheared(
+            g1, build_leaf_graph("".join(base), alph.DNA), MODEL,
+            AlignSettings(), np.float32)))
+    return VP.probe_args(job_arrays(inps), dev, TD=16)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 0])
+@pytest.mark.parametrize("tool,variant",
+                         [("probe", v) for v in VP.PROBE_VARIANTS] +
+                         [("bisect", v) for v in VP.BISECT_VARIANTS])
+def test_probe_every_build_matches_plain(cuda, tool, variant, rows):
+    """Kernel F, every flag set of both entry points, on a batch whose
+    plan takes each build (one, two and four rows a thread, the last
+    warp partial at Lp 2080, and the global build past 4096 rows or on
+    rows that are not whole warps), bit for bit against its plain
+    version; then every other build that can take the batch, launched
+    whatever the plan says, against the same."""
+    if tool == "probe":
+        kw = _probe_build_batch(rows, cuda)
+        opts = () if variant == "base" else tuple(variant.split("+"))
+        ref = VP.probe_fill_plain(**kw, opts=opts)
+        entry, neg, codes = "viterbi_probe_launch", VP.PROBE_NEG, \
+            "nobp" not in opts
+    else:
+        kw = bisect_inputs(*BISECT_BUILDS[rows], cuda)
+        ref = VP.bisect_fill_plain(**kw, variant=variant)
+        entry, neg, codes = "viterbi_bisect_launch", VP.BISECT_NEG, True
+    Dpk, B, Lp = kw["ms"].shape
+    assert VP.probe_plan(Lp)["rows"] == rows
+    key = "%s:%s" % (tool, variant)
+    n0 = VP.LAUNCHES[key]
+    out = (VP.probe_fill(**kw, opts=opts) if tool == "probe"
+           else VP.bisect_fill(**kw, variant=variant))
+    torch.cuda.synchronize()
+    assert VP.LAUNCHES[key] == n0 + 1
+    _same_probe(out, ref, codes=codes)
+    others = [dict(rows=r, threads=tl._block(Lp, r), diagonals="registers")
+              for r, _top in tl.LANES if Lp % 32 == 0 and
+              tl._block(Lp, r) <= 1024 and r != rows]
+    if rows:
+        others.append(dict(rows=0, threads=min(1024, tl._block(Lp, 1)),
+                           diagonals="global"))
+    for plan in others:
+        out = VP._launch(plan, entry, key, VP._flags(variant), neg,
+                         *(kw[k] for k in ("fscal", "iscal", "gexti", "ol",
+                                           "vlo", "vhi", "ms")))
+        torch.cuda.synchronize()
+        _same_probe(out, ref, codes=codes)
+
+
+def test_probe_kernel_refuses_plans_it_has_no_build_for(cuda):
+    """The kernel's own launcher (past the wrapper's check) refuses a
+    plan it has no build for: cudaErrorInvalidValue, nothing launched;
+    and a flag set it has no instantiation for: UNKNOWN_FLAGS (-1)."""
+    import ctypes
+    from pagan2_tpu_torch import kernels
+    kw = bisect_inputs(2, 544, 64, cuda)
+    fn = kernels.load("viterbi_linear_probe").viterbi_bisect_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_float] + \
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bp = torch.zeros((64, 2, 544), dtype=torch.int8, device=cuda)
+    corner = [torch.zeros((2, 544), device=cuda) for _ in range(3)]
+    ins = [kw[k].data_ptr() for k in ("fscal", "iscal", "gexti", "ol",
+                                      "vlo", "vhi", "ms")]
+    for rows, threads, flags, want in ((3, 192, 0, 1), (2, 128, 0, 1),
+                                       (1, 2048, 0, 1), (4, 100, 0, 1),
+                                       (0, 544, 0, 1), (2, 288, 2, -1)):
+        err = fn(*ins, bp.data_ptr(), *(c.data_ptr() for c in corner), 0,
+                 VP.BISECT_NEG, 2, 64, 544, rows, threads, flags,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == want, (rows, threads, flags)
+    assert not bool(bp.any())
 
 
 def test_probe_base_matches_kernel_a(cuda):
