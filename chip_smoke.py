@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch/CUDA port (pagan2_tpu_torch) runs on
 an NVIDIA GPU: builds the hand-written CUDA kernels from csrc/, holds
 each against its plain PyTorch version on the card, and drives the
-progressive-alignment main path, the long-pair paths and the
-full-probability and sampling path end to end through the port's CLI.
+progressive-alignment main path, the long-pair paths, the
+full-probability and sampling path and the read paths (--pileup,
+--pair-end) end to end through the port's CLI.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -14,7 +15,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                (tools/bench_linear_calls.py's linear_batches), 4 x 120 and
                2 x 3,000 against 700; codes and corner scores bit-equal,
                each batch with its launch plan and us per diagonal, every
-               build of the plan (1, 2 and 4 rows a thread, global) met
+               build of the plan (1, 2 and 4 rows a thread, global) met;
+               then kernel A's pair-end build (the break column, M's
+               candidates compared after the score is added) on
+               tools/bench_linear_calls.py's pair_end_batches: breaks at
+               0, 1, mid, R - 2, R - 1 and none, with and without reduced
+               terminal penalties, every build forced on the same batch,
+               and 2 jobs past 4096 rows; bit-equal, each build timed in
+               its pair-end and its ordinary form
   kernel_fanin   kernel B vs fanin_fill_plain: 454-style K3/3 graphs at
                16 x 2047 (kernel timed), over-cap ancestor graphs, a
                windowed case; codes and snapshots bit-equal
@@ -58,7 +66,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
                and kernel B launched, an anchored fan-in fill ran, no
-               plain version ran; then an 8 x 767 family of the same
+               plain version ran; then an 8 x 511 family of the same
                generator with the kernels and with the plain versions
                forced on CUDA must give byte-identical FASTA
   fullprob_path  the 16 x 1535 family through the CLI with
@@ -66,13 +74,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                launched on linear and on fan-in jobs, kernels A and B for
                the Viterbi fills, no plain version, posterior support of
                the root's sites in (0, 1] (1.02 with f32 rounding); then --sample-path --seed 7:
-               every row intact; then both flags on an 8 x 767 family
+               every row intact; then both flags on an 8 x 511 family
                with the kernels and with the plain versions forced on
                CUDA: byte-identical FASTA, posterior support within 1e-5
   long_family  4 x 4,000 bp family (the same generator, seed 5) through
                the CLI: 2 banded fills on kernel C, an anchored fan-in
                fill on kernel B, no plain version; then the plain
                versions forced: byte-identical FASTA
+  pileup_path  bench.py's 454 amplicon demo (tools/reads.py's
+               amplicon_reads: 40 x 384 reads, default_rng(3)) through the
+               CLI with --pileup --homopolymer --output-consensus: 40
+               placed, a 496-bp consensus, out.fas and out_consensus.fas
+               the JAX CLI's bytes (sha256), kernel B launched, no plain
+               version; then 160 reads of the same generator, timed by
+               host phase (read_alignment_scores, _extract, ancestral
+               build, fan-in prep, kernel B calls)
+  pairend_path the 40 reads as pair-end FASTQ reads (a 60-120 bp insert
+               cut out of each) with --pileup --pair-end, default and
+               --no-anchors: the JAX CLI's bytes, each other's bytes,
+               kernel B launched on preps with a break set, kernel A's
+               pair-end build launched in the --no-anchors run; then 8
+               of them with --full-probability: the JAX CLI's bytes;
+               then 12 x 192 reads with --both-strands --build-contigs
+               and as pair-end reads with --build-contigs, each with the
+               kernels and with the plain versions forced on CUDA:
+               byte-identical .fas and _contigs.fas
   megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
@@ -92,10 +118,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                bit-equal, kernel E with its launch plans and us per
                diagonal; kernels A and B on every call of the main path
                and of the --full-probability run, bit-equal, with their
-               launch plans and us per diagonal)
-  trace        the main path and the --full-probability path once more
-               under torch.profiler: the device's busy share and time by
-               kernel
+               launch plans and us per diagonal; kernel A's ordinary
+               build on the main path's call beside its 1.614 ms from
+               before the pair-end build existed)
+  trace        the main path, the --full-probability path and the pileup
+               path once more under torch.profiler: the device's busy
+               share and time by kernel
 
 Prints a {"kernels": [...]} line, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}.
@@ -264,8 +292,8 @@ def main():
     from pagan2_tpu_torch.tools.bench_fullprob import (fanin_plan_text,
                                                        plan_text)
     from pagan2_tpu_torch.tools.bench_linear_calls import (
-        batch_args as linear_batch_args, linear_batches,
-        plan_text as linear_plan_text)
+        batch_args as linear_batch_args, lane_plans, linear_batches,
+        pair_end_batches, plan_text as linear_plan_text)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -347,6 +375,46 @@ def main():
              "not every one" % sorted(lin_builds))
     log("kernel_linear: every build of kernel A met (rows a thread %s)"
         % sorted(lin_builds))
+
+    # pair-end batches (tools/bench_linear_calls.py's pair_end_batches,
+    # their own generator): break columns 0, 1, mid, R - 2, R - 1 and
+    # none, with and without reduced terminal penalties, each build of
+    # the plan forced on the same batch; 2 jobs past 4096 rows on the
+    # plan's global build. Each build is timed in its pair-end form and
+    # in its ordinary form on the same inputs.
+    pe_builds = set()
+    pe_us = {}
+    for what, inps in pair_end_batches(model):
+        args = linear_batch_args(VL, inps, [None] * len(inps), dev)
+        if not args["pair_end"]:
+            fail("kernel_linear %s: not a pair-end batch" % what)
+        pc, pk = VL.linear_fill_plain(**args)
+        B, D, Lp = args["ms"].shape
+        for k, (text, plan) in enumerate(lane_plans(VL, Lp)):
+            codes, corner = VL._launch_linear(plan, **args)
+            torch.cuda.synchronize()
+            if not torch.equal(codes, pc) or not same_floats(corner, pk):
+                fail("kernel_linear %s: the pair-end build %s differs from "
+                     "the plain version (%d codes)"
+                     % (what, text, int((codes != pc).sum())))
+            if not bool(torch.isfinite(corner).any(dim=1).all()):
+                fail("kernel_linear %s: a job never reached its corner"
+                     % what)
+            lin_err = max(lin_err, max_abs_err(corner, pk))
+            pe_builds.add(plan["rows"])
+            ms_pe = cuda_ms(lambda: VL._launch_linear(plan, **args), 3)
+            ms_or = cuda_ms(lambda: VL._launch_linear(
+                plan, **dict(args, pair_end=False)), 3)
+            pe_us.setdefault(text, []).append(
+                (1e3 * ms_pe / D, 1e3 * ms_or / D))
+            log("kernel_linear %s: %d jobs, Lp %d, D %d, %s%s: bit-equal; "
+                "pair-end build %.3f ms (%.3f us per diagonal), ordinary "
+                "build on the same inputs %.3f ms (%.3f us)"
+                % (what, B, Lp, D, text, " (plan)" if k == 0 else "",
+                   ms_pe, 1e3 * ms_pe / D, ms_or, 1e3 * ms_or / D))
+    if pe_builds != {r for r, _top in VL.LANES} | {0}:
+        fail("kernel_linear: the pair-end batches met the builds %s"
+             % sorted(pe_builds))
 
     # ---- kernel_fanin ----
     def fanin_check(inps, what, timed=False, **kw):
@@ -814,6 +882,7 @@ def main():
     os.makedirs(work, exist_ok=True)
 
     from pagan2_tpu_torch import pipeline as PIPE
+    from pagan2_tpu_torch.pipeline import pileup as PILE
     # each wrapper's module and name; A, B and C count in module-level
     # integers, the four entry points of D and E in dicts by name
     KERNELS = {"linear": (VL, "linear_fill"), "fanin": (VF, "fanin_fill"),
@@ -848,24 +917,32 @@ def main():
     def run_cli(what, fas, nh, out, fills, extra=()):
         """One CLI run with `fills` in the wrappers' places and every
         count set to 0 just before it; returns (wall s, launches per
-        kernel, plain-version calls, EXEC_STATS) read just after."""
+        kernel, plain-version calls, EXEC_STATS) read just after. With
+        nh None, fas is the read file of a --pileup run."""
         EX.reset_stats()
         zero_counts()
+        VL.PAIR_END_LAUNCHES = 0
         for k, (m, n) in KERNELS.items():
             setattr(m, n, fills[k])
-        align_progressive = PIPE.align_progressive
+        captured = [(PIPE, "align_progressive"), (PILE, "pileup_align")]
+        saved = [getattr(m, n) for m, n in captured]
 
-        def capture(*a, **kw):
-            last_result[0] = align_progressive(*a, **kw)
-            return last_result[0]
-        PIPE.align_progressive = capture
+        def capture(fn):
+            def run(*a, **kw):
+                last_result[0] = fn(*a, **kw)
+                return last_result[0]
+            return run
+        for (m, n), fn in zip(captured, saved):
+            setattr(m, n, capture(fn))
+        argv = ["-s", fas, "-t", nh] if nh else ["--pileup", "-q", fas]
         t = time.time()
         try:
-            rc = CLI.main(["-s", fas, "-t", nh, "-o", out, "--silent",
-                           "--time"] + list(extra))
+            rc = CLI.main(argv + ["-o", out, "--silent", "--time"]
+                          + list(extra))
             torch.cuda.synchronize()
         finally:
-            PIPE.align_progressive = align_progressive
+            for (m, n), fn in zip(captured, saved):
+                setattr(m, n, fn)
             for k, (m, n) in KERNELS.items():
                 setattr(m, n, real[k])
         if rc != 0:
@@ -877,8 +954,9 @@ def main():
                     for m, n in KERNELS.values()),
                 dict(EX.EXEC_STATS))
 
-    # the ProgressiveResult of the last run_cli (its root graph carries
-    # the posterior support of a --full-probability run)
+    # the ProgressiveResult (or PileupResult) of the last run_cli (its
+    # root graph carries the posterior support of a --full-probability
+    # run)
     last_result = [None]
 
     def check_rows(what, out, seqs):
@@ -928,9 +1006,9 @@ def main():
     if stats["fanin_windowed"] + stats["fanin_banded_full"] < 1:
         fail("main_path: no anchored fan-in fill ran")
     a = open(out_kernel + ".fas", "rb").read()
-    # the forced-plain comparisons run on an 8 x 767 family of the same
+    # the forced-plain comparisons run on an 8 x 511 family of the same
     # generator: the plain versions take over a minute at 16 x 1535
-    seqs8, tree8 = family(8, 767)
+    seqs8, tree8 = family(8, 511)
     fas8, nh8 = write_input(work, "family8", seqs8, tree8)
     out8 = os.path.join(work, "main8_kernel")
     _w, c8, plain_calls, stats8 = run_cli("main8", fas8, nh8, out8, real)
@@ -997,7 +1075,7 @@ def main():
     if counts_sp["linear"] or counts_sp["fanin"]:
         fail("fullprob_path sampled: a Viterbi fill ran for a sampled path")
 
-    # kernels against forced plain versions, both flags, on 8 x 767
+    # kernels against forced plain versions, both flags, on 8 x 511
     for tag, extra in (("fullprob8", ["--full-probability"]),
                        ("sampled8", ["--sample-path", "--seed", "7"])):
         out8 = os.path.join(work, tag + "_kernel")
@@ -1035,6 +1113,193 @@ def main():
     if plain_calls:
         fail("long_family: %d plain-version calls on CUDA" % plain_calls)
     same_output("long_family", out_long, seqs4, fas4, nh4)
+
+    # ---- pileup_path: bench.py's 454 amplicon demo through the CLI ----
+    # sha256 of the JAX CLI's outputs on the same read files, made on
+    # the CPU with its Pallas kernels in interpret mode and x64 off
+    # (REFERENCE in tests/test_torch_pileup.py), the reads written by
+    # pagan2_tpu_torch/tools/reads.py as below:
+    #   python -c "$REFERENCE" --pileup --homopolymer --output-consensus \
+    #       -q reads40.fas -o ref                  (41 rows, 0 discarded)
+    #   python -c "$REFERENCE" --pileup --pair-end [--no-anchors] \
+    #       -q reads40.fastq -o ref                (40 rows, 0 discarded)
+    #   python -c "$REFERENCE" --pileup --pair-end --full-probability \
+    #       -q reads8.fastq -o ref                 (8 rows, 0 discarded)
+    PILEUP40_FAS = ("f8503a9dd6e54ddbb510d0cb6c7a3ce1"
+                    "f8623b86b93beec2bd1f65d00a1876ea")
+    PILEUP40_CONSENSUS = ("9d6ddc86c2b7fc9cd261567a7dc181ef"
+                          "da4d4ba92ba926ea5c481663d06c3b6e")
+    PAIREND40_FAS = ("075d770b8790b9fba9ba98a359aa67bf"
+                     "083e1e8133957b2e512132bf4a320c71")
+    PAIREND8_FP_FAS = ("dd3ad3fdfe2ad01f4aac26440eb6dba6"
+                       "57490c820a7ea6d01ff984c88efc3ae7")
+    import hashlib
+    from pagan2_tpu_torch.tools.reads import (amplicon_reads,
+                                              pair_end_reads, write_reads)
+
+    def sha(path):
+        return hashlib.sha256(open(path, "rb").read()).hexdigest()
+
+    def route_text(counts, stats):
+        return ("launches A=%d (pair-end build %d) B=%d C=%d; routes: %d "
+                "batched fan-in launches, %d windowed + %d full-width "
+                "anchored fan-in fills, %d banded linear fills, %d single "
+                "jobs" % (counts["linear"], VL.PAIR_END_LAUNCHES,
+                          counts["fanin"], counts["banded"],
+                          stats["fanin_batches"], stats["fanin_windowed"],
+                          stats["fanin_banded_full"], stats["banded_fills"],
+                          stats["single_jobs"]))
+
+    path_launches = {"main_path": counts, "fullprob_path": counts_fp,
+                     "long_family": counts_long}
+    reads40 = amplicon_reads(40, 384, 420)
+    fas40 = write_reads(os.path.join(work, "reads40.fas"), reads40)
+    out_pile = os.path.join(work, "pileup40")
+    wall, counts_pile, plain_calls, stats = run_cli(
+        "pileup_path", fas40, None, out_pile, real,
+        ["--homopolymer", "--output-consensus"])
+    pres = last_result[0]
+    placed = len(reads40) - len(pres.discarded)
+    log("pileup_path: 40 x 384 reads --homopolymer --output-consensus, %d "
+        "placed, consensus %d bp, in %.1f s; %s"
+        % (placed, len(pres.consensus or ""), wall,
+           route_text(counts_pile, stats)))
+    if placed != 40 or len(pres.consensus or "") != 496:
+        fail("pileup_path: %d placed, consensus %d bp (the JAX CLI: 40, "
+             "496)" % (placed, len(pres.consensus or "")))
+    if sha(out_pile + ".fas") != PILEUP40_FAS or \
+            sha(out_pile + "_consensus.fas") != PILEUP40_CONSENSUS:
+        fail("pileup_path: the output differs from the JAX CLI's")
+    if counts_pile["fanin"] < 1 or plain_calls:
+        fail("pileup_path: launches %s, %d plain-version calls"
+             % (counts_pile, plain_calls))
+    log("pileup_path: out.fas and out_consensus.fas are the JAX CLI's bytes")
+    path_launches["pileup_path"] = counts_pile
+
+    # the scale point: 160 reads of the same generator, timed by phase
+    host = {}
+
+    def timed_host(fn, key, sync=False):
+        def run(*a, **kw):
+            t = time.time()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            host[key] = host.get(key, 0.0) + time.time() - t
+            return out
+        return run
+    reads160 = amplicon_reads(160, 384, 420)
+    fas160 = write_reads(os.path.join(work, "reads160.fas"), reads160)
+    fills = dict(real)
+    fills["fanin"] = timed_host(real["fanin"], "kernel B calls", True)
+    patches = [(PILE, "read_alignment_scores", "read_alignment_scores"),
+               (PILE, "_extract", "_extract"),
+               (ALIGN, "build_ancestral_graph", "ancestral build"),
+               (VF, "prepare_fanin", "prepare_fanin")]
+    saved = [(m, n, getattr(m, n)) for m, n, _k in patches]
+    for m, n, key in patches:
+        setattr(m, n, timed_host(getattr(m, n), key))
+    try:
+        wall, counts160, plain_calls, stats = run_cli(
+            "pileup_160", fas160, None, os.path.join(work, "pileup160"),
+            fills, ["--homopolymer", "--output-consensus"])
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    placed = len(reads160) - len(last_result[0].discarded)
+    log("pileup_160: 160 x 384 reads, %d placed, consensus %d bp, in %.1f "
+        "s; %s; %d plain-version calls" % (
+            placed, len(last_result[0].consensus or ""), wall,
+            route_text(counts160, stats), plain_calls))
+    for key, v in host.items():
+        log("pileup_160 host phase %-24s %8.3f s" % (key, v))
+    if counts160["fanin"] < 1 or plain_calls:
+        fail("pileup_160: launches %s, %d plain-version calls"
+             % (counts160, plain_calls))
+    path_launches["pileup_160"] = counts160
+
+    # ---- pairend_path: the same reads as pair-end FASTQ reads ----
+    pe40 = pair_end_reads(reads40, 60, 120)
+    fq40 = write_reads(os.path.join(work, "reads40.fastq"), pe40)
+    preps = []
+    prepare_fanin = VF.prepare_fanin
+
+    def counting_prep(*a, **kw):
+        inp = prepare_fanin(*a, **kw)
+        preps.append(bool(inp["pair_end"]))
+        return inp
+    pe_out = {}
+    for tag, extra in (("pairend_path", []),
+                       ("pairend_no_anchors", ["--no-anchors"])):
+        del preps[:]
+        VF.prepare_fanin = counting_prep
+        try:
+            wall, c_pe, plain_calls, stats = run_cli(
+                tag, fq40, None, os.path.join(work, tag), real,
+                ["--pair-end"] + extra)
+        finally:
+            VF.prepare_fanin = prepare_fanin
+        pe_out[tag] = open(os.path.join(work, tag + ".fas"), "rb").read()
+        log("%s: 40 pair-end reads (a 60-120 bp insert cut out of each), "
+            "%d placed, in %.1f s; %s; %d of %d fan-in preps with a break "
+            "set" % (tag, 40 - len(last_result[0].discarded), wall,
+                     route_text(c_pe, stats), sum(preps), len(preps)))
+        if hashlib.sha256(pe_out[tag]).hexdigest() != PAIREND40_FAS:
+            fail("%s: the output differs from the JAX CLI's" % tag)
+        if c_pe["fanin"] < 1 or not any(preps) or plain_calls:
+            fail("%s: kernel B never launched with a break set, or %d "
+                 "plain-version calls" % (tag, plain_calls))
+        if extra and VL.PAIR_END_LAUNCHES < 1:
+            fail("%s: kernel A's pair-end build never launched" % tag)
+        path_launches[tag] = dict(c_pe, linear_pair_end=VL.PAIR_END_LAUNCHES)
+    if pe_out["pairend_path"] != pe_out["pairend_no_anchors"]:
+        fail("pairend_path: default and --no-anchors runs differ")
+    fq8 = write_reads(os.path.join(work, "reads8.fastq"), pe40[:8])
+    wall, c_fp, plain_calls, stats = run_cli(
+        "pairend_fullprob", fq8, None, os.path.join(work, "pairend_fp"),
+        real, ["--pair-end", "--full-probability"])
+    log("pairend_fullprob: 8 pair-end reads --full-probability in %.1f s; "
+        "launches D=%d+%d E=%d+%d (linear + fan-in); %s"
+        % (wall, c_fp["fp_fwd"], c_fp["fp_fwd_fanin"], c_fp["fp_bwd"],
+           c_fp["fp_bwd_fanin"], route_text(c_fp, stats)))
+    if sha(os.path.join(work, "pairend_fp.fas")) != PAIREND8_FP_FAS:
+        fail("pairend_fullprob: the output differs from the JAX CLI's")
+    if plain_calls or c_fp["fp_fwd"] + c_fp["fp_fwd_fanin"] < 1:
+        fail("pairend_fullprob: launches %s, %d plain-version calls"
+             % (c_fp, plain_calls))
+    log("pairend_path: default, --no-anchors and --full-probability runs "
+        "give the JAX CLI's bytes")
+    path_launches["pairend_fullprob"] = c_fp
+
+    # ---- the read paths with the plain versions forced, at a small
+    # depth: 12 x 192 reads of the same generator ----
+    reads12 = amplicon_reads(12, 192, 220)
+    for tag, rfile, extra in (
+            ("pileup12", write_reads(os.path.join(work, "reads12.fas"),
+                                     reads12),
+             ["--both-strands", "--build-contigs"]),
+            ("pairend12", write_reads(os.path.join(work, "reads12.fastq"),
+                                      pair_end_reads(reads12, 30, 60)),
+             ["--pair-end", "--build-contigs"])):
+        outs = {}
+        for kind, fl in (("kernel", real), ("plain", plain)):
+            o = os.path.join(work, "%s_%s" % (tag, kind))
+            wall, c12, plain_calls, _st = run_cli(tag, rfile, None, o, fl,
+                                                  extra)
+            outs[kind] = [open(o + sfx, "rb").read()
+                          for sfx in (".fas", "_contigs.fas")]
+            # the plain versions stand in the wrappers' places, so a
+            # forced-plain run counts neither launches nor plain calls
+            launched = sum(c12.values())
+            if (kind == "kernel") != bool(launched) or plain_calls:
+                fail("%s %s: launches %s, %d plain-version calls"
+                     % (tag, kind, c12, plain_calls))
+            log("%s: %s (%.1f s): launches %s" % (tag, kind, wall,
+                                                  json.dumps(c12)))
+        if outs["kernel"] != outs["plain"]:
+            fail("%s: kernel and plain .fas/_contigs.fas differ" % tag)
+        log("%s: the plain versions on CUDA give byte-identical .fas and "
+            "_contigs.fas" % tag)
 
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
@@ -1075,6 +1340,7 @@ def main():
         for m, n, fn in saved:
             setattr(m, n, fn)
     wall, counts_mega, plain_calls, stats = mrun
+    path_launches["megabase"] = counts_mega
     cols = check_rows("megabase", out_mega, mega)
     if counts_mega["banded"] != 1 or stats["banded_fills"] != 1:
         fail("megabase: expected 1 banded fill on kernel C, got %d "
@@ -1279,6 +1545,9 @@ def main():
 
     lin_t = time_kernel(recorded["linear"], VL.linear_fill,
                         VL.linear_fill_plain, linear_bound, same_floats, 5)
+    log("timing linear_fill: kernel A's ordinary build on the main path's "
+        "call takes %.3f ms a launch (1.614 ms before the pair-end build "
+        "existed, on an NVIDIA H100 80GB HBM3 at 700.00 W)" % lin_t[0])
     fan_t = time_kernel(recorded["fanin"], VF.fanin_fill,
                         VF.fanin_fill_plain, fanin_bound, same_floats, 3)
     # kernel B also on the full-width calls of the --full-probability
@@ -1323,6 +1592,11 @@ def main():
             % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1], fp_t[k][2],
                fp_t[k][3], fp_t[k][4]))
 
+    def by_path(*keys):
+        """Launches of the wrappers `keys` on each path's run."""
+        return {path: sum(c.get(k, 0) for k in keys)
+                for path, c in path_launches.items()}
+
     def kernel_entry(name, source, replaces, direction):
         """The kernels-line entry of D or E: per-launch means over its
         linear and fan-in calls on the fullprob_path run."""
@@ -1343,7 +1617,8 @@ def main():
                  "bound_by": "bytes" if by_bytes >= by_ops
                  else "operations", "library_ms": None,
                  "linear_ms": fp_t[keys[0]][0],
-                 "fanin_ms": fp_t[keys[1]][0]}
+                 "fanin_ms": fp_t[keys[1]][0],
+                 "launches_by_path": by_path(*keys)}
         entry["linear_plans"] = [plan_text(FF, keys[0].replace(
             "fp_", "fullprob_"), kw) for kw in rec_fp[keys[0]]]
         entry["linear_us_per_diagonal"] = [
@@ -1402,13 +1677,16 @@ def main():
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    for what, extra, want in (
-            ("main path", [], a),
-            ("fullprob path", ["--full-probability"],
-             open(out_fp + ".fas", "rb").read())):
+    for what, inputs, extra, want in (
+            ("main path", (fas, nh), [], a),
+            ("fullprob path", (fas, nh), ["--full-probability"],
+             open(out_fp + ".fas", "rb").read()),
+            ("pileup path", (fas40, None),
+             ["--homopolymer", "--output-consensus"],
+             open(out_pile + ".fas", "rb").read())):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall_trace = run_cli("trace", fas, nh,
+            wall_trace = run_cli("trace", *inputs,
                                  os.path.join(work, "out_trace"), real,
                                  extra)[0]
         if open(os.path.join(work, "out_trace.fas"), "rb").read() != want:
@@ -1442,14 +1720,19 @@ def main():
                    for kw in recorded["linear"]],
          "us_per_diagonal": [1e3 * ms / kw["ms"].shape[1] for ms, kw in
                              zip(lin_t[7], recorded["linear"])],
-         "fullprob_calls_ms": lin_fp_t[7]},
+         "fullprob_calls_ms": lin_fp_t[7],
+         "launches_by_path": by_path("linear"),
+         "pair_end_us_per_diagonal": {
+             text: [{"pair_end": a, "ordinary": b} for a, b in v]
+             for text, v in pe_us.items()}},
         {"name": "viterbi_fanin", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_fanin.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_fanin.py:140",
          "launches": counts["fanin"], "max_abs_err": fan_err,
          "ms": fan_t[0], "plain_ms": fan_t[1], "bound_ms": fan_t[2],
          "bound_by": fan_t[3], "library_ms": None,
-         "fullprob_calls_ms": fan_fp_ms, "k454_16x2047_ms": fan_454_ms[0]},
+         "fullprob_calls_ms": fan_fp_ms, "k454_16x2047_ms": fan_454_ms[0],
+         "launches_by_path": by_path("fanin")},
         {"name": "viterbi_banded", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_banded.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_banded.py:79",
@@ -1460,7 +1743,7 @@ def main():
          "whole_call_ms": mega_ms, "whole_call_bound_ms": mega_bound,
          "plans": [banded_plan_text(VB, kw) for kw in
                    rec_long["banded"] + rec_mega["banded"]],
-         "builds_met": ban_builds},
+         "builds_met": ban_builds, "launches_by_path": by_path("banded")},
         kernel_entry("fullprob_fwd",
                      "pagan2_tpu_torch/csrc/fullprob_fwd.cu",
                      "pagan2_tpu/align/fullprob_pallas.py:45", "fwd"),

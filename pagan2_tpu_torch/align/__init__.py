@@ -7,8 +7,10 @@ on kernel A (viterbi_linear), or on kernel C (viterbi_banded) when their
 anchored band is thin; fan-in graph pairs on kernel B (viterbi_fanin);
 full-probability and sampling pairs add the forward/backward plane fills
 of kernels D and E (fullprob, fullprob_fill); pairs of two empty
-sequences run on the host oracle. What is not ported yet raises
-NotImplementedError naming its ROADMAP item.
+sequences run on the host oracle. Pair-end break penalties ride every
+Viterbi fill (kernel A's break column, kernel B's positional vectors,
+kernel C's break scalars); the probability planes ignore them, as the
+reference's forward and backward passes do.
 """
 from .settings import AlignSettings, X_MAT, Y_MAT, M_MAT
 from .oracle import PairAligner, PathPtr, MatrixPtr
@@ -149,14 +151,25 @@ def align_pair(left, right, model, settings=None, left_branch_length=0.0,
     matrices are cheaper than anchor discovery).
     Returns (ancestral_graph, end_pointer).
     """
-    from ..pending import not_ported, PAIR_END
     settings = settings or AlignSettings()
     if is_reads_sequence or settings.keep_all_edges:
         # --keep-all-edges widens the skip limits for ordinary
         # alignments too (viterbi_alignment.cpp:206)
         settings = settings.for_reads()
-    if settings.pair_end_reads:
-        raise not_ported("pair-end read alignment", PAIR_END)
+
+    if settings.pair_end_reads and settings.reduced_terminal_gap_penalties:
+        # strip the break markers once, up front, so every engine
+        # (oracle, kernels A, B, C, D and E) sees the same read1
+        # boundaries (mark_no_gap_penalty_sites, basic_alignment.h:
+        # 630-676). The strip changes the graphs in place: a graph
+        # stripped before keeps its sites and gives -1 here.
+        from dataclasses import replace
+        from .oracle import mark_no_gap_penalty_sites
+        xr = mark_no_gap_penalty_sites(left)
+        yr = mark_no_gap_penalty_sites(right)
+        if xr >= 0 or yr >= 0:
+            settings = replace(settings, x_read1_length=xr,
+                               y_read1_length=yr)
 
     sampling = settings.sample_path or settings.sample_additional_paths > 0
     if sampling and not settings.compute_full_score:

@@ -48,7 +48,9 @@ def inputs_from_reference(d, device="cpu", **kw):
 
     - prepare_sheared dicts (f32; _add_scalar_params is applied here)
       -> linear_fill kwargs; kw: Lp (rows, default the longest L),
-      bands (one (upper, lower) or None per job);
+      bands (one (upper, lower) or None per job); a pair-end dict
+      carries "pair_end" and its break column "jbrk", which the
+      reference's dict does not;
     - pallas_job_arrays dicts (their ms_sh stream is already folded and
       holds diagonal d at row d - 1) -> linear_fill kwargs;
     - prepare_fanin dicts (f32) -> fanin_fill kwargs; kw as
@@ -94,7 +96,7 @@ def inputs_from_reference(d, device="cpu", **kw):
     iscal = np.zeros((len(ds), 8), np.int32)
     for b, x in enumerate(ds):
         R, cornerd = int(x["iscal"][0]), int(x["iscal"][1])
-        iscal[b, :2] = [cornerd - R + 2, R]
+        iscal[b, :4] = [cornerd - R + 2, R, -1, 0]
 
     def t(key, dt):
         return torch.from_numpy(np.ascontiguousarray(

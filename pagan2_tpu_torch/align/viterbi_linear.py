@@ -11,6 +11,11 @@ bit-identical to it. Codes are plain uint8 at the target cell, row d =
 diagonal d (row 0 is the 0x3F sentinel), the layout
 viterbi_sheared._ShearedCells reads.
 
+A batch of pair-end jobs takes the kernel's pair-end build (the
+reference fills such pairs on its scan core, viterbi_sheared.py:450-455:
+a j-side break column, and M's candidates compared after the match
+score is added, which it folds as ((lng + ms) + lw[i]) + rw[j]).
+
 Device rule: a CPU tensor takes `linear_fill_plain`; a CUDA tensor
 launches the kernel or raises.
 """
@@ -28,6 +33,7 @@ from .viterbi_sheared import (prepare_sheared, _ShearedCells,
 from .backtrack import _backtrack_arrays
 
 LAUNCHES = 0          # kernel A launches (one per linear_fill on CUDA)
+PAIR_END_LAUNCHES = 0  # those of them in the pair-end build
 PLAIN_CALLS = 0       # linear_fill_plain calls made by linear_fill
 
 _BIG = np.int32(2 ** 30)     # "never valid" lower bound sentinel
@@ -38,13 +44,45 @@ LANES = ((1, 128), (2, 2048), (4, 4096))
 
 def _add_scalar_params(inp):
     """Derive the scalar penalty params linear_job_arrays needs from a
-    prepare_sheared dict (gap-ext, terminal gap-ext, open_r[0])."""
-    L, R = inp["L"], inp["R"]
-    gj = inp["gext_j"]
-    inp["gend"] = float(gj[0])
-    inp["gext"] = float(gj[1]) if R > 2 else float(gj[0])
+    prepare_sheared dict: gap-ext, terminal gap-ext, open_r[0], and for
+    a pair-end job (the dict's "pair_end") its break column jbrk (the
+    dict's "jbrk", -1 for none) with its gap-ext gbrk and its open obrk
+    (open_r[jbrk]). Kernel A rebuilds the j-side vectors from these
+    scalars, so they are rebuilt here too and held equal to gext_j and
+    open_r: any other j-side difference raises ValueError."""
+    R = inp["R"]
+    gj = np.asarray(inp["gext_j"])
+    orp = np.asarray(inp["open_r_shifted"])[1:]   # open_r[0 .. R-2]
+    jb = int(inp.get("jbrk", -1))
+    inp["pair_end"] = pe = bool(inp.get("pair_end", False))
+    if not -1 <= jb < R or (jb >= 0 and not pe):
+        raise ValueError("break column %d of a %s job with %d columns"
+                         % (jb, "pair-end" if pe else "non-pair-end", R))
+    # each scalar read at a column the break does not overwrite; one
+    # with no such column is used by no column of the matrix
+    ends = [c for c in (0, R - 1) if c != jb]
+    inp["gend"] = float(gj[ends[0]] if ends else gj[0])
+    mids = [c for c in (1, 2) if 0 < c < R - 1 and c != jb]
+    inp["gext"] = float(gj[mids[0]]) if mids else inp["gend"]
     # open_r[0] == open_l[0] (both 0.0 under reduced terminal penalties)
-    inp["orp0"] = float(inp["open_l"][0])
+    inp["orp0"] = float(orp[0]) if R > 1 and jb != 0 else \
+        float(inp["open_l"][0])
+    inp["jbrk"] = jb
+    inp["gbrk"] = float(gj[jb]) if jb >= 0 else 0.0
+    inp["obrk"] = float(orp[jb]) if 0 <= jb < R - 1 else float(inp["lgo"])
+    want_j = np.full(R, inp["gext"], gj.dtype)
+    want_j[[0, R - 1]] = inp["gend"]
+    want_o = np.full(R, inp["lgo"], orp.dtype)
+    want_o[0] = inp["orp0"]
+    if jb >= 0:
+        want_j[jb] = inp["gbrk"]
+        want_o[jb] = inp["obrk"]
+    bad = np.flatnonzero((gj != want_j) | np.append(orp != want_o[:R - 1],
+                                                    False))
+    if len(bad):
+        raise ValueError("j-side penalties differ from kernel A's scalar "
+                         "form (break column %d) at columns %s"
+                         % (jb, bad[:8].tolist()))
     return inp
 
 
@@ -85,8 +123,9 @@ def linear_job_arrays(inp, Lp: int, band=None):
     vhi[:L] = hi[:L].astype(np.int32)
 
     fscal = np.array([inp["gext"], inp["gend"], inp["lgo"], inp["lng"],
-                      inp["orp0"], 0, 0, 0], dtype)
-    iscal = np.array([L, R, 0, 0, 0, 0, 0, 0], np.int32)
+                      inp["orp0"], inp["gbrk"], inp["obrk"], 0], dtype)
+    iscal = np.array([L, R, inp["jbrk"], int(inp["pair_end"]), 0, 0, 0, 0],
+                     np.int32)
     return dict(ms=np.asarray(inp["ms"], dtype),
                 lw=np.asarray(inp["lw"], dtype),
                 rw=np.asarray(inp["rw"], dtype),
@@ -108,18 +147,27 @@ def shear_table(tab, Lp: int, D: int):
     return pad[i.expand(D, Lp), j]
 
 
-def fold_shear(ms, lw, rw, lng, Lp: int, D: int):
+def fold_shear(ms, lw, rw, lng, Lp: int, D: int, pair_end: bool = False):
     """((ms + lw[i]) + rw[j]) + lng, sheared to (D, Lp): row d holds
     cell (i, d - i); cells outside the (L, R) table read 0 (masked by
-    the fill)."""
+    the fill). A pair-end job folds in the order of the reference's
+    scan core, ((lng + ms) + lw[i]) + rw[j]."""
+    if pair_end:
+        return shear_table(((lng + ms) + lw[:, None]) + rw[None, :], Lp, D)
     return shear_table(((ms + lw[:, None]) + rw[None, :]) + lng, Lp, D)
 
 
 def linear_batch_args(jobs: list, device, D: int | None = None):
     """Kernel A arguments for a batch of linear_job_arrays dicts (all
-    padded to the same Lp) on `device`."""
+    padded to the same Lp) on `device`; `pair_end` says whether the
+    batch's jobs are pair-end jobs (a batch of both kinds raises
+    ValueError: kernel A takes one build a launch)."""
     dev = torch.device(device)
     Lp = len(jobs[0]["gexti"])
+    kinds = {bool(j["iscal"][3]) for j in jobs}
+    if len(kinds) != 1:
+        raise ValueError("a kernel A batch of pair-end and other jobs")
+    pair_end = kinds.pop()
     if D is None:
         D = max(int(j["iscal"][0] + j["iscal"][1]) for j in jobs) - 1
     D = max(D, 2)
@@ -135,13 +183,13 @@ def linear_batch_args(jobs: list, device, D: int | None = None):
                            torch.from_numpy(j["lw"]).to(dev),
                            torch.from_numpy(j["rw"]).to(dev),
                            torch.tensor(j["lng"], dtype=torch.float32,
-                                        device=dev), Lp, D)
+                                        device=dev), Lp, D, pair_end)
     return dict(ms=ms, gexti=stack("gexti", np.float32),
                 ol=stack("ol", np.float32),
                 vlox=stack("vlox", np.int32), vloy=stack("vloy", np.int32),
                 vhi=stack("vhi", np.int32),
                 fscal=stack("fscal", np.float32),
-                iscal=stack("iscal", np.int32))
+                iscal=stack("iscal", np.int32), pair_end=pair_end)
 
 
 # ----------------------------------------------------------------------
@@ -214,9 +262,11 @@ def has_build(plan, Lp: int) -> bool:
         plan["diagonals"] == ("registers" if rows else "global")
 
 
-def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
-    """One launch of kernel A as `plan` (linear_plan) says. A plan with
-    no build raises ValueError before anything is launched."""
+def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
+                   pair_end=False):
+    """One launch of kernel A as `plan` (linear_plan) says, in its
+    pair-end build when `pair_end`. A plan with no build raises
+    ValueError before anything is launched."""
     B, D, Lp = ms.shape
     rows, threads = plan["rows"], plan["threads"]
     if not has_build(plan, Lp):
@@ -225,7 +275,7 @@ def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
     lib = kernels.load("viterbi_linear")
     fn = lib.viterbi_linear_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     codes = torch.empty((B, D, Lp), dtype=torch.uint8, device=ms.device)
     corner = torch.empty((B, 3), dtype=torch.float32, device=ms.device)
@@ -237,44 +287,69 @@ def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
                  vlox.data_ptr(), vloy.data_ptr(), vhi.data_ptr(),
                  fscal.data_ptr(), iscal.data_ptr(), codes.data_ptr(),
                  corner.data_ptr(), 0 if gbuf is None else gbuf.data_ptr(),
-                 B, D, Lp, rows, threads, stream)
+                 B, D, Lp, rows, threads, int(bool(pair_end)), stream)
     kernels.check(err, "viterbi_linear")
     return codes, corner
 
 
-def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
+def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
+                pair_end=None):
     """Fill a batch of linear-chain pairs. ms: (B, D, Lp) f32 folded
     match-score diagonals (row d = diagonal d); per-row vectors (B, Lp);
-    fscal (B, 8) f32 [gext, gend, lgo, lng, orp0]; iscal (B, 8) int32
-    [L, R]. Returns (codes (B, D, Lp) uint8, corner (B, 3) f32: M, X, Y
+    fscal (B, 8) f32 [gext, gend, lgo, lng, orp0, gbrk, obrk]; iscal
+    (B, 8) int32 [L, R, jbrk, pair-end]; pair_end: whether the batch's
+    jobs are pair-end jobs (linear_batch_args says so; None reads
+    iscal). Returns (codes (B, D, Lp) uint8, corner (B, 3) f32: M, X, Y
     at cell (L-1, R-1)).
+
+    A pair-end job (the reference's pair-end Viterbi fill is its scan
+    core, viterbi_sheared.py:450-455) takes its break column (jbrk >= 0:
+    X extends there by gbrk, Y opens from there by obrk) and compares
+    M's three candidates after the match score is added, first wins on
+    a tie, as that core does; its match score comes folded in that
+    core's order (fold_shear).
 
     On a CUDA tensor it launches kernel A as linear_plan(Lp) says; the
     kernel refuses a plan it has no build for, and the wrapper raises on
     any launch error. The inputs are linear_job_arrays' (rows >= L and
     columns >= R never valid): kernel A skips the warps whose cells have
     no source in the matrix on that rule."""
-    global LAUNCHES, PLAIN_CALLS
+    global LAUNCHES, PLAIN_CALLS, PAIR_END_LAUNCHES
     B, D, Lp = _check_args(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal)
     if ms.device.type == "cpu":
         PLAIN_CALLS += 1
         return linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal,
                                  iscal)
+    if pair_end is None:
+        pe = iscal[:, 3] != 0
+        pair_end = bool(pe.any())
+        if pair_end != bool(pe.all()):
+            raise ValueError("a kernel A batch of pair-end and other jobs")
     out = _launch_linear(linear_plan(Lp), ms, gexti, ol, vlox, vloy, vhi,
-                         fscal, iscal)
+                         fscal, iscal, pair_end)
     LAUNCHES += 1
+    PAIR_END_LAUNCHES += bool(pair_end)
     return out
 
 
-def linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
+def linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
+                      pair_end=None):
     """Plain PyTorch version of kernel A: a loop over diagonals on
-    (B, Lp) tensors in the same add order and first-wins rule."""
+    (B, Lp) tensors in the same add order and first-wins rule. Each
+    job's kind (pair-end or not) and break column are read from iscal,
+    whatever `pair_end` says."""
     B, D, Lp = ms.shape
     dev = ms.device
     f = torch.float32
     neg = torch.tensor(NEG, dtype=f, device=dev)
-    gext, gend, lgo, lng, orp0 = (fscal[:, k:k + 1] for k in range(5))
+    gext, gend, lgo, lng, orp0, gbrk, obrk = (fscal[:, k:k + 1]
+                                              for k in range(7))
     R = iscal[:, 1:2].long()
+    pe = iscal[:, 3:4] != 0
+    jbrk = iscal[:, 2:3].long()
+    # no break column: a column no j meets
+    jbrk = torch.where(pe & (jbrk >= 0), jbrk,
+                       torch.full_like(jbrk, -2 ** 40))
     ii = torch.arange(Lp, device=dev)[None, :]
 
     def shift(v, fill):
@@ -298,6 +373,7 @@ def linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
         m1p, x1p, y1p = shift(m1, NEG), shift(x1, NEG), shift(y1, NEG)
         m2p, x2p, y2p = shift(m2, NEG), shift(x2, NEG), shift(y2, NEG)
         gj = torch.where((j == 0) | (j == R - 1), gend, gext)
+        gj = torch.where(j == jbrk, gbrk, gj)
         cx0 = x1p + gj
         cx1 = y1p + lgo
         cx2 = (m1p + lng) + ol_prev
@@ -305,6 +381,7 @@ def linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
         xc = torch.maximum(v01, cx2)
         bx = torch.where(cx2 > v01, 2, torch.where(cx1 > cx0, 1, 0))
         orp = torch.where(j - 1 == 0, orp0, lgo)
+        orp = torch.where(j - 1 == jbrk, obrk, orp)
         cy0 = y1 + gexti
         cy1 = x1 + lgo
         cy2 = (m1 + lng) + orp
@@ -315,11 +392,17 @@ def linear_fill_plain(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal):
         u01 = torch.maximum(t2, x2p)
         mc = torch.maximum(u01, y2p)
         bm = torch.where(y2p > u01, 2, torch.where(x2p > t2, 1, 0))
+        # pair-end jobs: the candidates compared with the score added
+        a0, a1, a2 = t2 + ms[:, d], x2p + ms[:, d], y2p + ms[:, d]
+        z01 = torch.maximum(a0, a1)
+        bm = torch.where(pe, torch.where(a2 > z01, 2,
+                                         torch.where(a1 > a0, 1, 0)), bm)
+        mv = torch.where(pe, torch.maximum(z01, a2), mc + ms[:, d])
         okx = (j >= vlox) & (j <= vhi)
         oky = (j >= vloy) & (j <= vhi)
         X = torch.where(okx, xc, neg)
         Y = torch.where(oky, yc, neg)
-        M = torch.where(okx & oky, mc + ms[:, d], neg)
+        M = torch.where(okx & oky, mv, neg)
         codes[:, d] = (bm | (bx << 2) | (by << 4)).to(torch.uint8)
         for b, (Lb, Rb) in enumerate(lr):
             if Lb + Rb - 2 == d:

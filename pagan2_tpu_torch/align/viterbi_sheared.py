@@ -80,13 +80,16 @@ def prepare_sheared(left: SequenceGraph, right: SequenceGraph,
 
     # pair-end read1 boundary (viterbi_alignment.cpp:866-884 gap type,
     # basic_alignment.h:497-513 zeroed open penalty at the boundary;
-    # gap close is log(1.0)=0 everywhere so needs no vector)
+    # gap close is log(1.0)=0 everywhere so needs no vector); jbrk, the
+    # j-side column, is what kernel A takes in place of the vectors
+    jbrk = -1
     if settings.pair_end_reads:
         if 0 <= settings.x_read1_length < L:
             gext_i[settings.x_read1_length] = m.log_gap_break_ext()
             if settings.reduced_terminal_gap_penalties:
                 open_l[settings.x_read1_length] = 0.0
         if 0 <= settings.y_read1_length < R:
+            jbrk = settings.y_read1_length
             gext_j[settings.y_read1_length] = m.log_gap_break_ext()
             if settings.reduced_terminal_gap_penalties:
                 open_r[settings.y_read1_length] = 0.0
@@ -118,6 +121,7 @@ def prepare_sheared(left: SequenceGraph, right: SequenceGraph,
         open_l=open_l, open_r_shifted=open_r_shifted,
         lw=lw, rw=rw,
         lng=dtype(m.log_non_gap()), lgo=lgo,
+        pair_end=bool(settings.pair_end_reads), jbrk=jbrk,
     )
 
 

@@ -5,6 +5,7 @@ the wavefront kernels.
 
 Usage:  python -m pagan2_tpu_torch -s seqs.fas -t tree.nh -o out
         python -m pagan2_tpu_torch --device cpu -s seqs.fas -t tree.nh -o out
+        python -m pagan2_tpu_torch --pileup [--homopolymer] -q reads.fas -o out
 
 The kernels run on CUDA unless --device cpu is given; without a card,
 --device cuda raises. A flag whose feature is not ported yet raises
@@ -567,17 +568,16 @@ def unported_request(args):
     """(what, ROADMAP item) of the first flag asking for something the
     port does not have yet, or None."""
     from . import pending as P
+    # under --pileup, -q is the read file, no guide tree is read, and
+    # --mt-translate only picks the ORF search's genetic code
+    # (pagan2_tpu/cli.py:960-1010)
     checks = [
-        (args.pileup, "--pileup", P.PILEUP),
-        (args.output_consensus or args.build_contigs,
-         "--output-consensus / --build-contigs", P.PILEUP),
         (args.ref_seqfile, "--ref-seqfile", P.PLACEMENT),
-        (args.queryfile, "-q/--queryfile", P.PLACEMENT),
-        (args.pair_end, "--pair-end", P.PAIR_END),
-        (not args.treefile, "guide-tree inference (no -t/--treefile)",
-         P.CLI_REST),
+        (args.queryfile and not args.pileup, "-q/--queryfile", P.PLACEMENT),
+        (not args.treefile and not args.pileup,
+         "guide-tree inference (no -t/--treefile)", P.CLI_REST),
         (args.checkpoint_dir, "--checkpoint-dir", P.CLI_REST),
-        (args.translate or args.mt_translate,
+        ((args.translate or args.mt_translate) and not args.pileup,
          "--translate / --mt-translate", P.CLI_REST),
         (args.output_ancestors or args.events,
          "--output-ancestors / --events", P.CLI_REST),
@@ -613,6 +613,79 @@ def write_outputs(args, tree, alignment, data_type):
         from .io.plots import write_mpost_posterior_plots
         write_mpost_posterior_plots(args.mpost_posterior_plot_file,
                                     slope_up=args.plot_slope_up)
+    if tree is not None and (args.output_consensus or
+                             args.build_contigs):
+        from .pipeline.pileup import reconstruct_contigs, PileupConfig
+        from .io.fasta import write_fasta
+        ccfg = PileupConfig(
+            consensus_minimum=args.consensus_minimum,
+            consensus_minimum_proportion=args.consensus_minimum_proportion)
+        # --output-consensus: one consensus row per contig; --build-contigs
+        # adds the reads of each contig (input_output_parser.cpp:877-891)
+        for asked, only, suffix in ((args.output_consensus, True,
+                                     "_consensus.fas"),
+                                    (args.build_contigs, False,
+                                     "_contigs.fas")):
+            if not asked:
+                continue
+            rows = reconstruct_contigs(
+                tree, ccfg, consensus_only=only,
+                include_parent=args.include_parent_in_contig,
+                show_ancestor=args.show_contig_ancestor)
+            if rows:
+                write_fasta(rows, out + suffix)
+
+
+def run_pileup(args, device, tick):
+    """--pileup: the reads of -q stacked one by one onto a growing root
+    (pipeline/pileup.py), then the outputs. Returns the exit code."""
+    if not args.queryfile:
+        print("--pileup requires -q/--queryfile", file=sys.stderr)
+        return 1
+    from .io.fasta import read_sequences
+    from .pipeline.pileup import (pileup_align, translated_pileup_align,
+                                  PileupConfig)
+    from .models import alphabets as alph
+    reads = read_sequences(args.queryfile)
+    data_type = resolve_data_type(args, reads)
+    tick("read input")
+    cfg = PileupConfig(
+        mode454=args.mode454, homopolymer=args.homopolymer,
+        both_strands=args.both_strands,
+        min_query_overlap=args.min_query_overlap,
+        min_query_identity=args.min_query_identity,
+        query_cluster_attempts=args.query_cluster_attempts,
+        query_distance=args.query_distance,
+        use_consensus=(args.use_consensus or args.build_contigs or
+                       args.output_consensus),
+        consensus_minimum=args.consensus_minimum,
+        consensus_minimum_proportion=args.consensus_minimum_proportion,
+        overlap_with_any=args.overlap_with_any,
+        engine=args.engine,
+        use_fastq=not args.no_fastq,
+        qscore_minimum=args.qscore_minimum,
+        allow_skip_low_qscore=args.allow_skip_low_qscore)
+    psettings = make_settings(args)
+    if args.find_orfs and data_type == alph.DNA:
+        data_type = alph.PROTEIN
+        mf = make_model_factory(args, data_type, reads)
+        res = translated_pileup_align(
+            reads, cfg, model_factory=mf,
+            min_orf_length=args.min_orf_length,
+            min_orf_coverage=args.min_orf_coverage,
+            mt=args.mt_translate, settings=psettings, device=device)
+    else:
+        mf = make_model_factory(args, data_type, reads)
+        res = pileup_align(reads, data_type, cfg, model_factory=mf,
+                           settings=psettings, device=device)
+    tick("pileup alignment")
+    write_outputs(args, res.root, res.alignment, data_type)
+    check_graphs(args, res.root)
+    tick("write output")
+    if not args.silent:
+        print(f"pileup: {len(res.alignment)} rows, "
+              f"{len(res.discarded)} reads discarded -> {args.outfile}")
+    return 0
 
 
 def check_graphs(args, tree):
@@ -736,6 +809,12 @@ def main(argv=None) -> int:
     if args.raxml_tree or args.bppdist_tree:
         print("note: --raxml-tree/--bppdist-tree select the guide-tree "
               "inference, which -t replaces", file=sys.stderr)
+
+    if args.pileup:
+        rc = run_pileup(args, device, _tick)
+        if rc == 0:
+            _report_time()
+        return rc
 
     entries = read_sequences(args.seqfile)
     data_type = resolve_data_type(args, entries)

@@ -62,6 +62,23 @@
 // rows, M/X/Y of the last three diagonals (9 * Lp * 4 bytes) in a
 // global scratch resident in the 50 MB L2.
 //
+// The pair-end builds (PE, a template flag of every build) are the
+// reference's pair-end Viterbi fill, which is its scan core
+// (viterbi_sheared.py:450-455), not its Pallas kernel:
+//  - a job whose right side is a pair-end read has one column jbrk
+//    (iscal[2], -1 for none) whose X extension is gbrk (fscal[5]) and
+//    whose Y open into column jbrk + 1 is obrk (fscal[6]), in place of
+//    gext/gend and orp0/lgo: prepare_sheared writes the break after the
+//    terminal values, so it wins at j = 0 and j = R - 1;
+//  - M's three candidates are compared after the match score is added
+//    (first wins on a tie), as the scan core takes its argmax; the host
+//    folds that score in the scan core's order, ((lng + ms) + lw) + rw.
+//    Comparing before the add, as the ordinary builds do, picks another
+//    code where two candidates differ by less than the add rounds away.
+// A launch of pair-end jobs (iscal[3] = 1) takes the PE build, any
+// other launch the ordinary build, whose step is the step it was before
+// the flag existed.
+//
 // The launch plan (rows a thread, threads) is align/viterbi_linear.py::
 // linear_plan; the kernel only takes a plan it has a build for and
 // refuses any other.
@@ -102,7 +119,11 @@ __device__ __forceinline__ void load_rows(float (&v)[ROWS], const float* p) {
   for (int k = 0; k < ROWS; ++k) v[k] = f[k];
 }
 
-template <int ROWS>
+// jbrk of a job with no break column: j - jbrk and j - 1 - jbrk never
+// reach 0 for a j a launch meets
+constexpr int NO_BREAK = -0x40000000;
+
+template <int ROWS, bool PE>
 __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
     const float* __restrict__ ms,      // (B, D, Lp) folded, row d = diag d
     const float* __restrict__ gexti,   // (B, Lp)
@@ -111,7 +132,8 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
     const int* __restrict__ vloy,      // (B, Lp)
     const int* __restrict__ vhi,       // (B, Lp)
     const float* __restrict__ fscal,   // (B, 8): gext gend lgo lng orp0
-    const int* __restrict__ iscal,     // (B, 8): L R
+                                       //         gbrk obrk
+    const int* __restrict__ iscal,     // (B, 8): L R jbrk pair-end
     uint8_t* __restrict__ codes,       // (B, D, Lp)
     float* __restrict__ corner,        // (B, 3)
     int D, int Lp) {
@@ -131,6 +153,13 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
   const float orp0 = fscal[b * 8 + 4];
   const int L = iscal[b * 8 + 0];
   const int R = iscal[b * 8 + 1];
+  float gbrk = 0.0f, obrk = 0.0f;
+  int jbrk = NO_BREAK;
+  if constexpr (PE) {
+    gbrk = fscal[b * 8 + 5];
+    obrk = fscal[b * 8 + 6];
+    if (iscal[b * 8 + 2] >= 0) jbrk = iscal[b * 8 + 2];
+  }
   const int cornerd = L + R - 2;
   const int ctid = (L - 1) / ROWS, kc = (L - 1) - ctid * ROWS;
   const int i0 = tid * ROWS;
@@ -160,13 +189,15 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
   }
 
   // diagonal 0: M(0, 0) = 0, all else -inf. M's maximum and code for
-  // diagonal 1 come from diagonal -1 (all -inf): -inf and code 0.
-  float Mr[ROWS], Xr[ROWS], Yr[ROWS], mcn[ROWS];
+  // diagonal 1 come from diagonal -1 (all -inf): -inf and code 0. The
+  // PE builds keep M's three candidates instead (mcn, mcx, mcy), to be
+  // compared once the score is added.
+  float Mr[ROWS], Xr[ROWS], Yr[ROWS], mcn[ROWS], mcx[ROWS], mcy[ROWS];
   uint32_t bmn = 0;
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
     Mr[k] = (i0 + k == 0) ? 0.0f : NEG;
-    Xr[k] = Yr[k] = mcn[k] = NEG;
+    Xr[k] = Yr[k] = mcn[k] = mcx[k] = mcy[k] = NEG;
   }
   // the match scores of diagonals d+1 .. d+AHEAD during step d
   float msq[AHEAD][ROWS];
@@ -215,6 +246,7 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
       }
       const int jb = d - i0;            // j of row i0 + k is jb - k
       const int jr = jb - (R - 1);      // == k where j == R - 1
+      const int jk = jb - jbrk;         // == k where j == jbrk
       uint32_t bmnext = 0;
       float Mn[ROWS], Xn[ROWS], Yn[ROWS];
 #pragma unroll
@@ -228,7 +260,8 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
         const float y1p = k == 0 ? py : Yr[k - 1];
         const float m1 = Mr[k], x1 = Xr[k], y1 = Yr[k];
         // X: gap consuming left site i (ext, double, open)
-        const float gj = (jb == k || jr == k) ? gend : gext;
+        float gj = (jb == k || jr == k) ? gend : gext;
+        if (PE && jk == k) gj = gbrk;
         const float t1 = m1p + lng;
         const float cx0 = x1p + gj;
         const float cx1 = y1p + lgo;
@@ -238,7 +271,8 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
         const uint32_t bx =
             (cx2 > v01) ? 8u << sh : ((cx1 > cx0) ? 4u << sh : 0u);
         // Y: gap consuming right site j (ext, double, open)
-        const float orp = (jb == k + 1) ? orp0 : lgo;
+        float orp = (jb == k + 1) ? orp0 : lgo;
+        if (PE && jk == k + 1) orp = obrk;
         const float cy0 = y1 + gx[k];
         const float cy1 = x1 + lgo;
         const float cy2 = (m1 + lng) + orp;
@@ -251,13 +285,27 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
         const bool oky = jb >= loy[k] && jb <= hi[k];
         Xn[k] = okx ? xc : NEG;
         Yn[k] = oky ? yc : NEG;
-        Mn[k] = (okx && oky) ? mcn[k] + msd[k] : NEG;
         code += bx + by;
-        // M's maximum and code at (i, j+1) on diagonal d+1: the values
-        // of row i-1 on diagonal d-1 that X just read
-        const float u01 = fmaxf(t1, x1p);
-        mcn[k] = fmaxf(u01, y1p);
-        bmnext += (y1p > u01) ? 2u << sh : ((x1p > t1) ? 1u << sh : 0u);
+        if constexpr (PE) {
+          // M's candidates with the score added, compared now
+          const float a0 = mcn[k] + msd[k];
+          const float a1 = mcx[k] + msd[k];
+          const float a2 = mcy[k] + msd[k];
+          const float z01 = fmaxf(a0, a1);
+          Mn[k] = (okx && oky) ? fmaxf(z01, a2) : NEG;
+          code += (a2 > z01) ? 2u << sh : ((a1 > a0) ? 1u << sh : 0u);
+          // M's candidates at (i, j+1) on diagonal d+1
+          mcn[k] = t1;
+          mcx[k] = x1p;
+          mcy[k] = y1p;
+        } else {
+          Mn[k] = (okx && oky) ? mcn[k] + msd[k] : NEG;
+          // M's maximum and code at (i, j+1) on diagonal d+1: the
+          // values of row i-1 on diagonal d-1 that X just read
+          const float u01 = fmaxf(t1, x1p);
+          mcn[k] = fmaxf(u01, y1p);
+          bmnext += (y1p > u01) ? 2u << sh : ((x1p > t1) ? 1u << sh : 0u);
+        }
       }
 #pragma unroll
       for (int k = 0; k < ROWS; ++k) {
@@ -269,7 +317,8 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
       bmn = bmnext;
     } else {
 #pragma unroll
-      for (int k = 0; k < ROWS; ++k) Mr[k] = Xr[k] = Yr[k] = mcn[k] = NEG;
+      for (int k = 0; k < ROWS; ++k)
+        Mr[k] = Xr[k] = Yr[k] = mcn[k] = mcx[k] = mcy[k] = NEG;
       bmn = 0;
     }
     if (live) cp[(size_t)d * (Lp / ROWS)] = (Code)code;
@@ -299,6 +348,7 @@ __global__ void __launch_bounds__(1024) viterbi_linear_lanes_kernel(
 
 // The global build: threads stride over the rows; the three diagonals
 // live in the global scratch gbuf (B, 9, Lp).
+template <bool PE>
 __global__ void viterbi_linear_global_kernel(
     const float* __restrict__ ms, const float* __restrict__ gexti,
     const float* __restrict__ ol, const int* __restrict__ vlox,
@@ -318,6 +368,13 @@ __global__ void viterbi_linear_global_kernel(
   const float orp0 = fscal[b * 8 + 4];
   const int L = iscal[b * 8 + 0];
   const int R = iscal[b * 8 + 1];
+  float gbrk = 0.0f, obrk = 0.0f;
+  int jbrk = NO_BREAK;
+  if constexpr (PE) {
+    gbrk = fscal[b * 8 + 5];
+    obrk = fscal[b * 8 + 6];
+    if (iscal[b * 8 + 2] >= 0) jbrk = iscal[b * 8 + 2];
+  }
   const int cornerd = L + R - 2;
   const size_t rowoff = (size_t)b * Lp;
   const float* msb = ms + (size_t)b * D * Lp;
@@ -358,7 +415,8 @@ __global__ void viterbi_linear_global_kernel(
         olp = ol[rowoff + i - 1];
       }
       // X: gap consuming left site i (ext, double, open)
-      const float gj = (j == 0 || j == R - 1) ? gend : gext;
+      float gj = (j == 0 || j == R - 1) ? gend : gext;
+      if (PE && j == jbrk) gj = gbrk;
       const float cx0 = x1p + gj;
       const float cx1 = y1p + lgo;
       const float cx2 = (m1p + lng) + olp;
@@ -367,24 +425,35 @@ __global__ void viterbi_linear_global_kernel(
       const int bx = (cx2 > v01) ? 2 : ((cx1 > cx0) ? 1 : 0);
       // Y: gap consuming right site j (ext, double, open)
       const float m1 = g1[i], x1 = g1[Lp + i], y1 = g1[2 * Lp + i];
-      const float orp = (j - 1 == 0) ? orp0 : lgo;
+      float orp = (j - 1 == 0) ? orp0 : lgo;
+      if (PE && j - 1 == jbrk) orp = obrk;
       const float cy0 = y1 + gexti[rowoff + i];
       const float cy1 = x1 + lgo;
       const float cy2 = (m1 + lng) + orp;
       const float w01 = fmaxf(cy0, cy1);
       const float yc = fmaxf(w01, cy2);
       const int by = (cy2 > w01) ? 2 : ((cy1 > cy0) ? 1 : 0);
-      // M: match consuming both (m, x, y)
+      // M: match consuming both (m, x, y); the PE build compares the
+      // candidates with the score added
       const float t2 = m2p + lng;
-      const float u01 = fmaxf(t2, x2p);
-      const float mc = fmaxf(u01, y2p);
-      const int bm = (y2p > u01) ? 2 : ((x2p > t2) ? 1 : 0);
+      float mc;
+      int bm;
+      if constexpr (PE) {
+        const float a0 = t2 + msd[i], a1 = x2p + msd[i], a2 = y2p + msd[i];
+        const float z01 = fmaxf(a0, a1);
+        mc = fmaxf(z01, a2);
+        bm = (a2 > z01) ? 2 : ((a1 > a0) ? 1 : 0);
+      } else {
+        const float u01 = fmaxf(t2, x2p);
+        mc = fmaxf(u01, y2p) + msd[i];
+        bm = (y2p > u01) ? 2 : ((x2p > t2) ? 1 : 0);
+      }
 
       const bool okx = (j >= vlox[rowoff + i]) && (j <= vhi[rowoff + i]);
       const bool oky = (j >= vloy[rowoff + i]) && (j <= vhi[rowoff + i]);
       const float X = okx ? xc : NEG;
       const float Y = oky ? yc : NEG;
-      const float M = (okx && oky) ? mc + msd[i] : NEG;
+      const float M = (okx && oky) ? mc : NEG;
       g0[i] = M;
       g0[Lp + i] = X;
       g0[2 * Lp + i] = Y;
@@ -405,13 +474,16 @@ __global__ void viterbi_linear_global_kernel(
 // (1, 2 or 4: Lp a whole number of warps, rows * threads >= Lp, at most
 // 1024 threads; 0: the global build, gbuf (B, 9, Lp) required) and
 // threads. Any other plan is refused with cudaErrorInvalidValue.
+// pair_end: 1 takes the PE builds (a batch of pair-end jobs), 0 the
+// ordinary builds.
 extern "C" int viterbi_linear_launch(
     const void* ms, const void* gexti, const void* ol, const void* vlox,
     const void* vloy, const void* vhi, const void* fscal,
     const void* iscal, void* codes, void* corner, void* gbuf, int B,
-    int D, int Lp, int rows, int threads, void* stream) {
+    int D, int Lp, int rows, int threads, int pair_end, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (threads < 32 || threads > 1024 || threads % 32 || D < 2 || Lp < 1)
+  if (threads < 32 || threads > 1024 || threads % 32 || D < 2 || Lp < 1 ||
+      (pair_end != 0 && pair_end != 1))
     return (int)cudaErrorInvalidValue;
   const float* m = (const float*)ms;
   const float* gx = (const float*)gexti;
@@ -425,16 +497,24 @@ extern "C" int viterbi_linear_launch(
   float* k = (float*)corner;
   if (rows == 0) {
     if (gbuf == nullptr) return (int)cudaErrorInvalidValue;
-    viterbi_linear_global_kernel<<<B, threads, 0, st>>>(
-        m, gx, o, lx, ly, h, fs, is, c, k, (float*)gbuf, D, Lp);
+    if (pair_end)
+      viterbi_linear_global_kernel<true><<<B, threads, 0, st>>>(
+          m, gx, o, lx, ly, h, fs, is, c, k, (float*)gbuf, D, Lp);
+    else
+      viterbi_linear_global_kernel<false><<<B, threads, 0, st>>>(
+          m, gx, o, lx, ly, h, fs, is, c, k, (float*)gbuf, D, Lp);
     return (int)cudaGetLastError();
   }
   if (Lp % 32 || (long)rows * threads < Lp) return (int)cudaErrorInvalidValue;
   switch (rows) {
 #define LIN_LANES(n)                                                       \
   case n:                                                                  \
-    viterbi_linear_lanes_kernel<n><<<B, threads, 0, st>>>(                 \
-        m, gx, o, lx, ly, h, fs, is, c, k, D, Lp);                         \
+    if (pair_end)                                                          \
+      viterbi_linear_lanes_kernel<n, true><<<B, threads, 0, st>>>(         \
+          m, gx, o, lx, ly, h, fs, is, c, k, D, Lp);                       \
+    else                                                                   \
+      viterbi_linear_lanes_kernel<n, false><<<B, threads, 0, st>>>(        \
+          m, gx, o, lx, ly, h, fs, is, c, k, D, Lp);                       \
     return (int)cudaGetLastError();
     LIN_LANES(1)
     LIN_LANES(2)

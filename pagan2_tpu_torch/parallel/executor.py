@@ -72,16 +72,19 @@ def _plan_job(job: PairJob):
     'batch' (shared kernel A launch), 'fanin' (shared kernel B launch),
     'banded' (one kernel C fill of a thin-band linear pair), 'batch_fp'
     / 'fanin_fp' (shared kernel D and E launches of full-probability
-    and sampling jobs, never anchored), 'single' (align_pair one by one)
-    or 'skipped'."""
+    and sampling jobs, never anchored), 'single' (align_pair one by one:
+    pair-end jobs, and fan-in pairs past the caps or windowed) or
+    'skipped'."""
     from ..align import plan_band
     from ..align.viterbi_sheared import is_linear_chain, _bucket
-    from ..pending import not_ported, PAIR_END
 
     s = job.settings
-    linear = is_linear_chain(job.left) and is_linear_chain(job.right)
     if s.pair_end_reads:
-        raise not_ported("pair-end read alignment", PAIR_END)
+        # align_pair strips the break markers off the graphs before any
+        # fill, so every engine sees the same read1 boundaries; such
+        # jobs run one by one, Viterbi and full-probability alike
+        return "single"
+    linear = is_linear_chain(job.left) and is_linear_chain(job.right)
     if s.compute_full_score or s.sample_path or \
             s.sample_additional_paths > 0:
         return "batch_fp" if linear else "fanin_fp"

@@ -100,6 +100,56 @@ def linear_batches(rng, model, settings, small=False):
     return out
 
 
+def pair_end_batches(model, small=False):
+    """chip_smoke.py's pair-end batches of kernel A, from their own
+    generator (default_rng(17)): per terminal-penalty setting (reduced
+    and not), a ragged batch of 6 pair-end jobs (90-301 rows) whose
+    break columns are 0, 1, mid, R - 2, R - 1 and none (-1), read 1 of
+    the left side ending at a third of it on every other job; then 2
+    pair-end jobs past 4096 rows (4200 and 4150 rows against 64 and 61
+    columns: the global build), breaks mid and none. Returns [(name,
+    inputs)]: prepare_sheared dicts with _add_scalar_params applied.
+    small: the global batch cut to 400 rows (for the CPU)."""
+    import numpy as np
+    from dataclasses import replace
+    from pagan2_tpu_torch.align import AlignSettings
+    from pagan2_tpu_torch.align.viterbi_linear import _add_scalar_params
+    from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
+    from pagan2_tpu_torch.graph import build_leaf_graph
+    from pagan2_tpu_torch.models import alphabets as alph
+    rng = np.random.default_rng(17)
+
+    def job(n, m, ybrk, xbrk, reduced):
+        base = rng.choice(list("ACGT"), size=max(n, m))
+        mut = base.copy()
+        idx = rng.random(len(base)) < 0.1
+        mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+        R = m + 1                 # the columns: the start site and m bases
+        y = {"mid": R // 2, "R-2": R - 2, "R-1": R - 1}.get(ybrk, ybrk)
+        s = replace(AlignSettings(), pair_end_reads=True,
+                    reduced_terminal_gap_penalties=reduced,
+                    x_read1_length=n // 3 if xbrk else -1,
+                    y_read1_length=y)
+        return _add_scalar_params(prepare_sheared(
+            build_leaf_graph("".join(base[:n]), alph.DNA),
+            build_leaf_graph("".join(mut[len(mut) - m:]), alph.DNA),
+            model, s, np.float32))
+
+    out = []
+    shapes = ((300, 280), (220, 250), (257, 131), (90, 120), (301, 301),
+              (150, 97))
+    for reduced in (True, False):
+        out.append(("pair-end %s" % ("reduced" if reduced else "full"),
+                    [job(n, m, y, k % 2 == 0, reduced)
+                     for k, ((n, m), y) in enumerate(
+                         zip(shapes, (0, 1, "mid", "R-2", "R-1", -1)))]))
+    big = 400 if small else 4200
+    out.append(("pair-end %d rows" % big,
+                [job(big, 64, "mid", True, True),
+                 job(big - 50, 61, -1, False, True)]))
+    return out
+
+
 def batch_args(VL, inps, bands, dev):
     """Kernel A's arguments for a batch of prepare_sheared dicts."""
     Lp = VL.batch_rows(inps)

@@ -135,17 +135,60 @@ def test_linear_kernel_refuses_plans_it_has_no_build_for(cuda, rows,
     B, D, Lp = args["ms"].shape
     fn = kernels.load("viterbi_linear").viterbi_linear_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     codes = torch.zeros((B, D, Lp), dtype=torch.uint8, device=cuda)
     corner = torch.zeros((B, 3), device=cuda)
     ins = [args[k].data_ptr() for k in ("ms", "gexti", "ol", "vlox",
                                          "vloy", "vhi", "fscal", "iscal")]
     err = fn(*ins, codes.data_ptr(), corner.data_ptr(), 0, B, D, Lp, rows,
-             threads, torch.cuda.current_stream().cuda_stream)
+             threads, 0, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 1                  # cudaErrorInvalidValue
     assert not bool(codes.any())
+
+
+def _pair_end_batches():
+    from pagan2_tpu_torch.tools.bench_linear_calls import pair_end_batches
+    return pair_end_batches(MODEL)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["reduced", "full"])
+@pytest.mark.parametrize("rows", [1, 2, 4, 0])
+def test_linear_pair_end_build_matches_plain(cuda, which, rows):
+    """Kernel A's pair-end build, each build of its plan forced on one
+    ragged batch of pair-end jobs (break columns 0, 1, mid, R - 2,
+    R - 1 and none; with and without reduced terminal penalties),
+    against linear_fill_plain: codes and corner bit-equal."""
+    from pagan2_tpu_torch.tools.bench_linear_calls import batch_args
+    _what, inps = _pair_end_batches()[which]
+    args = batch_args(tl, inps, [None] * len(inps), cuda)
+    assert args["pair_end"]
+    Lp = args["ms"].shape[2]
+    plan = dict(rows=rows, threads=tl._block(Lp, rows or 1),
+                diagonals="registers" if rows else "global")
+    codes, corner = tl._launch_linear(plan, **args)
+    pc, pk = tl.linear_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
+    assert bool(torch.isfinite(corner).any(dim=1).all())
+
+
+def test_linear_pair_end_global_plan_matches_plain(cuda):
+    """Pair-end jobs past 4096 rows: the plan's global build, through
+    linear_fill, against linear_fill_plain."""
+    from pagan2_tpu_torch.tools.bench_linear_calls import batch_args
+    _what, inps = _pair_end_batches()[2]
+    args = batch_args(tl, inps, [None] * len(inps), cuda)
+    assert tl.linear_plan(args["ms"].shape[2])["rows"] == 0
+    n0 = tl.LAUNCHES
+    codes, corner = tl.linear_fill(**args)
+    pc, pk = tl.linear_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == n0 + 1
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
 
 
 @pytest.mark.parametrize("windowed", [False, True])

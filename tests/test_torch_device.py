@@ -48,9 +48,10 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     assert (tmp_path / "out.fas").read_text().count(">") == 2
 
 
-@pytest.mark.parametrize("flags", [["--pileup", "-q", "r.fas"],
+@pytest.mark.parametrize("flags", [["-q", "r.fas"],
                                    ["--mpost-graph-file", "g.mp"],
-                                   ["--translate"], ["--pair-end"],
+                                   ["--translate"],
+                                   ["--ref-seqfile", "r.fas"],
                                    ["--checkpoint-dir", "ck"],
                                    ["--threads", "4"]])
 def test_unported_flags_raise(tmp_path, flags):
@@ -65,23 +66,25 @@ def test_unported_flags_raise(tmp_path, flags):
 @pytest.mark.parametrize("flags", [["--full-probability"],
                                    ["--sample-path", "--seed", "3"]])
 def test_pair_end_with_full_probability_still_raises(tmp_path, flags):
-    """Full probability is ported; together with --pair-end it still
-    belongs to the pair-end item."""
+    """Pair-end is ported: with full probability or sampling it no
+    longer raises, through the CLI or align_pair, and on a family with
+    no break site (no FASTQ joint) it gives the output of the run
+    without --pair-end."""
     (tmp_path / "s.fas").write_text(">a\nACGTACGTTGCA\n>b\nACGTACTTGCA\n")
     (tmp_path / "t.nh").write_text("(a:0.1,b:0.1);\n")
     argv = ["--device", "cpu", "-s", str(tmp_path / "s.fas"),
-            "-t", str(tmp_path / "t.nh"), "-o", str(tmp_path / "out"),
-            "--silent"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(argv + ["--pair-end"] + flags)
-    assert cli.main(argv + flags) == 0
+            "-t", str(tmp_path / "t.nh"), "--silent"]
+    out = str(tmp_path / "out")
+    assert cli.main(argv + ["-o", out + "_pe", "--pair-end"] + flags) == 0
+    assert cli.main(argv + ["-o", out] + flags) == 0
+    assert open(out + "_pe.fas").read() == open(out + ".fas").read()
     from pagan2_tpu_torch.align import align_pair
     from dataclasses import replace
     g1, g2 = _pair()
     s = replace(AlignSettings(), pair_end_reads=True,
                 compute_full_score=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        align_pair(g1, g2, MODEL, s, device="cpu")
+    anc, _end = align_pair(g1, g2, MODEL, s, device="cpu")
+    assert anc is not None and anc.num_sites() > 20
 
 
 def test_linear_wrapper_rejects_wrong_dtype():
