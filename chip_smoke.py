@@ -3,8 +3,9 @@
 an NVIDIA GPU: builds the hand-written CUDA kernels from csrc/, holds
 each against its plain PyTorch version on the card, and drives the
 progressive-alignment main path, the long-pair paths, the
-full-probability and sampling path and the read paths (--pileup,
---pair-end) end to end through the port's CLI.
+full-probability and sampling path, the read paths (--pileup,
+--pair-end) and query placement (-q, --ref-seqfile, --fragments,
+--align-reads-at-root) end to end through the port's CLI.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -74,7 +75,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                launched on linear and on fan-in jobs, kernels A and B for
                the Viterbi fills, no plain version, posterior support of
                the root's sites in (0, 1] (1.02 with f32 rounding); then --sample-path --seed 7:
-               every row intact; then both flags on an 8 x 511 family
+               every row intact; then both flags on a 4 x 511 family
                with the kernels and with the plain versions forced on
                CUDA: byte-identical FASTA, posterior support within 1e-5
   long_family  4 x 4,000 bp family (the same generator, seed 5) through
@@ -99,6 +100,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                and as pair-end reads with --build-contigs, each with the
                kernels and with the plain versions forced on CUDA:
                byte-identical .fas and _contigs.fas
+  placement_path  main_path's out.fas the JAX CLI's bytes (sha256); with
+               the family's tree it is the reference alignment for
+               queries of tools/reads.py's placement_queries (of its 34:
+               8 new members, 24 reads of 150-400 bp, 8 of them
+               reverse-complemented, 2 random 300-bp sequences) through
+               the CLI on CUDA: (a) --ref-seqfile --ref-treefile
+               --both-strands --output-discarded-queries with the 8
+               members and the 2 random ones (a cut: all 34 take the JAX
+               CLI over 30 minutes and the card 254-315 s a run;
+               tools/bench_placement.py runs them), (b) the same with
+               --fragments, (c) -s -t -q with the 8 members, (d)
+               --ref-seqfile -q with the 24 reads --align-reads-at-root;
+               each run's files the JAX CLI's bytes (sha256), the random
+               sequences discarded, kernel B and kernel A or C launched,
+               no plain version; run (a) timed by host phase; then (a)
+               and (b) on the 8 x 511 family's alignment with 2 reads,
+               with the kernels and with the plain versions forced on
+               CUDA: byte-identical .fas and .discarded
   megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
@@ -120,7 +139,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                and of the --full-probability run, bit-equal, with their
                launch plans and us per diagonal; kernel A's ordinary
                build on the main path's call beside its 1.614 ms from
-               before the pair-end build existed)
+               before the pair-end build existed; kernels A, B and C on
+               every call of placement_path's run (a), the first call of
+               each build bit-equal to the plain version, with its
+               plain time and bound)
   trace        the main path, the --full-probability path and the pileup
                path once more under torch.profiler: the device's busy
                share and time by kernel
@@ -883,6 +905,7 @@ def main():
 
     from pagan2_tpu_torch import pipeline as PIPE
     from pagan2_tpu_torch.pipeline import pileup as PILE
+    from pagan2_tpu_torch.pipeline import placement as PLACE
     # each wrapper's module and name; A, B and C count in module-level
     # integers, the four entry points of D and E in dicts by name
     KERNELS = {"linear": (VL, "linear_fill"), "fanin": (VF, "fanin_fill"),
@@ -918,13 +941,15 @@ def main():
         """One CLI run with `fills` in the wrappers' places and every
         count set to 0 just before it; returns (wall s, launches per
         kernel, plain-version calls, EXEC_STATS) read just after. With
-        nh None, fas is the read file of a --pileup run."""
+        nh None, fas is the read file of a --pileup run; with both None,
+        `extra` holds every input flag."""
         EX.reset_stats()
         zero_counts()
         VL.PAIR_END_LAUNCHES = 0
         for k, (m, n) in KERNELS.items():
             setattr(m, n, fills[k])
-        captured = [(PIPE, "align_progressive"), (PILE, "pileup_align")]
+        captured = [(PIPE, "align_progressive"), (PILE, "pileup_align"),
+                    (PLACE, "place_queries")]
         saved = [getattr(m, n) for m, n in captured]
 
         def capture(fn):
@@ -934,7 +959,8 @@ def main():
             return run
         for (m, n), fn in zip(captured, saved):
             setattr(m, n, capture(fn))
-        argv = ["-s", fas, "-t", nh] if nh else ["--pileup", "-q", fas]
+        argv = (["-s", fas, "-t", nh] if nh else
+                ["--pileup", "-q", fas] if fas else [])
         t = time.time()
         try:
             rc = CLI.main(argv + ["-o", out, "--silent", "--time"]
@@ -954,9 +980,9 @@ def main():
                     for m, n in KERNELS.values()),
                 dict(EX.EXEC_STATS))
 
-    # the ProgressiveResult (or PileupResult) of the last run_cli (its
-    # root graph carries the posterior support of a --full-probability
-    # run)
+    # the ProgressiveResult (PileupResult, PlacementOutcome) of the last
+    # run_cli (its root graph carries the posterior support of a
+    # --full-probability run)
     last_result = [None]
 
     def check_rows(what, out, seqs):
@@ -1075,17 +1101,22 @@ def main():
     if counts_sp["linear"] or counts_sp["fanin"]:
         fail("fullprob_path sampled: a Viterbi fill ran for a sampled path")
 
-    # kernels against forced plain versions, both flags, on 8 x 511
-    for tag, extra in (("fullprob8", ["--full-probability"]),
-                       ("sampled8", ["--sample-path", "--seed", "7"])):
-        out8 = os.path.join(work, tag + "_kernel")
-        _w, c8, plain_calls, _s = run_cli(tag, fas8, nh8, out8, real, extra)
-        check_rows(tag, out8, seqs8)
-        if min(c8[k] for k in FP_KEYS) < 1 or plain_calls:
+    # kernels against forced plain versions, both flags, on a 4 x 511
+    # family of the generator (8 x 511 before the placement phases came:
+    # cut for their time)
+    seqs4fp, tree4fp = family(4, 511)
+    fas4fp, nh4fp = write_input(work, "family4", seqs4fp, tree4fp)
+    for tag, extra in (("fullprob4", ["--full-probability"]),
+                       ("sampled4", ["--sample-path", "--seed", "7"])):
+        out4 = os.path.join(work, tag + "_kernel")
+        _w, c4, plain_calls, _s = run_cli(tag, fas4fp, nh4fp, out4, real,
+                                          extra)
+        check_rows(tag, out4, seqs4fp)
+        if min(c4[k] for k in FP_KEYS) < 1 or plain_calls:
             fail("%s: launches %s, %d plain-version calls"
-                 % (tag, c8, plain_calls))
+                 % (tag, c4, plain_calls))
         sup_kernel = support()
-        same_output(tag, out8, seqs8, fas8, nh8, extra)
+        same_output(tag, out4, seqs4fp, fas4fp, nh4fp, extra)
         d = float(np.abs(sup_kernel - support()).max())
         log("%s: posterior support kernel vs plain max |err| %.3g" % (tag, d))
         if d > 1e-5:
@@ -1135,7 +1166,9 @@ def main():
                        "57490c820a7ea6d01ff984c88efc3ae7")
     import hashlib
     from pagan2_tpu_torch.tools.reads import (amplicon_reads,
-                                              pair_end_reads, write_reads)
+                                              pair_end_reads,
+                                              placement_queries,
+                                              write_reads)
 
     def sha(path):
         return hashlib.sha256(open(path, "rb").read()).hexdigest()
@@ -1300,6 +1333,146 @@ def main():
             fail("%s: kernel and plain .fas/_contigs.fas differ" % tag)
         log("%s: the plain versions on CUDA give byte-identical .fas and "
             "_contigs.fas" % tag)
+
+    # ---- placement_path: queries placed onto the main path's alignment ----
+    # The main path's out.fas is the JAX CLI's: sha256 of its output on
+    # the same input, made on the CPU as PILEUP40_FAS was (python -c
+    # "$REFERENCE" -s family.fas -t family.nh -o ref). With the family's
+    # tree it is the reference alignment of the runs below. The queries
+    # come from tools/reads.py's placement_queries(1535, 8, 24, 150, 400,
+    # 8, 2, 300): 8 new members of the family, 24 reads of 150-400 bp (8
+    # of them reverse-complemented) and 2 random 300-bp sequences, 34 in
+    # all. Runs (a) and (b) take a cut of them: the first 8 queries and
+    # the 2 random ones (q10.fas). On all 34 the JAX CLI needs more than
+    # 30 minutes on the CPU, and the card 254 s and 245 s for (a) and
+    # (b), more than this script's budget; tools/bench_placement.py makes
+    # and times the 34-query runs. The sha256 of each run's files are the
+    # JAX CLI's on the same flags:
+    #   (a) --ref-seqfile ref.fas --ref-treefile family.nh -q q10.fas
+    #       --both-strands --output-discarded-queries
+    #   (b) the same with --fragments
+    #   (c) -s family.fas -t family.nh -q q8.fas       (the 8 members)
+    #   (d) --ref-seqfile ref.fas --ref-treefile family.nh -q r24.fas
+    #       --align-reads-at-root                     (the 24 reads)
+    MAIN16_FAS = ("8a1010095f33bd993d5770f91aa6d158"
+                  "3ae303380ea648fb576c502841c5e418")
+    PLACE_SHA = {
+        "a": {".fas": "756b19b2aff56c55213e71d35d80b28c"
+                      "8b84618cd820932f29415136fbb2b916",
+              ".discarded": "4b4db78aef0f21d3ea010b8869d9914e"
+                            "f66173833d4f8fe2fe0fa1db3557a7f0"},
+        "b": {".fas": "6d94d0fb142f132b9f02871a999dd30e"
+                      "0956ab32851479b4e834e73376084b56",
+              ".discarded": "4b4db78aef0f21d3ea010b8869d9914e"
+                            "f66173833d4f8fe2fe0fa1db3557a7f0"},
+        "c": {".fas": "48d82d74f7d10191e28d0a9aa6d36f72"
+                      "c7ebc089b8ce789f798651456741cd96"},
+        "d": {".fas": "f597a3f72da6059a422e6d3940efb819"
+                      "660f05c9e179013afbe16a319bc38b1d"}}
+    t_place = time.time()
+    if sha(out_kernel + ".fas") != MAIN16_FAS:
+        fail("placement_path: main_path's out.fas differs from the JAX "
+             "CLI's")
+    log("placement_path: main_path's 16 x 1535 out.fas is the JAX CLI's "
+        "bytes")
+    pq = placement_queries(1535, 8, 24, 150, 400, 8, 2, 300)
+    q10 = write_reads(os.path.join(work, "q10.fas"), pq[:8] + pq[32:])
+    q8 = write_reads(os.path.join(work, "q8.fas"), pq[:8])
+    r24 = write_reads(os.path.join(work, "r24.fas"), pq[8:32])
+    ref16 = ["--ref-seqfile", out_kernel + ".fas", "--ref-treefile", nh]
+    place_runs = (
+        ("a", "placement_path", ref16 + [
+            "-q", q10, "--both-strands", "--output-discarded-queries"]),
+        ("b", "placement_fragments", ref16 + [
+            "-q", q10, "--both-strands", "--output-discarded-queries",
+            "--fragments"]),
+        ("c", "placement_after_progressive", ["-s", fas, "-t", nh,
+                                              "-q", q8]),
+        ("d", "placement_at_root", ref16 + ["-q", r24,
+                                            "--align-reads-at-root"]))
+    # run (a)'s host phases, each timed where placement calls it
+    host.clear()
+    place_patches = [
+        (PLACE, "_build_score_jobs", "scoring prep (graph deep copies)"),
+        (EX, "execute_pair_jobs", "execute_pair_jobs"),
+        (PLACE, "_match_score_from_anc", "_match_score_from_anc"),
+        (PLACE, "align_pair", "splice align_pair"),
+        (PLACE, "read_alignment_scores", "read_alignment_scores"),
+        (PLACE, "_correct_sites_index", "_correct_sites_index"),
+        (PLACE, "extract_alignment", "extract_alignment")]
+    rec_place = {k: [] for k in KERNELS}
+    for run, tag, flags in place_runs:
+        out = os.path.join(work, "place_" + run)
+        saved = [(m, n, getattr(m, n)) for m, n, _k in place_patches]
+        if run == "a":
+            for m, n, key in place_patches:
+                setattr(m, n, timed_host(getattr(m, n), key))
+        try:
+            wall, c_pl, plain_calls, stats = run_cli(
+                tag, None, None, out,
+                recording(rec_place) if run == "a" else real, flags)
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        res = last_result[0]
+        if run == "d":      # a PileupResult: the reads at the root
+            placed, gone = 24 - len(res.discarded), list(res.discarded)
+        else:
+            placed, gone = len(res.placed), [e.name for e in res.discarded]
+        files = [".fas"] + ([".discarded"] if run in "ab" else [])
+        differ = [sfx for sfx in files
+                  if sha(out + sfx) != PLACE_SHA[run][sfx]]
+        log("%s: run (%s) %d placed, %d discarded (%s) in %.1f s; %s; %d "
+            "plain-version calls; %s the JAX CLI's bytes"
+            % (tag, run, placed, len(gone), ",".join(gone), wall,
+               route_text(c_pl, stats), plain_calls,
+               " and ".join(files) + (" differ from" if differ else
+                                      " are")))
+        if differ:
+            fail("%s: %s differ from the JAX CLI's" % (tag, differ))
+        # a query against a leaf fills on kernel A, or on kernel C when
+        # anchored with a thin band; against an ancestor on kernel B
+        if plain_calls or c_pl["fanin"] < 1 or \
+                (run != "d" and c_pl["linear"] + c_pl["banded"] < 1):
+            fail("%s: launches %s, %d plain-version calls"
+                 % (tag, c_pl, plain_calls))
+        if run in "ab" and not {"x0", "x1"} <= set(gone):
+            fail("%s: a random sequence was placed" % tag)
+        path_launches[tag] = c_pl
+    for key, v in host.items():
+        log("placement_path host phase %-34s %8.3f s" % (key, v))
+
+    # runs (a) and (b) with the plain versions forced on CUDA, on the 8 x
+    # 511 family's alignment (main8) with 2 reads of the generator, one
+    # reverse-complemented: under 200 bp they do not anchor, so their
+    # scoring jobs batch into a few fills (the plain versions take 1-7 s
+    # a fill on the card; 8 queries took 160 s)
+    ref8 = ["--ref-seqfile", os.path.join(work, "main8_kernel.fas"),
+            "--ref-treefile", nh8, "-q", write_reads(
+                os.path.join(work, "r2_511.fas"),
+                placement_queries(511, 1, 2, 120, 180, 1, 0, 0)[1:]),
+            "--both-strands", "--output-discarded-queries"]
+    for tag, extra in (("placement8", []),
+                       ("placement8_fragments", ["--fragments"])):
+        outs = {}
+        for kind, fl in (("kernel", real), ("plain", plain)):
+            o = os.path.join(work, "%s_%s" % (tag, kind))
+            wall, c8, plain_calls, _st = run_cli(tag, None, None, o, fl,
+                                                 ref8 + extra)
+            outs[kind] = [open(o + sfx, "rb").read() if
+                          os.path.exists(o + sfx) else None
+                          for sfx in (".fas", ".discarded")]
+            launched = sum(c8.values())
+            if (kind == "kernel") != bool(launched) or plain_calls:
+                fail("%s %s: launches %s, %d plain-version calls"
+                     % (tag, kind, c8, plain_calls))
+            log("%s: %s (%.1f s): launches %s" % (tag, kind, wall,
+                                                  json.dumps(c8)))
+        if outs["kernel"] != outs["plain"]:
+            fail("%s: kernel and plain .fas/.discarded differ" % tag)
+        log("%s: the plain versions on CUDA give byte-identical .fas and "
+            ".discarded" % tag)
+    log("placement_path: %.1f s in all" % (time.time() - t_place))
 
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
@@ -1592,6 +1765,50 @@ def main():
             % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1], fp_t[k][2],
                fp_t[k][3], fp_t[k][4]))
 
+    # kernels A, B and C on run (a)'s calls of placement_path: every call
+    # timed on the kernel; the first call of each build held bit-equal
+    # to the plain version, timed with it and given its bound (the plain
+    # versions take 3-7 s a call at this width, and run (a) makes
+    # hundreds of calls)
+    def build_of(name, kw):
+        if name == "linear":
+            return "%d rows a thread" % VL.linear_plan(
+                kw["ms"].shape[2])["rows"]
+        if name == "banded":
+            return VB.banded_plan(kw["ms"].shape[1])["build"]
+        p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
+                           kw["roff"].shape[2], kw["table"].shape[1])
+        return "%s, ring %s" % ("templated" if p["KL"] else "runtime K",
+                                p["placement"])
+
+    place_t = {}
+    for name, bound in (("linear", linear_bound), ("fanin", fanin_bound),
+                        ("banded", banded_bound)):
+        calls = rec_place[name]
+        if not calls:
+            continue
+        first = {}
+        for kw in calls:
+            first.setdefault(build_of(name, kw), kw)
+        held = time_kernel(list(first.values()), real[name], plain[name],
+                           bound, same_floats, 3)
+        ms = [cuda_ms(lambda kw=kw: real[name](**kw), 1) for kw in calls]
+        place_t[name] = {
+            "calls": len(calls), "ms_all_calls": sum(ms) / len(calls),
+            "builds_held": sorted(first), "ms": held[0],
+            "plain_ms": held[1], "bound_ms": held[2], "bound_by": held[3],
+            "max_abs_err": held[4]}
+        log("timing %s on placement_path run (a): kernel %.3f ms/launch "
+            "over its %d calls; the first call of each build (%s) "
+            "bit-equal to the plain version: kernel %.3f ms, plain %.1f "
+            "ms, bound %.5f ms (%s)"
+            % (name, place_t[name]["ms_all_calls"], len(calls),
+               "; ".join(sorted(first)), held[0], held[1], held[2],
+               held[3]))
+    lin_err = max(lin_err, place_t.get("linear", {}).get("max_abs_err", 0))
+    fan_err = max(fan_err, place_t.get("fanin", {}).get("max_abs_err", 0))
+    ban_err = max(ban_err, place_t.get("banded", {}).get("max_abs_err", 0))
+
     def by_path(*keys):
         """Launches of the wrappers `keys` on each path's run."""
         return {path: sum(c.get(k, 0) for k in keys)
@@ -1722,6 +1939,7 @@ def main():
                              zip(lin_t[7], recorded["linear"])],
          "fullprob_calls_ms": lin_fp_t[7],
          "launches_by_path": by_path("linear"),
+         "placement_path": place_t.get("linear"),
          "pair_end_us_per_diagonal": {
              text: [{"pair_end": a, "ordinary": b} for a, b in v]
              for text, v in pe_us.items()}},
@@ -1732,7 +1950,8 @@ def main():
          "ms": fan_t[0], "plain_ms": fan_t[1], "bound_ms": fan_t[2],
          "bound_by": fan_t[3], "library_ms": None,
          "fullprob_calls_ms": fan_fp_ms, "k454_16x2047_ms": fan_454_ms[0],
-         "launches_by_path": by_path("fanin")},
+         "launches_by_path": by_path("fanin"),
+         "placement_path": place_t.get("fanin")},
         {"name": "viterbi_banded", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_banded.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_banded.py:79",
@@ -1743,7 +1962,8 @@ def main():
          "whole_call_ms": mega_ms, "whole_call_bound_ms": mega_bound,
          "plans": [banded_plan_text(VB, kw) for kw in
                    rec_long["banded"] + rec_mega["banded"]],
-         "builds_met": ban_builds, "launches_by_path": by_path("banded")},
+         "builds_met": ban_builds, "launches_by_path": by_path("banded"),
+         "placement_path": place_t.get("banded")},
         kernel_entry("fullprob_fwd",
                      "pagan2_tpu_torch/csrc/fullprob_fwd.cu",
                      "pagan2_tpu/align/fullprob_pallas.py:45", "fwd"),

@@ -6,6 +6,9 @@ the wavefront kernels.
 Usage:  python -m pagan2_tpu_torch -s seqs.fas -t tree.nh -o out
         python -m pagan2_tpu_torch --device cpu -s seqs.fas -t tree.nh -o out
         python -m pagan2_tpu_torch --pileup [--homopolymer] -q reads.fas -o out
+        python -m pagan2_tpu_torch --ref-seqfile ref.fas --ref-treefile \
+            ref.nh -q queries.fas -o out
+        python -m pagan2_tpu_torch -s seqs.fas -t tree.nh -q queries.fas -o out
 
 The kernels run on CUDA unless --device cpu is given; without a card,
 --device cuda raises. A flag whose feature is not ported yet raises
@@ -570,11 +573,10 @@ def unported_request(args):
     from . import pending as P
     # under --pileup, -q is the read file, no guide tree is read, and
     # --mt-translate only picks the ORF search's genetic code
-    # (pagan2_tpu/cli.py:960-1010)
+    # (pagan2_tpu/cli.py:960-1010); --ref-seqfile reads its tree from
+    # --ref-treefile
     checks = [
-        (args.ref_seqfile, "--ref-seqfile", P.PLACEMENT),
-        (args.queryfile and not args.pileup, "-q/--queryfile", P.PLACEMENT),
-        (not args.treefile and not args.pileup,
+        (not (args.treefile or args.pileup or args.ref_seqfile),
          "guide-tree inference (no -t/--treefile)", P.CLI_REST),
         (args.checkpoint_dir, "--checkpoint-dir", P.CLI_REST),
         ((args.translate or args.mt_translate) and not args.pileup,
@@ -685,6 +687,130 @@ def run_pileup(args, device, tick):
     if not args.silent:
         print(f"pileup: {len(res.alignment)} rows, "
               f"{len(res.discarded)} reads discarded -> {args.outfile}")
+    return 0
+
+
+def handle_queries(args, res, data_type, mf, settings, device):
+    """Align the -q queries onto a finished alignment, as the JAX CLI's
+    handle_queries does after any alignment, progressive or read from
+    --ref-seqfile (main.cpp:206-218): with --align-reads-at-root by the
+    pileup path from the reference's root, else by query placement.
+    --translate raises before this (ROADMAP Queue 1 item 10), so no
+    query carries DNA of its own here. Returns the new result."""
+    from .io.fasta import read_sequences
+    from .pipeline.progressive import ProgressiveResult
+    if not args.queryfile:
+        return res
+    queries = read_sequences(args.queryfile)
+    if args.align_reads_at_root:
+        # reads_aligner.cpp:92: --align-reads-at-root uses the pileup
+        # path with the reference root as the start graph
+        from .pipeline.pileup import pileup_align, PileupConfig
+        pcfg = PileupConfig(
+            both_strands=args.both_strands,
+            min_query_overlap=args.min_query_overlap,
+            min_query_identity=args.min_query_identity,
+            query_cluster_attempts=args.query_cluster_attempts,
+            query_distance=args.query_distance,
+            overlap_with_any=args.overlap_with_any,
+            use_consensus=(args.use_consensus or args.build_contigs
+                           or args.output_consensus),
+            consensus_minimum=args.consensus_minimum,
+            consensus_minimum_proportion=(
+                args.consensus_minimum_proportion),
+            engine=args.engine)
+        pres = pileup_align(queries, data_type, pcfg, model_factory=mf,
+                            settings=settings, root_node=res.tree,
+                            device=device)
+        if not args.silent:
+            print(f"placed {len(queries) - len(pres.discarded)} "
+                  f"queries at root, {len(pres.discarded)} discarded")
+        return ProgressiveResult(tree=pres.root, alignment=pres.alignment)
+
+    from .pipeline.placement import place_queries, PlacementConfig
+    cfg = PlacementConfig(
+        min_query_overlap=args.min_query_overlap,
+        min_query_identity=args.min_query_identity,
+        both_strands=args.both_strands,
+        terminal_nodes=args.terminal_nodes,
+        internal_nodes=args.internal_nodes,
+        all_nodes=args.all_nodes,
+        query_distance=args.query_distance,
+        overlap_with_any=args.overlap_with_any,
+        one_placement_only=args.one_placement_only,
+        align_bad_reads_at_root=args.align_bad_reads_at_root,
+        use_identity_score=args.use_identity_score,
+        use_target_normalised_score=args.use_target_normalised_score,
+        find_orfs=args.find_orfs,
+        min_orf_length=args.min_orf_length,
+        min_orf_coverage=args.min_orf_coverage,
+        mt=args.mt_translate,
+        exhaustive_placement=args.exhaustive_placement,
+        guided=args.guided or args.no_preselection,
+        score_only_ungapped=args.score_only_ungapped,
+        score_ungapped_limit=args.score_ungapped_limit,
+        assembly=args.assembly,
+        fragments=args.fragments,
+        rank_reads_for_nodes=args.rank_reads_for_nodes,
+        tid_for_subroot=args.tid_for_subroot,
+        score_as_dna=args.score_as_dna,
+        compute_consensus=(args.use_consensus or args.build_contigs or
+                           args.output_consensus),
+        # exonerate preselection equivalents (settings.cpp:355-380,
+        # :415-417)
+        preselect_keep_best=(
+            0 if args.own_placement else
+            1 if args.very_fast_placement else
+            5 if args.fast_placement else
+            (max(args.exonerate_local_keep_best, 0)
+             if args.use_exonerate_local else 0)))
+    outcome = place_queries(res, queries, data_type, cfg,
+                            model_factory=mf, settings=settings,
+                            device=device)
+    if args.output_discarded_queries and outcome.discarded:
+        from .io.fasta import write_fasta
+        write_fasta(outcome.discarded, f"{args.outfile}.discarded")
+    if not args.silent:
+        print(f"placed {len(outcome.placed)} queries, "
+              f"{len(outcome.discarded)} discarded")
+    return outcome.result
+
+
+def run_reference(args, device, tick):
+    """--ref-seqfile: the reference alignment and its --ref-treefile
+    read as aligned (pipeline/refread.py; main.cpp:181, node.h:909),
+    the -q queries placed onto it, then the outputs. Returns the exit
+    code."""
+    from .io.fasta import read_sequences
+    from .tree.newick import parse_newick
+    from .pipeline.refread import read_reference_alignment
+    entries = read_sequences(args.ref_seqfile)
+    data_type = resolve_data_type(args, entries)
+    mf = make_model_factory(args, data_type, entries)
+    settings = make_settings(args)
+    if not args.ref_treefile:
+        print("--ref-seqfile requires --ref-treefile", file=sys.stderr)
+        return 1
+    ref_tree = parse_newick(open(args.ref_treefile).read())
+    ref_tree.apply_branch_length_rules(
+        min_len=args.min_branch_length,
+        truncate=None if args.real_branches else args.truncate_branches,
+        scale=args.scale_branches, fixed=args.fixed_branches,
+        real_branches=args.real_branches)
+    res = read_reference_alignment(
+        entries, ref_tree, data_type=data_type, settings=settings,
+        model_factory=mf, quick=args.quick,
+        perfect_reference=args.perfect_reference)
+    tick("reference alignment")
+    res = handle_queries(args, res, data_type, mf, settings, device)
+    tick("query placement")
+    write_outputs(args, res.tree, res.alignment, data_type)
+    check_graphs(args, res.tree)
+    tick("write output")
+    if not args.silent:
+        n = len(res.alignment)
+        l = len(res.alignment[0].sequence) if n else 0
+        print(f"alignment: {n} rows x {l} cols -> {args.outfile}")
     return 0
 
 
@@ -810,8 +936,9 @@ def main(argv=None) -> int:
         print("note: --raxml-tree/--bppdist-tree select the guide-tree "
               "inference, which -t replaces", file=sys.stderr)
 
-    if args.pileup:
-        rc = run_pileup(args, device, _tick)
+    if args.pileup or args.ref_seqfile:
+        run = run_pileup if args.pileup else run_reference
+        rc = run(args, device, _tick)
         if rc == 0:
             _report_time()
         return rc
@@ -838,6 +965,11 @@ def main(argv=None) -> int:
         mode454=args.mode454, homopolymer=args.homopolymer,
         device=device)
     _tick("alignment")
+    if args.queryfile:
+        # the reference aligns -q queries after ANY alignment
+        # (main.cpp:206-218), not only after --ref-seqfile
+        res = handle_queries(args, res, data_type, mf, settings, device)
+        _tick("query placement")
 
     write_outputs(args, res.tree, res.alignment, data_type)
     check_graphs(args, res.tree)

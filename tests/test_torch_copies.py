@@ -20,8 +20,9 @@ COPIES = (["graph/%s.py" % m for m in ("__init__", "builders",
                                       "translate", "writers")]
           + ["tree/newick.py", "utils/log.py"]
           + ["align/%s.py" % m for m in ("settings", "oracle", "ancestral",
-                                         "anchors", "sampling")]
-          + ["native/pagan2_native.cpp", "pipeline/orfs.py"])
+                                         "anchors", "sampling", "refalign")]
+          + ["native/pagan2_native.cpp"]
+          + ["pipeline/%s.py" % m for m in ("orfs", "refread", "ancestors")])
 
 _IMPORT = re.compile(rb"^\s*(from|import)\s")
 

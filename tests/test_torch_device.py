@@ -48,10 +48,10 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     assert (tmp_path / "out.fas").read_text().count(">") == 2
 
 
-@pytest.mark.parametrize("flags", [["-q", "r.fas"],
+@pytest.mark.parametrize("flags", [["-q", "r.fas", "--translate"],
                                    ["--mpost-graph-file", "g.mp"],
                                    ["--translate"],
-                                   ["--ref-seqfile", "r.fas"],
+                                   ["--output-ancestors"],
                                    ["--checkpoint-dir", "ck"],
                                    ["--threads", "4"]])
 def test_unported_flags_raise(tmp_path, flags):

@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import pytest
 
-from pagan2_tpu_torch.io.fasta import FastaEntry
+from pagan2_tpu_torch.io.fasta import FastaEntry, read_fasta
 from pagan2_tpu_torch.pipeline.pileup import (pileup_align, PileupConfig,
                                               reconstruct_contigs,
                                               translated_pileup_align)
@@ -267,18 +267,26 @@ sys.exit(main(sys.argv[1:]))
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ref-seqfile", "ref.fas"], ["-q", "reads.fas"],
-    ["-q", "reads.fas", "--align-reads-at-root"]],
+    ["--ref-seqfile", "ref.fas", "--ref-treefile", "t.nh"],
+    ["-q", "reads.fas"], ["-q", "reads.fas", "--align-reads-at-root"]],
     ids=["ref_seqfile", "queries", "queries_at_root"])
-def test_placement_flags_still_raise(tmp_path, flags):
-    """Placement (ROADMAP Queue 1 item 9) is not ported: --ref-seqfile,
-    and -q without --pileup, raise naming it."""
+def test_placement_flags_still_raise(tmp_path, monkeypatch, flags):
+    """Placement (ROADMAP Queue 1 item 9) is ported: --ref-seqfile with
+    its --ref-treefile, and -q without --pileup (placement onto the
+    progressive alignment, or --align-reads-at-root), no longer raise;
+    each run exits 0 and writes out.fas with every row."""
+    monkeypatch.chdir(tmp_path)
     (tmp_path / "s.fas").write_text(">a\nACGTACGTTGCA\n>b\nACGTACTTGCA\n")
+    (tmp_path / "ref.fas").write_text(
+        ">a\nACGTACGTTGCA\n>b\nACGTAC-TTGCA\n")
     (tmp_path / "t.nh").write_text("(a:0.1,b:0.1);\n")
-    argv = ["--device", "cpu", "-s", str(tmp_path / "s.fas"),
-            "-t", str(tmp_path / "t.nh"), "-o", str(tmp_path / "out")]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(argv + flags)
+    (tmp_path / "reads.fas").write_text(">r\nACGTACGTTGCA\n")
+    argv = ["--device", "cpu", "-s", "s.fas", "-t", "t.nh", "-o", "out",
+            "--silent"]
+    assert cli.main(argv + flags) == 0
+    names = [e.name for e in read_fasta("out.fas")]
+    assert {"a", "b"} <= set(names)
+    assert any(n.startswith("r") for n in names) == ("-q" in flags)
 
 
 def test_pileup_without_reads_exits_1(tmp_path, capsys):
