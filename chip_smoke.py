@@ -4,8 +4,11 @@ an NVIDIA GPU: builds the hand-written CUDA kernels from csrc/, holds
 each against its plain PyTorch version on the card, and drives the
 progressive-alignment main path, the long-pair paths, the
 full-probability and sampling path, the read paths (--pileup,
---pair-end) and query placement (-q, --ref-seqfile, --fragments,
---align-reads-at-root) end to end through the port's CLI.
+--pair-end), query placement (-q, --ref-seqfile, --fragments,
+--align-reads-at-root) and the rest of the CLI (guide-tree inference,
+ancestors and events, NHX, graph plots, --translate, --checkpoint-dir,
+prune and trim, anchor plots, the profiler flag) end to end through the
+port's CLI.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -39,12 +42,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernel_fullprob  kernels D and E vs their plain versions: linear, 8
                jobs at 2047 x 2047 and a ragged batch; fan-in, 454-style
                K3/3 graphs, over-cap ancestor pairs and a deep ring
-               (40-bp deletion edges); then kernel E alone where its
-               launch plans take their other branches: linear buffers in
-               device memory (4,300 rows), a fan-in ring with no diagonal
-               on chip (6,600 rows) and a right-slot table too large for
-               shared memory (15,000 columns), each of E's placements
-               (ring shared, hot, global; table shared, device) seen;
+               (40-bp deletion edges); then where their launch plans
+               take their other branches: linear buffers in device
+               memory (4,300 rows), a fan-in ring with no diagonal on
+               chip (6,600 rows) and a right-slot table too large for
+               shared memory (7,500 columns of four edge slots each
+               way), each placement of D and E (ring shared, hot,
+               global; table shared, device; linear buffers shared,
+               global) seen;
                planes bit-equal, cum within D * eps * max(1, |cum|);
                posteriors of a small linear and a small fan-in pair
                against the f64 host oracle
@@ -80,8 +85,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                CUDA: byte-identical FASTA, posterior support within 1e-5
   long_family  4 x 4,000 bp family (the same generator, seed 5) through
                the CLI: 2 banded fills on kernel C, an anchored fan-in
-               fill on kernel B, no plain version; then the plain
-               versions forced: byte-identical FASTA
+               fill on kernel B, no plain version; then a 4 x 3,100
+               family with the kernels and with the plain versions
+               forced: byte-identical FASTA
   pileup_path  bench.py's 454 amplicon demo (tools/reads.py's
                amplicon_reads: 40 x 384 reads, default_rng(3)) through the
                CLI with --pileup --homopolymer --output-consensus: 40
@@ -96,7 +102,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                kernel B launched on preps with a break set, kernel A's
                pair-end build launched in the --no-anchors run; then 8
                of them with --full-probability: the JAX CLI's bytes;
-               then 12 x 192 reads with --both-strands --build-contigs
+               then 8 x 192 reads with --both-strands --build-contigs
                and as pair-end reads with --build-contigs, each with the
                kernels and with the plain versions forced on CUDA:
                byte-identical .fas and _contigs.fas
@@ -106,8 +112,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                8 new members, 24 reads of 150-400 bp, 8 of them
                reverse-complemented, 2 random 300-bp sequences) through
                the CLI on CUDA: (a) --ref-seqfile --ref-treefile
-               --both-strands --output-discarded-queries with the 8
-               members and the 2 random ones (a cut: all 34 take the JAX
+               --both-strands --output-discarded-queries with the first
+               4 members and the 2 random ones (a cut: all 34 take the JAX
                CLI over 30 minutes and the card 254-315 s a run;
                tools/bench_placement.py runs them), (b) the same with
                --fragments, (c) -s -t -q with the 8 members, (d)
@@ -115,9 +121,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                each run's files the JAX CLI's bytes (sha256), the random
                sequences discarded, kernel B and kernel A or C launched,
                no plain version; run (a) timed by host phase; then (a)
-               and (b) on the 8 x 511 family's alignment with 2 reads,
+               and (b) on the 4 x 511 family's alignment with 1 read,
                with the kernels and with the plain versions forced on
                CUDA: byte-identical .fas and .discarded
+  cli_rest_path  the rest of the CLI on CUDA, each run's files the JAX
+               CLI's bytes (sha256), kernels A and B launched (C in (e)),
+               no plain version: (a) the 16 x 1535 family with no -t
+               (the guide tree inferred) and --output-ancestors --events
+               --output-nhx-tree --xml-nhx --mpost-graph-file; (b)
+               --translate on a 16 x 1536 coding family of the same
+               generator (.fas and .codon.fas); (c) --checkpoint-dir: a
+               full run, then one with the root's and a first pair's
+               node files deleted, both main_path's bytes, then another
+               --indel-rate against the directory, refused; (d) -s -t -q
+               with placement_path's 8 members and
+               --prune-extended-alignment --prune-keep-number 4, and
+               -s -t -q with 3 of its reads and --trim-extended-alignment
+               (687 of 1,535 columns kept); (e)
+               --plot-anchors-for-R on the 4 x 4,000 long family (its .r
+               files); (f) --jax-profile on run (a)'s inputs: the trace
+               names kernels A and B
   megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
@@ -134,8 +157,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                to its first 16,384 diagonals; the kernel and its bound
                on the whole megabase call; kernels D and E per entry
                point on the calls of the --full-probability run, planes
-               bit-equal, kernel E with its launch plans and us per
-               diagonal; kernels A and B on every call of the main path
+               bit-equal (the fan-in calls timed on every call, held on
+               the first of each launch plan and (D, Lp)), kernel E with
+               its launch plans and us per diagonal; kernels A and B on
+               every call of the main path
                and of the --full-probability run, bit-equal, with their
                launch plans and us per diagonal; kernel A's ordinary
                build on the main path's call beside its 1.614 ms from
@@ -157,6 +182,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.time()
 
 # published H100 SXM peaks (NVIDIA data sheet): device memory rate and
 # f32 rate outside the tensor cores
@@ -186,7 +212,8 @@ def fail(msg):
 
 
 def log(msg):
-    print("chip_smoke: %s" % msg, flush=True)
+    """One line of the log, with the seconds since the script started."""
+    print("chip_smoke: [%7.1f s] %s" % (time.time() - T0, msg), flush=True)
 
 
 def mutate(rng, base, p=0.1):
@@ -667,9 +694,10 @@ def main():
     # kernels D's and E's other plan branches: the linear buffers in
     # device memory (past 4096 rows), a fan-in ring with no diagonal on
     # chip (no 3 diagonals of 6,600 rows fit) and a right-slot table too
-    # large for shared memory (E: 15,000 columns of two homopolymer
-    # slots; D: 7,500 columns of four backward-edge slots, as the
-    # homopolymer pair's six would make D's plain version take ~40 s)
+    # large for shared memory: 7,500 columns with four backward- and four
+    # forward-edge slots, one pair for both kernels (before the
+    # cli_rest_path phase came, E took 15,000 columns of two homopolymer
+    # slots on a pair of its own: cut for its time)
     def seq(n):
         return "".join(rng.choice(list("ACGT"), size=n))
     fullprob_check("linear 4300 rows", linear_fp_calls(
@@ -678,15 +706,13 @@ def main():
     fullprob_check("fan-in 6600 rows", fanin_fp_calls(
         [(build_leaf_graph(seq(6600), alph.DNA),
           build_leaf_graph(seq(30), alph.DNA))]))
-    fullprob_check("fan-in 15000 columns", fanin_fp_calls(
-        [(build_leaf_graph(seq(40), alph.DNA, homopolymer=True),
-          build_leaf_graph(seq(15000), alph.DNA, homopolymer=True))])[1:])
     wide = build_leaf_graph(seq(7500), alph.DNA)
-    for i in range(5, 7501, 7):
+    for i in range(5, 7496, 7):
         for o in (2, 3, 4):
             wide.add_edge(i - o, i, 0.05 * o)
+            wide.add_edge(i, i + o, 0.05 * o)
     fullprob_check("fan-in 7500 columns", fanin_fp_calls(
-        [(build_leaf_graph(seq(40), alph.DNA), wide)])[:1])
+        [(build_leaf_graph(seq(40), alph.DNA), wide)]))
     want = {"ring shared", "ring hot", "ring global", "table shared",
             "table device", "linear buffers shared",
             "linear buffers global"}
@@ -1143,7 +1169,18 @@ def main():
         fail("long_family: no anchored fan-in fill on kernel B")
     if plain_calls:
         fail("long_family: %d plain-version calls on CUDA" % plain_calls)
-    same_output("long_family", out_long, seqs4, fas4, nh4)
+    # the plain versions forced on a 4 x 3,100 family of the generator
+    # (4 x 4,000 before the cli_rest_path phase came: cut for its time),
+    # each pair still past the anchoring gate of 3,000 sites
+    seqs31, tree31 = family(4, 3100)
+    fas31, nh31 = write_input(work, "long_family31", seqs31, tree31)
+    out31 = os.path.join(work, "long31_kernel")
+    _w, c31, plain_calls, _s = run_cli("long31", fas31, nh31, out31, real)
+    check_rows("long31", out31, seqs31)
+    if c31["banded"] != 2 or plain_calls:
+        fail("long31: launches %s, %d plain-version calls"
+             % (c31, plain_calls))
+    same_output("long31", out31, seqs31, fas31, nh31)
 
     # ---- pileup_path: bench.py's 454 amplicon demo through the CLI ----
     # sha256 of the JAX CLI's outputs on the same read files, made on
@@ -1305,8 +1342,9 @@ def main():
     path_launches["pairend_fullprob"] = c_fp
 
     # ---- the read paths with the plain versions forced, at a small
-    # depth: 12 x 192 reads of the same generator ----
-    reads12 = amplicon_reads(12, 192, 220)
+    # depth: 8 x 192 reads of the same generator (12 before the
+    # cli_rest_path phase came: cut for its time) ----
+    reads12 = amplicon_reads(8, 192, 220)
     for tag, rfile, extra in (
             ("pileup12", write_reads(os.path.join(work, "reads12.fas"),
                                      reads12),
@@ -1342,13 +1380,14 @@ def main():
     # come from tools/reads.py's placement_queries(1535, 8, 24, 150, 400,
     # 8, 2, 300): 8 new members of the family, 24 reads of 150-400 bp (8
     # of them reverse-complemented) and 2 random 300-bp sequences, 34 in
-    # all. Runs (a) and (b) take a cut of them: the first 8 queries and
-    # the 2 random ones (q10.fas). On all 34 the JAX CLI needs more than
-    # 30 minutes on the CPU, and the card 254 s and 245 s for (a) and
-    # (b), more than this script's budget; tools/bench_placement.py makes
-    # and times the 34-query runs. The sha256 of each run's files are the
-    # JAX CLI's on the same flags:
-    #   (a) --ref-seqfile ref.fas --ref-treefile family.nh -q q10.fas
+    # all. Runs (a) and (b) take a cut of them: the first 4 queries and
+    # the 2 random ones (q6.fas; the first 8 and the 2 random ones before
+    # the cli_rest_path phase came: cut for its time). On all 34 the JAX
+    # CLI needs more than 30 minutes on the CPU, and the card 254 s and
+    # 245 s for (a) and (b), more than this script's budget;
+    # tools/bench_placement.py makes and times the 34-query runs. The
+    # sha256 of each run's files are the JAX CLI's on the same flags:
+    #   (a) --ref-seqfile ref.fas --ref-treefile family.nh -q q6.fas
     #       --both-strands --output-discarded-queries
     #   (b) the same with --fragments
     #   (c) -s family.fas -t family.nh -q q8.fas       (the 8 members)
@@ -1357,12 +1396,12 @@ def main():
     MAIN16_FAS = ("8a1010095f33bd993d5770f91aa6d158"
                   "3ae303380ea648fb576c502841c5e418")
     PLACE_SHA = {
-        "a": {".fas": "756b19b2aff56c55213e71d35d80b28c"
-                      "8b84618cd820932f29415136fbb2b916",
+        "a": {".fas": "b509d5948ab7b0c1df5e7b056b42b6d1"
+                      "700321da5baaf47cc19b905ee2935800",
               ".discarded": "4b4db78aef0f21d3ea010b8869d9914e"
                             "f66173833d4f8fe2fe0fa1db3557a7f0"},
-        "b": {".fas": "6d94d0fb142f132b9f02871a999dd30e"
-                      "0956ab32851479b4e834e73376084b56",
+        "b": {".fas": "3be57bf569c7911625c46dc41b3e95fd"
+                      "c129bd1df3873c50fa793bf0a454b088",
               ".discarded": "4b4db78aef0f21d3ea010b8869d9914e"
                             "f66173833d4f8fe2fe0fa1db3557a7f0"},
         "c": {".fas": "48d82d74f7d10191e28d0a9aa6d36f72"
@@ -1376,15 +1415,15 @@ def main():
     log("placement_path: main_path's 16 x 1535 out.fas is the JAX CLI's "
         "bytes")
     pq = placement_queries(1535, 8, 24, 150, 400, 8, 2, 300)
-    q10 = write_reads(os.path.join(work, "q10.fas"), pq[:8] + pq[32:])
+    q6 = write_reads(os.path.join(work, "q6.fas"), pq[:4] + pq[32:])
     q8 = write_reads(os.path.join(work, "q8.fas"), pq[:8])
     r24 = write_reads(os.path.join(work, "r24.fas"), pq[8:32])
     ref16 = ["--ref-seqfile", out_kernel + ".fas", "--ref-treefile", nh]
     place_runs = (
         ("a", "placement_path", ref16 + [
-            "-q", q10, "--both-strands", "--output-discarded-queries"]),
+            "-q", q6, "--both-strands", "--output-discarded-queries"]),
         ("b", "placement_fragments", ref16 + [
-            "-q", q10, "--both-strands", "--output-discarded-queries",
+            "-q", q6, "--both-strands", "--output-discarded-queries",
             "--fragments"]),
         ("c", "placement_after_progressive", ["-s", fas, "-t", nh,
                                               "-q", q8]),
@@ -1442,23 +1481,24 @@ def main():
     for key, v in host.items():
         log("placement_path host phase %-34s %8.3f s" % (key, v))
 
-    # runs (a) and (b) with the plain versions forced on CUDA, on the 8 x
-    # 511 family's alignment (main8) with 2 reads of the generator, one
-    # reverse-complemented: under 200 bp they do not anchor, so their
-    # scoring jobs batch into a few fills (the plain versions take 1-7 s
-    # a fill on the card; 8 queries took 160 s)
-    ref8 = ["--ref-seqfile", os.path.join(work, "main8_kernel.fas"),
-            "--ref-treefile", nh8, "-q", write_reads(
-                os.path.join(work, "r2_511.fas"),
-                placement_queries(511, 1, 2, 120, 180, 1, 0, 0)[1:]),
+    # runs (a) and (b) with the plain versions forced on CUDA, on the 4 x
+    # 511 family's --full-probability alignment (fullprob4) with a
+    # reverse-complemented read of the generator: under 200 bp it does
+    # not anchor, so its scoring jobs batch into a few fills (the plain
+    # versions take 1-7 s a fill on the card; 8 queries on the 8 x 511
+    # alignment took 160 s, 2 reads 50-63 s, 1 read 8.4 s)
+    ref4 = ["--ref-seqfile", os.path.join(work, "fullprob4_kernel.fas"),
+            "--ref-treefile", nh4fp, "-q", write_reads(
+                os.path.join(work, "r1_511.fas"),
+                placement_queries(511, 1, 2, 120, 180, 1, 0, 0)[1:2]),
             "--both-strands", "--output-discarded-queries"]
-    for tag, extra in (("placement8", []),
-                       ("placement8_fragments", ["--fragments"])):
+    for tag, extra in (("placement4", []),
+                       ("placement4_fragments", ["--fragments"])):
         outs = {}
         for kind, fl in (("kernel", real), ("plain", plain)):
             o = os.path.join(work, "%s_%s" % (tag, kind))
             wall, c8, plain_calls, _st = run_cli(tag, None, None, o, fl,
-                                                 ref8 + extra)
+                                                 ref4 + extra)
             outs[kind] = [open(o + sfx, "rb").read() if
                           os.path.exists(o + sfx) else None
                           for sfx in (".fas", ".discarded")]
@@ -1473,6 +1513,164 @@ def main():
         log("%s: the plain versions on CUDA give byte-identical .fas and "
             ".discarded" % tag)
     log("placement_path: %.1f s in all" % (time.time() - t_place))
+
+    # ---- cli_rest_path: the rest of the CLI on the card ----
+    # sha256 of the JAX CLI's outputs on the same inputs, made on the CPU
+    # as PILEUP40_FAS was (python -c "$REFERENCE" ... --silent -o ref):
+    #   (a) -s family.fas --output-ancestors --events --output-nhx-tree
+    #       --xml-nhx --mpost-graph-file ref_g.mp     (no -t: inferred)
+    #   (b) -s coding.fas -t coding.nh --translate    (family(16, 1536))
+    #   (d) -s family.fas -t family.nh -q q8.fas --prune-extended-alignment
+    #       --prune-keep-number 4                     (the 8 members), and
+    #       -s family.fas -t family.nh -q r3.fas --trim-extended-alignment
+    #       (reads r01, r04 and r07: the trim keeps 687 of 1,535 columns)
+    #   (e) -s long_family.fas -t long_family.nh --plot-anchors-for-R
+    #       ref_anchors                 (4 x 4,000; one .r an anchored pair)
+    REST_SHA = {
+        "a": {".fas": "814e4bfcc14c8e7200256e1ce75f2f4a"
+                      "4cac5c1f7939d8f93cf67b949d6703e6",
+              ".anctree": "6e896a84aee66fdea69ce1dc77a60577"
+                          "220fe36a328d4e3f27c41c6b1b26fc46",
+              ".events": "91d07358ff552a9b7d88545842eeb8ba"
+                         "2eff939bca754ff9b937777034bcccec",
+              ".nhx_tree": "4a05a718c687895505d354e5cfa6f6d3"
+                           "736c3c229ffeeb0a97b6cde6671a203b",
+              ".xml": "0ea186bdc64b3b3666a23fb18bcd8b66"
+                      "51f037a53418b22f010c2ed38fd6daea",
+              "_g.mp": "7cd1299e600df2e754c8cdabbdadb835"
+                       "eb311a1f50eac834be385d364652a66b"},
+        "b": {".fas": "1e6be42b82cc89c9792cae419365df77"
+                      "dbf34a35fe92c573aa772124d323af1b",
+              ".codon.fas": "cd6bd39c325f42b99e07c8fc2e3cfa29"
+                            "34d1b8e9fa90ca72d3e24c60f290b058"},
+        "dp": {".fas": "48d82d74f7d10191e28d0a9aa6d36f72"
+                       "c7ebc089b8ce789f798651456741cd96",
+               ".pruned.fas": "c70e845b677123beb9c5a0c09dc4a02c"
+                              "2fe4471eb84cf1668d49337240489e98",
+               ".pruned.tre": "03b799578c4d6d42f2a1e38ebb6e1068"
+                              "35e2466ff7b983c6bf8c502a9d5ec348"},
+        "dt": {".fas": "7c5564febd61d9720aad6bd7a9bdc2eb"
+                       "db2d39330f39286f9ab2c9c278f5928b",
+               ".trimmed.fas": "6913ca073c66f72bfe7887bd453705b9"
+                               "da027d50f0ea31724efb5b6f31f0ed07"},
+        "e": {".fas": "ded329babe0fcaddcef99b7d244cb71e"
+                      "0de900801ec1a8f227a77a2ffa969ba3",
+              "_anchors_1.r": "15e3dc582209716058dacdd937f0b383"
+                              "5f72a1bee5e51db3e71d35044f8682af",
+              "_anchors_2.r": "a5d8451c4b74f5c55f1acf3993d390c8"
+                              "cda03f3e7cdf2ff81661e67772b80abd",
+              "_anchors_3.r": "040bde5073fa335952c3bd9280e038fc"
+                              "1b03ab1b2f8234318aaebb2e269a347e"},
+        "f": {}}
+    # (f) writes run (a)'s alignment
+    REST_SHA["f"][".fas"] = REST_SHA["a"][".fas"]
+    t_rest = time.time()
+    rest = os.path.join(work, "rest")
+    os.makedirs(rest, exist_ok=True)
+    rest_launches = {}
+
+    def rest_run(run, tag, flags, files, kernels_used):
+        """One run of the phase: its pinned files the JAX CLI's bytes,
+        each kernel of `kernels_used` launched, no plain version."""
+        out = os.path.join(rest, run)
+        wall, c, plain_calls, stats = run_cli(
+            tag, None, None, out, real,
+            [a.replace("{o}", out) for a in flags])
+        differ = [sfx for sfx in files
+                  if sha(out + sfx) != REST_SHA[run][sfx]]
+        log("%s: run (%s) in %.1f s; %s; %d plain-version calls; %s %s "
+            "the JAX CLI's bytes" % (
+                tag, run, wall, route_text(c, stats), plain_calls,
+                " ".join(files), "differ from" if differ else "are"))
+        if differ:
+            fail("%s: %s differ from the JAX CLI's" % (tag, differ))
+        if plain_calls or min(c[k] for k in kernels_used) < 1:
+            fail("%s: launches %s, %d plain-version calls"
+                 % (tag, c, plain_calls))
+        for k, v in c.items():
+            rest_launches[k] = rest_launches.get(k, 0) + v
+        return out, wall, c
+    rest_a = ["-s", fas, "--output-ancestors", "--events",
+              "--output-nhx-tree", "--xml-nhx", "--mpost-graph-file",
+              "{o}_g.mp"]
+    rest_run("a", "cli_rest_infer", rest_a,
+             (".fas", ".anctree", ".events", ".nhx_tree", ".xml", "_g.mp"),
+             ("linear", "fanin"))
+    seqs_c, tree_c = family(16, 1536)
+    fas_c, nh_c = write_input(work, "coding", seqs_c, tree_c)
+    rest_run("b", "cli_rest_translate",
+             ["-s", fas_c, "-t", nh_c, "--translate"],
+             (".fas", ".codon.fas"), ("linear", "fanin"))
+    # (c) --checkpoint-dir: a full run, then one without the root's and a
+    # first pair's .npz (those two recomputed), both main_path's bytes;
+    # the same directory under another --indel-rate is refused
+    import shutil
+    from pagan2_tpu_torch.tree.newick import parse_newick
+    ck = os.path.join(rest, "ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    t16 = parse_newick(tree)
+    t16.name_internal()
+    gone = [t16.name, next(n.name for n in t16.nodes_postorder()
+                           if not n.is_leaf)]
+    for k in range(2):
+        out = os.path.join(rest, "c%d" % k)
+        wall, c, plain_calls, _st = run_cli(
+            "cli_rest_checkpoint", fas, nh, out, real,
+            ["--checkpoint-dir", ck])
+        npz = sorted(f for f in os.listdir(ck) if f.endswith(".npz"))
+        log("cli_rest_checkpoint: run %d in %.1f s, %d node files; "
+            "launches %s" % (k + 1, wall, len(npz), json.dumps(c)))
+        if sha(out + ".fas") != MAIN16_FAS or plain_calls or \
+                len(npz) != 15 or (k == 1 and c["fanin"] < 1):
+            fail("cli_rest_checkpoint: run %d: FASTA %s main_path's, %d "
+                 "node files, launches %s, %d plain-version calls"
+                 % (k + 1, "equals" if sha(out + ".fas") == MAIN16_FAS
+                    else "differs from", len(npz), c, plain_calls))
+        for key, v in c.items():
+            rest_launches[key] = rest_launches.get(key, 0) + v
+        for name in gone if k == 0 else ():
+            os.remove(os.path.join(ck, name.replace("#", "n") + ".npz"))
+    try:
+        run_cli("cli_rest_checkpoint", fas, nh, os.path.join(rest, "c2"),
+                real, ["--checkpoint-dir", ck, "--indel-rate", "0.02"])
+        fail("cli_rest_checkpoint: another run's settings took the "
+             "directory")
+    except ValueError as e:
+        if "different run" not in str(e):
+            raise
+    log("cli_rest_checkpoint: the resumed run gives main_path's bytes; "
+        "another --indel-rate is refused")
+    ref16q = ["-s", fas, "-t", nh, "-q", q8]
+    rest_run("dp", "cli_rest_prune", ref16q + [
+        "--prune-extended-alignment", "--prune-keep-number", "4"],
+        (".fas", ".pruned.fas", ".pruned.tre"), ("linear", "fanin"))
+    # the trim keeps the span of the reads' columns: three forward-strand
+    # reads of placement_queries (sites 605-1263 of their members)
+    r3 = write_reads(os.path.join(work, "r3.fas"), [pq[9], pq[12], pq[15]])
+    out_t, _w, _c = rest_run(
+        "dt", "cli_rest_trim", ["-s", fas, "-t", nh, "-q", r3,
+                                "--trim-extended-alignment"],
+        (".fas", ".trimmed.fas"), ("linear", "fanin"))
+    widths = [len(read_fasta(out_t + sfx)[0][1])
+              for sfx in (".fas", ".trimmed.fas")]
+    log("cli_rest_trim: %d of %d columns kept" % (widths[1], widths[0]))
+    out_e, _w, c_e = rest_run(
+        "e", "cli_rest_anchors",
+        ["-s", fas4, "-t", nh4, "--plot-anchors-for-R", "{o}_anchors"],
+        tuple(sorted(REST_SHA["e"])), ("banded",))
+    # (f) --jax-profile: a torch.profiler trace of run (a)'s inputs
+    trace_json = os.path.join(rest, "f_trace.json")
+    out_f, _w, _c = rest_run("f", "cli_rest_profile", rest_a + [
+        "--jax-profile", trace_json], (".fas",), ("linear", "fanin"))
+    text = open(trace_json).read()
+    names = sorted({n for n in ("viterbi_linear", "viterbi_fanin")
+                    if n in text})
+    log("cli_rest_profile: trace %d bytes, names %s" % (len(text), names))
+    if names != ["viterbi_fanin", "viterbi_linear"]:
+        fail("cli_rest_profile: the trace does not name kernels A and B")
+    path_launches["cli_rest_path"] = rest_launches
+    log("cli_rest_path: %.1f s in all; launches %s"
+        % (time.time() - t_rest, json.dumps(rest_launches)))
 
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
@@ -1753,17 +1951,40 @@ def main():
         return float((a - b).abs().max()) <= \
             a.shape[1] * EPS32 * max(1.0, float(b.abs().max()))
 
-    fp_t = {}
+    def first_of_shape(calls):
+        """The calls that open a launch plan and a (D, Lp) shape: the
+        others repeat one of them on other jobs."""
+        seen, first = set(), []
+        for kw in calls:
+            key = (fanin_plan_text(FF, kw), tuple(kw["msp"].shape[1:]))
+            if key not in seen:
+                seen.add(key)
+                first.append(kw)
+        return first
+
+    # the linear calls held on every call; the fan-in calls (the run's
+    # three repeat one plan and (D, Lp) on 4, 2 and 1 jobs) held on the
+    # first of each plan and (D, Lp) and timed on every call: with
+    # all three held (12 s a plain call) the script took 972.0 s on a
+    # fast host, and hosts run the plain versions up to 1.43x slower,
+    # past the 1,200 s limit. kernel_fullprob holds every plan of D and
+    # E; the kernels line's ms, plain_ms and bound_ms are means over the
+    # held calls, its us per diagonal over every call.
+    fp_t, fp_ms = {}, {}
     for k in FP_KEYS:
         m, n = KERNELS[k]
-        fp_t[k] = time_kernel(rec_fp[k], getattr(m, n),
+        held = first_of_shape(rec_fp[k]) if k.endswith("_fanin") \
+            else rec_fp[k]
+        fp_t[k] = time_kernel(held, getattr(m, n),
                               getattr(m, n + "_plain"), fullprob_bound,
                               cum_close, 3)
-        log("timing %s: kernel %.3f ms/launch over %d fullprob_path calls, "
-            "plain %.1f ms (every call), bound %.5f ms (%s), planes "
-            "bit-equal, cum max |err| %g"
-            % (n, fp_t[k][0], len(rec_fp[k]), fp_t[k][1], fp_t[k][2],
-               fp_t[k][3], fp_t[k][4]))
+        fp_ms[k] = [cuda_ms(lambda kw=kw: getattr(m, n)(**kw), 3)
+                    for kw in rec_fp[k]]
+        log("timing %s: kernel %.3f ms/launch over %d fullprob_path calls; "
+            "on the %d held: kernel %.3f ms, plain %.1f ms, bound %.5f ms "
+            "(%s), planes bit-equal, cum max |err| %g"
+            % (n, sum(fp_ms[k]) / len(fp_ms[k]), len(rec_fp[k]), len(held),
+               fp_t[k][0], fp_t[k][1], fp_t[k][2], fp_t[k][3], fp_t[k][4]))
 
     # kernels A, B and C on run (a)'s calls of placement_path: every call
     # timed on the kernel; the first call of each build held bit-equal
@@ -1816,9 +2037,9 @@ def main():
 
     def kernel_entry(name, source, replaces, direction):
         """The kernels-line entry of D or E: per-launch means over its
-        linear and fan-in calls on the fullprob_path run."""
+        held linear and fan-in calls on the fullprob_path run."""
         keys = ["fp_" + direction, "fp_%s_fanin" % direction]
-        n = {k: len(rec_fp[k]) for k in keys}
+        n = {k: len(fp_t[k][7]) for k in keys}
         tot = sum(n.values())
 
         def mean(col):
@@ -1835,17 +2056,18 @@ def main():
                  else "operations", "library_ms": None,
                  "linear_ms": fp_t[keys[0]][0],
                  "fanin_ms": fp_t[keys[1]][0],
+                 "calls_held": n,
                  "launches_by_path": by_path(*keys)}
         entry["linear_plans"] = [plan_text(FF, keys[0].replace(
             "fp_", "fullprob_"), kw) for kw in rec_fp[keys[0]]]
         entry["linear_us_per_diagonal"] = [
             1e3 * ms / kw["ms2"].shape[1]
-            for ms, kw in zip(fp_t[keys[0]][7], rec_fp[keys[0]])]
+            for ms, kw in zip(fp_ms[keys[0]], rec_fp[keys[0]])]
         entry["fanin_plans"] = [fanin_plan_text(FF, kw)
                                 for kw in rec_fp[keys[1]]]
         entry["fanin_us_per_diagonal"] = [
             1e3 * ms / kw["msp"].shape[1]
-            for ms, kw in zip(fp_t[keys[1]][7], rec_fp[keys[1]])]
+            for ms, kw in zip(fp_ms[keys[1]], rec_fp[keys[1]])]
         return entry
 
     # kernel C: bit-equal to its plain version on the long_family calls

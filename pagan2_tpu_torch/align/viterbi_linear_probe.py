@@ -221,10 +221,11 @@ def bisect_fill(fscal, iscal, gexti, ol, vlo, vhi, ms, variant: str = "",
 
 # ----------------------------------------------------------------------
 def _step_plain(fscal, iscal, gexti, ol, vlo, vhi, ms, *, neg, codes,
-                readms, masks, selects, corner, roll):
+                readms, masks, selects, corner, roll, capture=None):
     """The variants' loop over diagonals on (B, Lp) tensors, in the JAX
     kernels' f32 order: candidates formed at every row and the X and M
-    ones (and their code bits) moved one row down, circularly."""
+    ones (and their code bits) moved one row down, circularly. A list
+    given as `capture` gets (M, X, Y) of every diagonal appended."""
     Dpk, B, Lp = ms.shape
     dev = ms.device
     f = torch.float32
@@ -288,27 +289,34 @@ def _step_plain(fscal, iscal, gexti, ol, vlo, vhi, ms, *, neg, codes,
             fM = torch.where(hit, M, fM)
             fX = torch.where(hit, X, fX)
             fY = torch.where(hit, Y, fY)
+        if capture is not None:
+            capture.append((M, X, Y))
         m2, x2, y2 = m1, x1, y1
         m1, x1, y1 = M, X, Y
     return bp, fM.contiguous(), fX.contiguous(), fY.contiguous()
 
 
-def probe_fill_plain(fscal, iscal, gexti, ol, vlo, vhi, ms, opts=()):
-    """Plain PyTorch version of the probe's variant `opts`."""
+def probe_fill_plain(fscal, iscal, gexti, ol, vlo, vhi, ms, opts=(),
+                     capture=None):
+    """Plain PyTorch version of the probe's variant `opts` (`capture` as
+    in _step_plain)."""
     probe_variant(opts)
     return _step_plain(fscal, iscal, gexti, ol, vlo, vhi, ms,
                        neg=PROBE_NEG, codes="nobp" not in opts,
                        readms="noms" not in opts,
                        masks="nomask" not in opts, selects=True,
-                       corner="nocorner" not in opts, roll=True)
+                       corner="nocorner" not in opts, roll=True,
+                       capture=capture)
 
 
 def bisect_fill_plain(fscal, iscal, gexti, ol, vlo, vhi, ms,
-                      variant: str = ""):
-    """Plain PyTorch version of the bisect's variant."""
+                      variant: str = "", capture=None):
+    """Plain PyTorch version of the bisect's variant (`capture` as in
+    _step_plain)."""
     name = bisect_variant(variant)
     masks = "nomask" not in name
     return _step_plain(fscal, iscal, gexti, ol, vlo, vhi, ms,
                        neg=BISECT_NEG, codes="nobp" not in name,
                        readms=True, masks=masks, selects=masks,
-                       corner=True, roll="noroll" not in name)
+                       corner=True, roll="noroll" not in name,
+                       capture=capture)

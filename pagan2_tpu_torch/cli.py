@@ -9,10 +9,11 @@ Usage:  python -m pagan2_tpu_torch -s seqs.fas -t tree.nh -o out
         python -m pagan2_tpu_torch --ref-seqfile ref.fas --ref-treefile \
             ref.nh -q queries.fas -o out
         python -m pagan2_tpu_torch -s seqs.fas -t tree.nh -q queries.fas -o out
+        python -m pagan2_tpu_torch -s seqs.fas -o out   (guide tree inferred)
 
 The kernels run on CUDA unless --device cpu is given; without a card,
---device cuda raises. A flag whose feature is not ported yet raises
-NotImplementedError naming its ROADMAP item.
+--device cuda raises. More than one device (--threads/--devices/--jax-*)
+is not ported yet and raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -285,9 +286,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="show program version")
     x.add_argument("--time", action="store_true", dest="track_time",
                    help="track time per pipeline phase (+ DP GCUPS)")
-    x.add_argument("--jax-profile", default=None, metavar="DIR",
-                   help="write a jax/xplane profiler trace of the run "
-                        "to DIR (view with tensorboard or xprof)")
+    x.add_argument("--jax-profile", default=None, metavar="PATH",
+                   help="write a PyTorch profiler trace (torch.profiler, "
+                        "CPU and CUDA activities) of the run to PATH as "
+                        "Chrome trace JSON (the flag keeps the JAX CLI's "
+                        "name)")
     x.add_argument("--log-output-file", default=None,
                    help="log to file instead of stderr")
     x.add_argument("--temp-folder", default=None,
@@ -376,6 +379,41 @@ def resolve_data_type(args, entries) -> str:
         return alph.PROTEIN
     return guess_data_type(entries)
 
+
+def maybe_translate(args, entries, data_type):
+    """--translate / --mt-translate: convert DNA input to protein on read
+    (fasta_reader.cpp:239-263). Returns (data_type, dna_map or None)."""
+    from .models import alphabets as alph
+    if not (args.translate or args.mt_translate):
+        return data_type, None
+    if data_type != alph.DNA:
+        print("Option '--translate' cannot be used for proteins. Exiting.",
+              file=sys.stderr)
+        raise SystemExit(0)
+    from .io.translate import translate_entries
+    dna_map = translate_entries(entries, mt=args.mt_translate)
+    return alph.PROTEIN, dna_map
+
+
+def write_codon_outputs(args, tree, alignment, dna_map):
+    """Back-translated `.codon` flatfile (+xml) next to the protein
+    output (input_output_parser.cpp:646-806)."""
+    from .io.translate import backtranslate_entries
+    codon = backtranslate_entries(
+        alignment, dna_map,
+        include_mock_ancestors=args.output_ancestors,
+        mt=args.mt_translate)
+    if not codon:
+        return
+    import copy
+    cargs = copy.copy(args)
+    cargs.outfile = args.outfile + ".codon"
+    cargs.output_graph = False
+    cargs.output_nhx_tree = False
+    # the posterior-plot sink was flushed by the first write_outputs;
+    # rewriting here would truncate the user's plots to an empty file
+    cargs.mpost_posterior_plot_file = None
+    write_outputs(cargs, tree, codon, "dna")
 
 
 def make_model_factory(args, data_type, entries):
@@ -566,39 +604,14 @@ def write_config_log(path, argv, cfg_args):
         f.write("\n".join(lines) + "\n")
 
 
-
 def unported_request(args):
-    """(what, ROADMAP item) of the first flag asking for something the
-    port does not have yet, or None."""
+    """(what, ROADMAP item) when the run asks for more than one device,
+    the one part of the JAX CLI the port does not have yet, else None."""
     from . import pending as P
-    # under --pileup, -q is the read file, no guide tree is read, and
-    # --mt-translate only picks the ORF search's genetic code
-    # (pagan2_tpu/cli.py:960-1010); --ref-seqfile reads its tree from
-    # --ref-treefile
-    checks = [
-        (not (args.treefile or args.pileup or args.ref_seqfile),
-         "guide-tree inference (no -t/--treefile)", P.CLI_REST),
-        (args.checkpoint_dir, "--checkpoint-dir", P.CLI_REST),
-        ((args.translate or args.mt_translate) and not args.pileup,
-         "--translate / --mt-translate", P.CLI_REST),
-        (args.output_ancestors or args.events,
-         "--output-ancestors / --events", P.CLI_REST),
-        (args.output_nhx_tree or args.xml_nhx,
-         "--output-nhx-tree / --xml-nhx", P.CLI_REST),
-        (args.prune_extended_alignment or args.trim_extended_alignment,
-         "--prune-extended-alignment / --trim-extended-alignment",
-         P.CLI_REST),
-        (args.mpost_graph_file, "--mpost-graph-file", P.CLI_REST),
-        (args.plot_anchors_for_r, "--plot-anchors-for-R", P.CLI_REST),
-        (args.jax_profile, "--jax-profile", P.CLI_REST),
-        ((args.devices or args.threads or 1) > 1 or args.jax_coordinator
-         or args.jax_num_processes > 1,
-         "more than one device (--threads/--devices/--jax-*)",
-         P.MULTI_GPU),
-    ]
-    for asked, what, item in checks:
-        if asked:
-            return what, item
+    if (args.devices or args.threads or 1) > 1 or args.jax_coordinator \
+            or args.jax_num_processes > 1 or args.jax_process_id:
+        return ("more than one device (--threads/--devices/--jax-*)",
+                P.MULTI_GPU)
     return None
 
 
@@ -607,10 +620,22 @@ def write_outputs(args, tree, alignment, data_type):
 
     out = args.outfile
     write_entries(alignment, out, args.outformat, data_type)
-    if args.xml and tree is not None:
-        write_xml(tree, alignment, out + ".xml", nhx=False)
+    if (args.xml or args.xml_nhx) and tree is not None:
+        write_xml(tree, alignment, out + ".xml", nhx=args.xml_nhx)
     if args.output_graph and tree is not None and tree.graph is not None:
         write_graph_file(tree.graph, out + ".grp")
+    if tree is not None and args.output_ancestors:
+        with open(out + ".anctree", "w") as f:
+            f.write(tree.to_newick(with_names_for_internal=True) + "\n")
+    if tree is not None and args.output_nhx_tree:
+        from .pipeline.postprocess import write_nhx_tree
+        write_nhx_tree(tree, out, "nhx_tree")
+    if tree is not None and args.mpost_graph_file:
+        from .io.plots import write_mpost_sequence_graphs
+        write_mpost_sequence_graphs(
+            tree, args.mpost_graph_file,
+            include_leaves=args.output_leaf_graphs,
+            include_alignment_graphs=args.output_alignment_graphs)
     if args.mpost_posterior_plot_file:
         from .io.plots import write_mpost_posterior_plots
         write_mpost_posterior_plots(args.mpost_posterior_plot_file,
@@ -682,7 +707,7 @@ def run_pileup(args, device, tick):
                            settings=psettings, device=device)
     tick("pileup alignment")
     write_outputs(args, res.root, res.alignment, data_type)
-    check_graphs(args, res.root)
+    post_outputs(args, res.root, res.alignment, data_type)
     tick("write output")
     if not args.silent:
         print(f"pileup: {len(res.alignment)} rows, "
@@ -690,13 +715,13 @@ def run_pileup(args, device, tick):
     return 0
 
 
-def handle_queries(args, res, data_type, mf, settings, device):
+def handle_queries(args, res, data_type, mf, settings, dna_map, device):
     """Align the -q queries onto a finished alignment, as the JAX CLI's
     handle_queries does after any alignment, progressive or read from
     --ref-seqfile (main.cpp:206-218): with --align-reads-at-root by the
-    pileup path from the reference's root, else by query placement.
-    --translate raises before this (ROADMAP Queue 1 item 10), so no
-    query carries DNA of its own here. Returns the new result."""
+    pileup path from the reference's root, else by query placement
+    (under --translate the queries' DNA joins `dna_map`). Returns the
+    new result."""
     from .io.fasta import read_sequences
     from .pipeline.progressive import ProgressiveResult
     if not args.queryfile:
@@ -728,6 +753,9 @@ def handle_queries(args, res, data_type, mf, settings, device):
         return ProgressiveResult(tree=pres.root, alignment=pres.alignment)
 
     from .pipeline.placement import place_queries, PlacementConfig
+    if dna_map is not None:
+        from .io.translate import translate_entries
+        dna_map.update(translate_entries(queries, mt=args.mt_translate))
     cfg = PlacementConfig(
         min_query_overlap=args.min_query_overlap,
         min_query_identity=args.min_query_identity,
@@ -764,9 +792,18 @@ def handle_queries(args, res, data_type, mf, settings, device):
             5 if args.fast_placement else
             (max(args.exonerate_local_keep_best, 0)
              if args.use_exonerate_local else 0)))
+    if cfg.score_as_dna and args.translate and not args.terminal_nodes:
+        # reads_aligner.cpp:2940: '--score-as-dna' with '--translate'
+        # requires '--terminal-nodes'
+        from dataclasses import replace
+        from .utils import log_out
+        log_out("combination '--translate' and '--score-as-dna' can only "
+                "be used with option '--terminal-nodes'!\n", 0)
+        cfg = replace(cfg, terminal_nodes=True, internal_nodes=False,
+                      all_nodes=False)
     outcome = place_queries(res, queries, data_type, cfg,
                             model_factory=mf, settings=settings,
-                            device=device)
+                            device=device, dna_map=dna_map)
     if args.output_discarded_queries and outcome.discarded:
         from .io.fasta import write_fasta
         write_fasta(outcome.discarded, f"{args.outfile}.discarded")
@@ -786,6 +823,7 @@ def run_reference(args, device, tick):
     from .pipeline.refread import read_reference_alignment
     entries = read_sequences(args.ref_seqfile)
     data_type = resolve_data_type(args, entries)
+    data_type, dna_map = maybe_translate(args, entries, data_type)
     mf = make_model_factory(args, data_type, entries)
     settings = make_settings(args)
     if not args.ref_treefile:
@@ -802,11 +840,20 @@ def run_reference(args, device, tick):
         model_factory=mf, quick=args.quick,
         perfect_reference=args.perfect_reference)
     tick("reference alignment")
-    res = handle_queries(args, res, data_type, mf, settings, device)
+    res = handle_queries(args, res, data_type, mf, settings, dna_map,
+                         device)
     tick("query placement")
+    full = res.alignment
+    if args.output_ancestors or args.events:
+        from .pipeline.progressive import extract_alignment
+        full = extract_alignment(res.tree, True, data_type=data_type)
+        if args.output_ancestors:
+            res.alignment[:] = full
     write_outputs(args, res.tree, res.alignment, data_type)
-    check_graphs(args, res.tree)
+    post_outputs(args, res.tree, full, data_type)
     tick("write output")
+    if dna_map is not None:
+        write_codon_outputs(args, res.tree, res.alignment, dna_map)
     if not args.silent:
         n = len(res.alignment)
         l = len(res.alignment[0].sequence) if n else 0
@@ -814,8 +861,45 @@ def run_reference(args, device, tick):
     return 0
 
 
-def check_graphs(args, tree):
-    """--check-valid-graphs (input_output_parser.cpp:586-930)."""
+def post_outputs(args, tree, alignment, data_type):
+    """Post-output steps shared by all run modes: --events,
+    --prune-extended-alignment, --trim-extended-alignment,
+    --check-valid-graphs (input_output_parser.cpp:586-930)."""
+    from .utils import log_out
+    if tree is None:
+        return
+    if args.events:
+        from .pipeline.postprocess import count_events
+        count_events(tree, alignment, args.outfile, data_type,
+                     is_codon=args.codons, mt=args.mt_translate)
+        log_out("Inferred evolutionary events: %s.events\n"
+                % args.outfile, 0)
+
+    from .pipeline.postprocess import (prune_extended_alignment,
+                                       trim_alignment, read_node_names,
+                                       write_nhx_tree)
+    if args.prune_extended_alignment:
+        outs = prune_extended_alignment(
+            tree, alignment, keep_number=args.prune_keep_number,
+            keep_closest=args.prune_keep_closest,
+            keep_threshold=args.prune_keep_threshold,
+            trim=args.trim_extended_alignment,
+            trim_keep_sites=args.trim_keep_sites)
+        for suffix, entries, ptree in outs:
+            write_entries(entries, args.outfile + suffix, args.outformat,
+                          data_type)
+            if ptree is not None:
+                write_nhx_tree(ptree, args.outfile + suffix, "tre")
+            log_out("Pruned alignment file: %s%s\n"
+                    % (args.outfile, suffix), 0)
+    elif args.trim_extended_alignment:
+        readnames = read_node_names(tree)
+        trimmed = trim_alignment(alignment, readnames,
+                                 args.trim_keep_sites)
+        write_entries(trimmed, args.outfile + ".trimmed", args.outformat,
+                      data_type)
+        log_out("Trimmed alignment file: %s.trimmed\n" % args.outfile, 0)
+
     if args.check_valid_graphs:
         bad = [n.name for n in tree.nodes_postorder()
                if n.graph is not None and not n.graph.check_valid_graph()]
@@ -869,6 +953,15 @@ def main(argv=None) -> int:
         from . import __version__
         print("pagan2-tpu-torch v%s (PyTorch/CUDA port of pagan2_tpu)"
               % __version__)
+        # the reference's --version also checks upstream for updates
+        # (check_version.cpp:35-90); offline it prints a one-line notice
+        from .utils.check_version import check_version
+        try:
+            base = float(__version__.split(".")[0] + "." +
+                         __version__.split(".")[1])
+        except (IndexError, ValueError):
+            base = 0.0
+        check_version(base)
         return 0
     if not args.seqfile and not (args.pileup or args.ref_seqfile):
         print("need -s/--seqfile (or --pileup -q reads)", file=sys.stderr)
@@ -898,7 +991,21 @@ def main(argv=None) -> int:
         if args.track_time:
             _phases.append((phase, _time.perf_counter()))
 
+    prof = None
+    if args.jax_profile:
+        # the JAX CLI's profiler flag: here a torch.profiler trace of the
+        # whole run, the card's kernels and copies included
+        from torch.profiler import profile, ProfilerActivity
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        prof.start()
+
     def _report_time():
+        if prof is not None:
+            prof.stop()
+            prof.export_chrome_trace(args.jax_profile)
+            print("torch profiler trace -> %s" % args.jax_profile,
+                  file=sys.stderr)
         if not args.track_time:
             return
         prev = _t0
@@ -932,9 +1039,14 @@ def main(argv=None) -> int:
     if args.mpost_posterior_plot_file:
         from .io.plots import open_posterior_sink
         open_posterior_sink()
+    # --plot-anchors-for-R: every anchored pair also writes <prefix>_<n>.r
+    # (align/anchors.py); None switches it off, so a run in the same
+    # process after one with the flag writes none
+    from .align.anchors import set_r_plot_prefix
+    set_r_plot_prefix(args.plot_anchors_for_r)
     if args.raxml_tree or args.bppdist_tree:
-        print("note: --raxml-tree/--bppdist-tree select the guide-tree "
-              "inference, which -t replaces", file=sys.stderr)
+        print("note: --raxml-tree/--bppdist-tree map to the native "
+              "k-mer NJ guide-tree inference", file=sys.stderr)
 
     if args.pileup or args.ref_seqfile:
         run = run_pileup if args.pileup else run_reference
@@ -945,10 +1057,15 @@ def main(argv=None) -> int:
 
     entries = read_sequences(args.seqfile)
     data_type = resolve_data_type(args, entries)
+    data_type, dna_map = maybe_translate(args, entries, data_type)
     mf = make_model_factory(args, data_type, entries)
     settings = make_settings(args)
 
-    tree_text = open(args.treefile).read()
+    if args.treefile:
+        tree_text = open(args.treefile).read()
+    else:
+        from .tree.inference import infer_guide_tree
+        tree_text = infer_guide_tree(entries, data_type)
     from .tree.newick import parse_newick
     tree = parse_newick(tree_text)
     tree.apply_branch_length_rules(
@@ -963,17 +1080,40 @@ def main(argv=None) -> int:
         model_factory=mf, engine=args.engine,
         include_internal_nodes=args.output_ancestors,
         mode454=args.mode454, homopolymer=args.homopolymer,
-        device=device)
+        checkpoint_dir=args.checkpoint_dir, device=device)
     _tick("alignment")
     if args.queryfile:
         # the reference aligns -q queries after ANY alignment
         # (main.cpp:206-218), not only after --ref-seqfile
-        res = handle_queries(args, res, data_type, mf, settings, device)
+        res = handle_queries(args, res, data_type, mf, settings, dna_map,
+                             device)
         _tick("query placement")
 
+    full = res.alignment
+    if args.output_ancestors or args.events:
+        from .pipeline.ancestors import (reconstruct_parsimony_ancestors,
+                                         reconstruct_ml_ancestors)
+        # the parsimony pass is STRUCTURAL (pushes parent states into
+        # unmatched sites, marks never-matched sites NON_REAL so the
+        # extraction gaps them) and always runs; ML then refines the
+        # states on top for < 500 sequences (the in-framework
+        # BppAncestors equivalent, input_output_parser.cpp:586-612). The
+        # JAX CLI drops any exception of the ML pass; no input is known
+        # to raise there (ROADMAP Queue 3), so here one stops the run
+        reconstruct_parsimony_ancestors(res.tree, mf.alphabet)
+        if not (args.no_bppancestors or len(entries) >= 500):
+            reconstruct_ml_ancestors(res.tree, mf)
+        from .pipeline.progressive import extract_alignment
+        full = extract_alignment(res.tree, True, data_type=data_type)
+        if args.output_ancestors:
+            res.alignment[:] = full
+    _tick("ancestors")
+
     write_outputs(args, res.tree, res.alignment, data_type)
-    check_graphs(args, res.tree)
+    post_outputs(args, res.tree, full, data_type)
     _tick("write output")
+    if dna_map is not None:
+        write_codon_outputs(args, res.tree, res.alignment, dna_map)
     if not args.silent:
         n = len(res.alignment)
         l = len(res.alignment[0].sequence) if n else 0

@@ -2,7 +2,6 @@
 caller asks for that belongs to one of them raises `not_ported(...)`:
 the port never ignores such a request silently."""
 
-CLI_REST = "ROADMAP Queue 1 item 10 (rest of the CLI)"
 MULTI_GPU = "ROADMAP Queue 1 item 11 (multi-GPU)"
 
 

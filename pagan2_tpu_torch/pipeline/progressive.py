@@ -38,7 +38,8 @@ def fix_ambiguous_states(node: TreeNode, model) -> None:
     is resolved to the shared state, pushed down through the chain of
     ambiguous descendants (set_ambiguous_state, node.cpp:1660-1690).
     Returns the set of tree nodes whose graphs were mutated (the
-    push-down rewrites DESCENDANT graphs too)."""
+    push-down rewrites DESCENDANT graphs too — checkpointing re-saves
+    them)."""
     mutated: dict = {}    # id(node) -> node (TreeNode is unhashable)
     if getattr(model, "ambiguity_type", "wildcard") != "mostcommon":
         return mutated
@@ -145,9 +146,6 @@ def align_progressive(entries: list[FastaEntry], tree: TreeNode | str,
                       homopolymer: bool = False,
                       checkpoint_dir: str | None = None,
                       device="cuda") -> ProgressiveResult:
-    if checkpoint_dir:
-        from ..pending import not_ported, CLI_REST
-        raise not_ported("--checkpoint-dir", CLI_REST)
     if isinstance(tree, str):
         tree = parse_newick(tree)
     if not getattr(tree, "branch_rules_applied", False):
@@ -175,6 +173,15 @@ def align_progressive(entries: list[FastaEntry], tree: TreeNode | str,
         leaf.graph = build_leaf_graph(seq, data_type, mode454=mode454,
                                       homopolymer=homopolymer)
 
+    # mid-run checkpointing (framework extension; the reference has
+    # none, SURVEY §5): finished subtree graphs persist as npz and a
+    # restarted run skips them
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = _checkpointer(checkpoint_dir, tree, seq_map, data_type,
+                             settings, model_factory, engine, mode454,
+                             homopolymer, include_internal_nodes)
+
     # generation-wise execution: each generation's jobs are independent,
     # so they run as one batched kernel launch per shape bucket (the
     # reference's OpenMP wavefront, node.cpp:227-269, re-expressed
@@ -187,6 +194,11 @@ def align_progressive(entries: list[FastaEntry], tree: TreeNode | str,
     for gen in generations(tree):
         jobs = []
         for node in gen:
+            if ckpt is not None:
+                g = ckpt(node)
+                if g is not None:
+                    node.graph = g
+                    continue
             dist = node.left.dist + node.right.dist
             model = model_factory.alignment_model(dist)
             jobs.append(PairJob(node.left.graph, node.right.graph, model,
@@ -205,12 +217,102 @@ def align_progressive(entries: list[FastaEntry], tree: TreeNode | str,
             job.key.graph = anc
             # --mostcommon: resolve ambiguity chains now that the
             # subtree below this node is complete (node.cpp:167)
-            fix_ambiguous_states(job.key, job.model)
+            mutated = fix_ambiguous_states(job.key, job.model)
+            if ckpt is not None:
+                ckpt(job.key, write_graph=anc)
+                for d in mutated.values():
+                    if d is not job.key:
+                        ckpt(d, write_graph=d.graph)
     finish_progress()
 
     alignment = extract_alignment(tree, include_internal_nodes,
                                   data_type=data_type)
     return ProgressiveResult(tree=tree, alignment=alignment)
+
+
+def _checkpointer(checkpoint_dir, tree, seq_map, data_type, settings,
+                  model_factory, engine, mode454, homopolymer,
+                  include_internal_nodes):
+    """--checkpoint-dir: the run's fingerprint checked against (or
+    written to) the directory's manifest.json, and ckpt(node) -> graph
+    or None, ckpt(node, write_graph=g) saving one node's graph as npz.
+    A directory of another run raises ValueError; an unreadable node
+    file is recomputed."""
+    import dataclasses
+    import hashlib
+    import json
+    import os
+    import zipfile
+
+    import numpy as np
+
+    from ..graph.serialize import graph_to_npz, graph_from_npz
+    from ..utils import log_out
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    # fingerprint the run: node names are #N# for every tree, so a
+    # reused directory from a DIFFERENT run would silently load
+    # foreign graphs without this check
+    h = hashlib.sha256()
+    for leaf in sorted(tree.leaves(), key=lambda n: n.name):
+        h.update(leaf.name.encode())
+        h.update(seq_map[leaf.name].sequence.encode()
+                 if leaf.name in seq_map else b"")
+    h.update(tree.to_newick().encode())
+    h.update(data_type.encode())
+    # alignment-relevant configuration: re-running the same input with
+    # different model/alignment settings against an existing directory
+    # must NOT silently load graphs computed under the old parameters
+    h.update(repr(sorted(dataclasses.asdict(settings).items())).encode())
+    h.update(repr((engine, mode454, homopolymer,
+                   include_internal_nodes)).encode())
+    # q encodes pi AND kappa/rho (HKY) — hashing pi alone would miss
+    # --dna-kappa/--dna-rho changes
+    h.update(np.asarray(model_factory.q, np.float64).tobytes())
+    h.update(repr((np.asarray(model_factory.pi, np.float64).tolist(),
+                   model_factory.indel,
+                   model_factory.score_scaling,
+                   model_factory.ambiguity_factor,
+                   model_factory.pileup_454,
+                   model_factory.mostcommon)).encode())
+    fp = h.hexdigest()
+    manifest = os.path.join(checkpoint_dir, "manifest.json")
+    if os.path.exists(manifest):
+        try:
+            with open(manifest) as f:
+                old = json.load(f).get("fingerprint")
+        except (OSError, ValueError, AttributeError):
+            old = None      # unreadable manifest: not this run's
+        if old != fp:
+            raise ValueError(
+                "checkpoint dir %r belongs to a different run "
+                "(input/tree/settings fingerprint mismatch — "
+                "the fingerprint also covers model and alignment "
+                "configuration, and its scheme can change between "
+                "framework versions); use one directory per run"
+                % checkpoint_dir)
+    else:
+        with open(manifest, "w") as f:
+            json.dump({"fingerprint": fp}, f)
+
+    def path(node):
+        safe = node.name.replace("#", "n").replace("/", "_")
+        return os.path.join(checkpoint_dir, safe + ".npz")
+
+    def ckpt(node, write_graph=None):
+        if write_graph is not None:
+            graph_to_npz(write_graph, path(node))
+            return None
+        p = path(node)
+        if os.path.exists(p):
+            try:
+                return graph_from_npz(p)
+            except (OSError, ValueError, KeyError, EOFError,
+                    zipfile.BadZipFile) as e:   # corrupt checkpoint: redo
+                log_out("checkpoint %s unreadable (%s); "
+                        "recomputing\n" % (p, e), 1)
+        return None
+
+    return ckpt
 
 
 # ----------------------------------------------------------------------

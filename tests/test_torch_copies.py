@@ -18,11 +18,13 @@ COPIES = (["graph/%s.py" % m for m in ("__init__", "builders",
           + ["models/data/ecm.npz", "models/data/wag.npz"]
           + ["io/%s.py" % m for m in ("__init__", "fasta", "plots",
                                       "translate", "writers")]
-          + ["tree/newick.py", "utils/log.py"]
+          + ["tree/newick.py", "tree/inference.py", "utils/log.py",
+             "utils/check_version.py"]
           + ["align/%s.py" % m for m in ("settings", "oracle", "ancestral",
                                          "anchors", "sampling", "refalign")]
           + ["native/pagan2_native.cpp"]
-          + ["pipeline/%s.py" % m for m in ("orfs", "refread", "ancestors")])
+          + ["pipeline/%s.py" % m for m in ("orfs", "refread", "ancestors",
+                                            "postprocess")])
 
 _IMPORT = re.compile(rb"^\s*(from|import)\s")
 

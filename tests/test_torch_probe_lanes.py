@@ -13,9 +13,9 @@ probe_fill_plain and bisect_fill_plain:
 - F's launch plan is kernel A's, and a plan with no build is refused
   before anything is launched.
 
-M, X, Y of every diagonal are read from one run of each batch with every
-job repeated once for each diagonal, its corner diagonal set to it (the
-corner rows are the whole row of diagonal cornerd)."""
+M, X, Y of every diagonal are read from one plain fill of each batch,
+through the plain versions' per-diagonal capture (where the flag set
+keeps the corner rows, the values the kernel can be held to)."""
 import functools
 
 import numpy as np
@@ -68,11 +68,11 @@ def _batch(tool):
                                                                 "cpu")
 
 
-def _fill(tool, variant, kw):
+def _fill(tool, variant, kw, capture):
     if tool == "probe":
         opts = () if variant == "base" else tuple(variant.split("+"))
-        return VP.probe_fill_plain(**kw, opts=opts)
-    return VP.bisect_fill_plain(**kw, variant=variant)
+        return VP.probe_fill_plain(**kw, opts=opts, capture=capture)
+    return VP.bisect_fill_plain(**kw, variant=variant, capture=capture)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,17 +81,13 @@ def _run(tool, variant):
     Lp) of every diagonal or None where not captured, NEG) of one flag
     set on the tool's batch."""
     kw = _batch(tool)
-    Dpk, B, Lp = kw["ms"].shape
-    idx = torch.arange(B).repeat_interleave(Dpk)
-    rep = {k: (v[:, idx] if k == "ms" else v[idx]).contiguous()
-           for k, v in kw.items()}
-    rep["iscal"][:, 1] = torch.arange(1, Dpk + 1).repeat(B)
-    bp, fM, fX, fY = _fill(tool, variant, rep)
-    codes = None if tool == "probe" and "nobp" in variant else \
-        bp[:, ::Dpk].numpy()
+    cap = []
+    bp, _fM, _fX, _fY = _fill(tool, variant, kw, cap)
+    codes = None if tool == "probe" and "nobp" in variant else bp.numpy()
     vals = None
     if tool == "bisect" or "nocorner" not in variant:
-        vals = [f.reshape(B, Dpk, Lp).numpy() for f in (fM, fX, fY)]
+        vals = [torch.stack([c[k] for c in cap], 1).numpy()
+                for k in range(3)]
     neg = VP.PROBE_NEG if tool == "probe" else VP.BISECT_NEG
     return kw, codes, vals, np.float32(neg)
 
