@@ -5,10 +5,11 @@ each against its plain PyTorch version on the card, and drives the
 progressive-alignment main path, the long-pair paths, the
 full-probability and sampling path, the read paths (--pileup,
 --pair-end), query placement (-q, --ref-seqfile, --fragments,
---align-reads-at-root) and the rest of the CLI (guide-tree inference,
+--align-reads-at-root), the rest of the CLI (guide-tree inference,
 ancestors and events, NHX, graph plots, --translate, --checkpoint-dir,
-prune and trim, anchor plots, the profiler flag) end to end through the
-port's CLI.
+prune and trim, anchor plots, the profiler flag) and more than one device
+(a jobs mesh of logical shards, two processes over gloo, band-sharded
+giant pairs) end to end through the port's CLI.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -68,6 +69,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                batch with its launch plan and us per diagonal, every
                flag set meeting every build of the plan; the probe's
                base case equal to kernel A on the 16 x 2047 batch
+  kernel_shardband  kernels G and H (the band-sharded linear and fan-in
+               fills, csrc/viterbi_shardband.cu) vs their plain versions
+               forced on the same CUDA tensors, on 2 and 4 logical shards
+               of the card: a 400 x 380 pair (halo 8, and 32 banded),
+               454 graphs, ancestors with an indel bridge left and right and
+               a ring of 64 diagonals; codes, corners and rings bit-equal;
+               then G at the sharding gate (65,536 x 1,024 cells on 4
+               shards) against kernel A's pair-end build with no break
+               column: every code G defines equal, corner bit-equal
   small_oracle the device path against the host oracle on small pairs
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
@@ -80,7 +90,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                launched on linear and on fan-in jobs, kernels A and B for
                the Viterbi fills, no plain version, posterior support of
                the root's sites in (0, 1] (1.02 with f32 rounding); then --sample-path --seed 7:
-               every row intact; then both flags on a 4 x 511 family
+               every row intact; then the amplicon family of ROADMAP
+               Queue 3 (8 x 120 bp reads, many tied paths) with
+               --full-probability: the JAX CLI's bytes (sha256), kernel
+               A's pair-end build launched for the batched Viterbi jobs;
+               then both flags on a 4 x 511 family
                with the kernels and with the plain versions forced on
                CUDA: byte-identical FASTA, posterior support within 1e-5
   long_family  4 x 4,000 bp family (the same generator, seed 5) through
@@ -141,6 +155,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                --plot-anchors-for-R on the 4 x 4,000 long family (its .r
                files); (f) --jax-profile on run (a)'s inputs: the trace
                names kernels A and B
+  mesh_path    the CLI with its make_mesh handing it 4 logical shards of
+               the card (the mesh --threads 4 makes on four cards): the
+               16 x 1535 family with default flags and with
+               --full-probability, and the amplicon family, each .fas the
+               JAX CLI's --threads 4 bytes (sha256; on the amplicon
+               family not its one-device bytes), kernels A (its pair-end
+               build), B, D and E launched, no plain version
+  multiprocess_path  two port CLI processes joined over gloo
+               (--jax-coordinator 127.0.0.1:<port> --jax-num-processes 2
+               --jax-process-id 0|1, one shard a rank on the card), on the
+               amplicon family: both ranks write the JAX CLI's --threads 2
+               bytes; then --threads 8 in this process (one card: no
+               mesh) on it and on the 16 x 1535 family writes the
+               one-device bytes
+  shardband_path  giant pairs alone in their generation on 4 logical
+               shards through the CLI (--no-anchors): kernel_shardband's
+               gate pair (65,535 bp against a 1,023 bp read of it) on
+               kernel G, every row intact; a 454 pair of 8,191 and 1,023
+               bp (--454, the gate lowered to its 8,192 rows) on kernel
+               H, its FASTA equal to the same run with the gate raised
+               (batched over the mesh on kernel B)
   megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
@@ -161,13 +196,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                the first of each launch plan and (D, Lp)), kernel E with
                its launch plans and us per diagonal; kernels A and B on
                every call of the main path
-               and of the --full-probability run, bit-equal, with their
-               launch plans and us per diagonal; kernel A's ordinary
+               and of the --full-probability run, with their launch
+               plans and us per diagonal, A held bit-equal on every
+               call, B on the first call of each build; kernel A's ordinary
                build on the main path's call beside its 1.614 ms from
                before the pair-end build existed; kernels A, B and C on
                every call of placement_path's run (a), the first call of
-               each build bit-equal to the plain version, with its
-               plain time and bound)
+               each build not held above bit-equal to the plain version,
+               with its plain time and bound; kernels G and H on one
+               block of
+               their shardband_path fills, a shard past the first in
+               mid-fill, bit-equal to the plain version, with the plan
+               and the bound)
   trace        the main path, the --full-probability path and the pileup
                path once more under torch.profiler: the device's busy
                share and time by kernel
@@ -175,6 +215,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Prints a {"kernels": [...]} line, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -328,11 +369,13 @@ def main():
     from pagan2_tpu_torch.align import viterbi_banded as VB
     from pagan2_tpu_torch.align import fullprob as FP
     from pagan2_tpu_torch.align import fullprob_fill as FF
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
     from pagan2_tpu_torch.align import AlignSettings, align_pair, plan_band
     from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
     from pagan2_tpu_torch.graph import build_leaf_graph
     from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
     from pagan2_tpu_torch.parallel import executor as EX
+    from pagan2_tpu_torch.parallel.executor import JobsMesh
     from pagan2_tpu_torch.tools.bench_fanin import family
     from pagan2_tpu_torch.tools.bench_banded import (band_shapes, megabase,
                                                      shape_args)
@@ -355,7 +398,8 @@ def main():
     t_start = time.time()
     t0 = time.time()
     kernels.build("viterbi_linear", "viterbi_fanin", "viterbi_banded",
-                  "fullprob_fwd", "fullprob_bwd", "viterbi_linear_probe")
+                  "fullprob_fwd", "fullprob_bwd", "viterbi_linear_probe",
+                  "viterbi_shardband")
     log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(
         "%s %.1f s" % kv for kv in sorted(kernels.BUILD_SECONDS.items(),
                                           key=lambda kv: -kv[1]))))
@@ -895,6 +939,150 @@ def main():
         "(codes of %d diagonals, corner cells)" % (D - 1))
     del bp, fM, fX, fY, codes, a16, p16
 
+    # ---- kernel_shardband: kernels G and H against their plain versions ----
+    # Small shapes on 2 and 4 logical shards of this card (400 x 380 and
+    # 300-site 454 pairs; 700 x 650 and 400 sites cost 15 s more of plain
+    # versions), each fill run
+    # with the kernel and again with the plain version forced on the same
+    # CUDA tensors (the wrapper swapped in the module): codes, corners
+    # and rings bit-equal. Then G at the gate (65,536 left sites) against
+    # kernel A's pair-end build with no break column on the same pair.
+    sb_real = {"linear": SB.shardband_linear_block,
+               "fanin": SB.shardband_fanin_block}
+    sb_plain = {"linear": SB.shardband_linear_block_plain,
+                "fanin": SB.shardband_fanin_block_plain}
+    sb_err = {"linear": 0.0, "fanin": 0.0}
+
+    def sb_forced(kind, fn, *a):
+        """A band-sharded fill with `fn` as kernel `kind`'s wrapper."""
+        name = "shardband_%s_block" % kind
+        setattr(SB, name, fn)
+        try:
+            out = (SB.shardband_fill if kind == "linear"
+                   else SB.shardband_fanin_fill)(*a)
+            torch.cuda.synchronize()
+        finally:
+            setattr(SB, name, sb_real[kind])
+        return out
+
+    def sb_check(kind, what, n, *a):
+        t = time.time()
+        k = sb_forced(kind, sb_real[kind], *a)
+        tk = time.time() - t
+        t = time.time()
+        p = sb_forced(kind, sb_plain[kind], *a)
+        tp = time.time() - t
+        fl = [x.view(np.uint32) if x.dtype == np.float32 else x
+              for x in k + p]
+        if not (np.array_equal(fl[0], fl[2]) and np.array_equal(fl[1],
+                                                               fl[3])):
+            fail("kernel_shardband %s %s on %d shards: kernel and plain "
+                 "differ" % (kind, what, n))
+        sb_err[kind] = max(sb_err[kind], max_abs_err(
+            torch.from_numpy(k[1]), torch.from_numpy(p[1])))
+        log("kernel_shardband %s %s on %d shards: bit-equal (kernel fill "
+            "%.2f s, plain %.2f s by the host clock)"
+            % (kind, what, n, tk, tp))
+
+    def sb_linear_case(n, n1, n2, H, band, seed):
+        base = rng_sb.choice(list("ACGT"), size=n1)
+        g1 = build_leaf_graph("".join(base), alph.DNA)
+        g2 = build_leaf_graph(mutate(rng_sb, base)[:n2], alph.DNA)
+        L, R = g1.num_sites() - 1, g2.num_sites() - 1
+        bnd = None
+        if band:
+            c = np.arange(L) * R // L
+            bnd = (np.maximum(c - 40, 0), np.minimum(c + 40, R - 1))
+        H = min(H, SB._lane_split(L, n))
+        shards, meta = SB.shardband_args(g1, g2, model, settings, n,
+                                         band=bnd, H=H)
+        return JobsMesh([dev] * n), shards, meta
+
+    def sb_fanin_case(n, case):
+        if case == "454":
+            base = rng_sb.choice(list("AACCGGTT"), size=300)
+            g1 = build_leaf_graph("".join(base), alph.DNA, mode454=True)
+            g2 = build_leaf_graph(mutate(rng_sb, base), alph.DNA,
+                                  mode454=True)
+        else:
+            base = "".join(rng_sb.choice(list("ACGT"), size=300))
+            cut = 40 if case == "deep_ring" else 12
+            anc, _e = align_pair(build_leaf_graph(base, alph.DNA),
+                                 build_leaf_graph(base[:90] + base[90 + cut:],
+                                                  alph.DNA),
+                                 model, settings, use_anchors=False,
+                                 device=dev)
+            leaf = build_leaf_graph(base, alph.DNA)
+            g1, g2 = (anc, leaf) if case == "bridge_left" else (leaf, anc)
+        inp = VF.prepare_fanin(g1, g2, model, settings, np.float32)
+        OLm, ORm = max(inp["OL"], 1), max(inp["OR"], 1)
+        G = SB._g_bucket(OLm + ORm)
+        H = min(32, SB._lane_split(inp["L"], n))
+        shards, meta = SB.shardband_fanin_args(inp, n, H=H)
+        return JobsMesh([dev] * n), shards, meta, G, max(1, H // OLm)
+
+    rng_sb = np.random.default_rng(15)
+    for n, H, band in ((2, 8, False), (4, 32, True)):
+        sb_check("linear", "400 x 380%s, H %d" % (" banded" if band else "",
+                                                 H), n,
+                 *sb_linear_case(n, 400, 380, H, band, 0))
+    for n, case in ((2, "454"), (4, "bridge_left"), (2, "bridge_right"),
+                    (4, "deep_ring")):
+        mesh_, shards_, meta_, G_, T_ = sb_fanin_case(n, case)
+        sb_check("fanin", "%s (G %d, %d steps a block)" % (case, G_, T_), n,
+                 mesh_, shards_, meta_, G_, T_)
+
+    # G at the gate: a 65,535 bp sequence against a 1,023 bp read of it
+    # (65,536 x 1,024 cells) on 4 logical shards, against kernel A's
+    # pair-end build with no break column (the reference's scan-core
+    # rule); every code field G defines is A's (G masks what A leaves
+    # raw), the corners bit-equal
+    rng_gate = np.random.default_rng(65536)
+    gate_base = rng_gate.choice(list("ACGT"), size=EX.SHARDBAND_MIN_L - 1)
+    gate_read = mutate(rng_gate, gate_base[20000:21023])
+    gg1 = build_leaf_graph("".join(gate_base), alph.DNA)
+    gg2 = build_leaf_graph(gate_read, alph.DNA)
+    shards, meta = SB.shardband_args(gg1, gg2, model, settings, 4)
+    SB.LAUNCHES["shardband_linear_block"] = 0
+    t = time.time()
+    gcodes, gcorner = SB.shardband_fill(JobsMesh([dev] * 4), shards, meta)
+    torch.cuda.synchronize()
+    gate_g_s = time.time() - t
+    gate_g_launches = SB.LAUNCHES["shardband_linear_block"]
+    ginp = prepare_sheared(gg1, gg2, model, settings, np.float32)
+    ginp["pair_end"], ginp["jbrk"] = True, -1
+    VL._add_scalar_params(ginp)
+    gargs = VL.linear_batch_args(
+        [VL.linear_job_arrays(ginp, VL.batch_rows([ginp]))], dev)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    acodes, acorner = VL.linear_fill(**gargs)
+    t1.record()
+    torch.cuda.synchronize()
+    gate_a_ms = t0.elapsed_time(t1)
+    del gargs
+    Lg, Rg = meta["L"], meta["R"]
+    step = 4096
+    diff = 0
+    for d0 in range(0, Lg + Rg - 1, step):
+        g = torch.from_numpy(gcodes[d0:d0 + step, :Lg]).to(dev)
+        a_ = acodes[0, d0:d0 + step, :Lg]
+        for sh in (0, 2, 4):
+            f = (g >> sh) & 3
+            diff += int(((f != 3) & (f != ((a_ >> sh) & 3))).sum())
+    if diff or not torch.equal(torch.from_numpy(gcorner).to(dev).view(
+            torch.int32), acorner[0].contiguous().view(torch.int32)):
+        fail("kernel_shardband: G at the gate differs from kernel A's "
+             "pair-end build (%d code fields)" % diff)
+    log("kernel_shardband: G at the gate (%d x %d cells, 4 shards of %d "
+        "lanes, H %d): %d launches in %.2f s (host clock, the halo "
+        "exchanges included); every code field it defines equals kernel "
+        "A's pair-end build (%s, %.3f ms), corner bit-equal"
+        % (Lg, Rg, meta["w"], meta["H"], gate_g_launches, gate_g_s,
+           linear_plan_text(VL, acodes.shape[2]), gate_a_ms))
+    del acodes, gcodes
+
     # ---- small_oracle ----
     def sig(path):
         return [(p.mp.matrix, p.mp.x_ind, p.mp.y_ind, p.mp.x_edge_ind,
@@ -939,7 +1127,9 @@ def main():
                "fp_fwd": (FF, "fullprob_fwd"),
                "fp_bwd": (FF, "fullprob_bwd"),
                "fp_fwd_fanin": (FF, "fullprob_fwd_fanin"),
-               "fp_bwd_fanin": (FF, "fullprob_bwd_fanin")}
+               "fp_bwd_fanin": (FF, "fullprob_bwd_fanin"),
+               "sb_linear": (SB, "shardband_linear_block"),
+               "sb_fanin": (SB, "shardband_fanin_block")}
     real = {k: getattr(m, n) for k, (m, n) in KERNELS.items()}
     plain = {k: getattr(m, n + "_plain") for k, (m, n) in KERNELS.items()}
 
@@ -1127,6 +1317,43 @@ def main():
     if counts_sp["linear"] or counts_sp["fanin"]:
         fail("fullprob_path sampled: a Viterbi fill ran for a sampled path")
 
+    # ROADMAP Queue 3's amplicon family (tools/reads.py's
+    # amplicon_reads(8, 120, 400, seed=7) under a balanced 8-leaf tree)
+    # with --full-probability: the batched Viterbi jobs take kernel A's
+    # pair-end build with no break column, the reference's scan-core
+    # rule, and the FASTA is the JAX CLI's (sha256 of python -c
+    # "$REFERENCE_FP" -s amp.fas -t amp.nh --full-probability, on the CPU
+    # with its Pallas kernels in interpret mode; the Pallas rule writes
+    # other bytes from byte 225)
+    from pagan2_tpu_torch.tools.reads import amplicon_reads, write_reads
+    AMP_TREE = ("(((r000:0.1,r001:0.1):0.05,(r002:0.1,r003:0.1):0.05):0.05,"
+                "((r004:0.1,r005:0.1):0.05,(r006:0.1,r007:0.1):0.05):0.05);")
+    AMP_ONE_FAS = ("ce07e834c43b4ec2fb8e2daca832a69a"
+                   "5ab7ff0ba0a65bf5bdbb71aa4002b832")
+    AMP_MESH_FAS = ("b7b12f2c3ce5e8beced84bb008b4f44a"
+                    "d3b0ebd9665a55fbed9439279d647ffb")
+    AMP_FP_FAS = ("5b45b3e4792a8fac7c4be5e5944af3ce"
+                  "aef0e413a4205a5abcc61f780dce0ac5")
+    amp_seqs = amplicon_reads(8, 120, 400, seed=7)
+    fas_amp = write_reads(os.path.join(work, "amp.fas"), amp_seqs)
+    nh_amp = os.path.join(work, "amp.nh")
+    with open(nh_amp, "w") as f:
+        f.write(AMP_TREE + "\n")
+    out_ampfp = os.path.join(work, "amp_fullprob")
+    _w, c_ampfp, plain_calls, _s = run_cli(
+        "fullprob_amplicon", fas_amp, nh_amp, out_ampfp, real,
+        ["--full-probability"])
+    c_ampfp["linear_pair_end"] = VL.PAIR_END_LAUNCHES
+    got = hashlib.sha256(open(out_ampfp + ".fas", "rb").read()).hexdigest()
+    log("fullprob_amplicon: the amplicon family with --full-probability "
+        "in %.1f s: sha256 %s the JAX CLI's; launches %s"
+        % (_w, "equals" if got == AMP_FP_FAS else "DIFFERS FROM",
+           json.dumps(c_ampfp)))
+    if got != AMP_FP_FAS or plain_calls or c_ampfp["linear_pair_end"] < 1:
+        fail("fullprob_amplicon: sha256 %s (want %s), %d plain-version "
+             "calls, %d pair-end launches of kernel A"
+             % (got, AMP_FP_FAS, plain_calls, c_ampfp["linear_pair_end"]))
+
     # kernels against forced plain versions, both flags, on a 4 x 511
     # family of the generator (8 x 511 before the placement phases came:
     # cut for their time)
@@ -1201,7 +1428,6 @@ def main():
                      "083e1e8133957b2e512132bf4a320c71")
     PAIREND8_FP_FAS = ("dd3ad3fdfe2ad01f4aac26440eb6dba6"
                        "57490c820a7ea6d01ff984c88efc3ae7")
-    import hashlib
     from pagan2_tpu_torch.tools.reads import (amplicon_reads,
                                               pair_end_reads,
                                               placement_queries,
@@ -1221,7 +1447,8 @@ def main():
                           stats["single_jobs"]))
 
     path_launches = {"main_path": counts, "fullprob_path": counts_fp,
-                     "long_family": counts_long}
+                     "long_family": counts_long,
+                     "fullprob_amplicon": c_ampfp}
     reads40 = amplicon_reads(40, 384, 420)
     fas40 = write_reads(os.path.join(work, "reads40.fas"), reads40)
     out_pile = os.path.join(work, "pileup40")
@@ -1672,6 +1899,197 @@ def main():
     log("cli_rest_path: %.1f s in all; launches %s"
         % (time.time() - t_rest, json.dumps(rest_launches)))
 
+    # ---- mesh_path: the jobs mesh (--threads/--devices) ----
+    # The CLI makes no mesh on one card (make_mesh: --threads 8 writes the
+    # one-device bytes, multiprocess_path below). Here make_mesh hands the
+    # CLI 4 logical shards of this card, JobsMesh([cuda:0] * 4), the mesh
+    # --threads 4 makes over four cards: each generation's batches split
+    # four ways, single-job buckets batched, linear batches on kernel A's
+    # pair-end build (the reference's mesh rule). The .fas files are the
+    # JAX CLI's with --threads 4 on 8 virtual CPU devices (sha256, made
+    # on the CPU in interpret mode): on the 16 x 1535 family, with and
+    # without --full-probability, its one-device bytes (MAIN16_FAS: no
+    # tie there between the two rules); on the amplicon family other
+    # bytes than its one-device run (AMP_MESH_FAS, not AMP_ONE_FAS).
+    t_mesh = time.time()
+    saved_make_mesh = CLI.make_mesh
+    CLI.make_mesh = lambda args, device: JobsMesh([dev] * 4)
+    mesh_launches = {}
+    try:
+        for tag, inputs, extra, want, used in (
+                ("mesh_family", (fas, nh), [], MAIN16_FAS,
+                 ("linear", "fanin")),
+                ("mesh_family_fullprob", (fas, nh), ["--full-probability"],
+                 MAIN16_FAS, FP_KEYS + ("linear", "fanin")),
+                ("mesh_amplicon", (fas_amp, nh_amp), [], AMP_MESH_FAS,
+                 ("linear", "fanin"))):
+            out_m = os.path.join(work, tag)
+            wall, c_m, plain_calls, st = run_cli(tag, *inputs, out_m, real,
+                                                 extra)
+            c_m["linear_pair_end"] = VL.PAIR_END_LAUNCHES
+            got = sha(out_m + ".fas")
+            log("mesh_path %s: %.1f s wall; sha256 %s the JAX CLI's "
+                "--threads 4; launches %s; %d batched, %d single jobs"
+                % (tag, wall, "equals" if got == want else "DIFFERS FROM",
+                   json.dumps(c_m), st["batched_jobs"], st["single_jobs"]))
+            if got != want or plain_calls or \
+                    min(c_m[k] for k in used) < 1 or \
+                    c_m["linear_pair_end"] < 1:
+                fail("mesh_path %s: sha256 %s (want %s), %d plain-version "
+                     "calls, launches %s" % (tag, got, want, plain_calls,
+                                             c_m))
+            mesh_launches[tag] = c_m
+    finally:
+        CLI.make_mesh = saved_make_mesh
+    path_launches.update(mesh_launches)
+    log("mesh_path: %.1f s in all" % (time.time() - t_mesh))
+
+    # ---- multiprocess_path: ranks joined over gloo, and --threads 8 ----
+    # Two port CLI processes with --jax-coordinator 127.0.0.1:<port>
+    # --jax-num-processes 2 --jax-process-id 0|1, each its own -o: the
+    # global mesh is one shard a rank (both on this card), each rank fills
+    # its half of every batch and gathers the other's, and both write
+    # the JAX CLI's --threads 2 bytes on the amplicon family (the same
+    # sha256 as its --threads 4, AMP_MESH_FAS; the 16 x 1535 family's
+    # two ranks, 10.4 s, were cut for the script's time). Then --threads
+    # 8 in this process: one card, no mesh, the one-device bytes.
+    import socket
+    t_mp = time.time()
+    for tag, inputs, want in (("mp_amplicon", (fas_amp, nh_amp),
+                               AMP_MESH_FAS),):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=HERE, PAGAN2_STRICT="1")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "pagan2_tpu_torch", "-s", inputs[0],
+             "-t", inputs[1], "--time", "--silent",
+             "--jax-coordinator", "127.0.0.1:%d" % port,
+             "--jax-num-processes", "2", "--jax-process-id", str(r),
+             "-o", os.path.join(work, "%s_rank%d" % (tag, r))],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        t = time.time()
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail("multiprocess_path %s: rank %d returned %d:\n%s"
+                     % (tag, r, p.returncode, out[-3000:]))
+            line = [ln for ln in out.splitlines() if "launches" in ln]
+            log("multiprocess_path %s rank %d: %s" % (tag, r,
+                                                      "; ".join(line)))
+        shas = [sha(os.path.join(work, "%s_rank%d.fas" % (tag, r)))
+                for r in range(2)]
+        log("multiprocess_path %s: 2 ranks in %.1f s wall (their start "
+            "included); sha256 %s" % (tag, wall, "both the JAX CLI's "
+                                      "--threads 2" if shas == [want] * 2
+                                      else shas))
+        if shas != [want] * 2:
+            fail("multiprocess_path %s: sha256 %s, want %s" % (tag, shas,
+                                                                want))
+    for tag, inputs, want in (("threads8_amplicon", (fas_amp, nh_amp),
+                               AMP_ONE_FAS),
+                              ("threads8_family", (fas, nh), MAIN16_FAS)):
+        out_t = os.path.join(work, tag)
+        wall, c_t, plain_calls, st = run_cli(tag, *inputs, out_t, real,
+                                             ["--threads", "8"])
+        got = sha(out_t + ".fas")
+        log("multiprocess_path %s: --threads 8 on one card in %.1f s, "
+            "sha256 %s the one-device bytes; launches %s"
+            % (tag, wall, "equals" if got == want else "DIFFERS FROM",
+               json.dumps(c_t)))
+        if got != want or plain_calls:
+            fail("multiprocess_path %s: sha256 %s, want %s"
+                 % (tag, got, want))
+        path_launches[tag] = c_t
+    log("multiprocess_path: %.1f s in all" % (time.time() - t_mp))
+
+    # ---- shardband_path: giant pairs band-sharded over 4 shards ----
+    # A pair past the sharding gate alone in its generation on a mesh of
+    # 4 logical shards: the linear pair of kernel_shardband (65,535 bp
+    # against a 1,023 bp read of it, the gate's 65,536 rows, whose codes
+    # there equal kernel A's pair-end build) through the CLI with
+    # --no-anchors on kernel G, every row intact; a 454 pair (8,191 bp
+    # against a 1,023 bp read) with --454 --no-anchors on kernel H, the
+    # gate lowered to its 8,192 rows (a cut: at 65,536 rows its int32
+    # codes alone take 17.4 GB, and the gather to the host twice that),
+    # its FASTA equal to the same run with the gate raised (batched over
+    # the mesh on kernel B). The linear pair's batched run (four
+    # 4.3-second launches of kernel A's global build, one a shard) was
+    # cut for the script's time.
+    t_sb = time.time()
+    sb_keep = {}
+
+    def sb_recorder(k):
+        """Kernel k's wrapper, keeping one call of a shard past the
+        first from the middle of the fill (its carries copied)."""
+        def fill(**kw):
+            if k not in sb_keep and kw["base"] > 0 and \
+                    kw["d0"] >= (kw["L"] + kw["R"]) // 2:
+                sb_keep[k] = {n: v.clone() if n in ("cin", "cout",
+                                                    "corner", "snap")
+                              else v for n, v in kw.items()
+                              if n != "codes"}
+            return real[k](**kw)
+        return fill
+    fills_sb = dict(real, sb_linear=sb_recorder("sb_linear"),
+                    sb_fanin=sb_recorder("sb_fanin"))
+    read454 = mutate(rng_gate, gate_base[3000:4023])
+    fas_g = write_reads(os.path.join(work, "gate.fas"),
+                        [("ref", "".join(gate_base)), ("read", gate_read)])
+    fas_h = write_reads(os.path.join(work, "gate454.fas"),
+                        [("ref", "".join(gate_base[:8191])),
+                         ("read", read454[:1023])])
+    nh_sb = os.path.join(work, "gate.nh")
+    with open(nh_sb, "w") as f:
+        f.write("(ref:0.1,read:0.1);\n")
+    saved_gate = EX.SHARDBAND_MIN_L
+    CLI.make_mesh = lambda args, device: JobsMesh([dev] * 4)
+    sb_walls = {}
+    try:
+        for tag, fas_x, extra, gate, key in (
+                ("shardband_linear", fas_g, ["--no-anchors"],
+                 saved_gate, "sb_linear"),
+                ("shardband_fanin", fas_h, ["--454", "--no-anchors"], 8192,
+                 "sb_fanin")):
+            EX.SHARDBAND_MIN_L = gate
+            out_s = os.path.join(work, tag)
+            wall, c_s, plain_calls, st = run_cli(tag, fas_x, nh_sb, out_s,
+                                                 fills_sb, extra)
+            check_rows(tag, out_s, read_fasta(fas_x))
+            same, wall_b, c_b, plain_b = True, None, {}, 0
+            if key == "sb_fanin":
+                EX.SHARDBAND_MIN_L = 1 << 30
+                out_b = os.path.join(work, tag + "_batched")
+                wall_b, c_b, plain_b, st_b = run_cli(
+                    tag + "_batched", fas_x, nh_sb, out_b, real, extra)
+                same = open(out_s + ".fas", "rb").read() == \
+                    open(out_b + ".fas", "rb").read()
+            log("shardband_path %s: %.1f s wall, %d band-sharded fill(s), "
+                "launches %s, every row intact%s"
+                % (tag, wall, st["shardband_fills"], json.dumps(c_s),
+                   "" if wall_b is None else
+                   "; the batched run on the mesh (%.1f s, launches %s) %s"
+                   % (wall_b, json.dumps(c_b), "writes the same FASTA"
+                      if same else "DIFFERS")))
+            if not same or plain_calls or plain_b or c_s[key] < 1 or \
+                    st["shardband_fills"] != 1 or c_b.get(key):
+                fail("shardband_path %s: FASTA %s, launches %s / %s"
+                     % (tag, "equal" if same else "differs", c_s, c_b))
+            path_launches[tag] = c_s
+            sb_walls[tag] = (wall, wall_b)
+    finally:
+        EX.SHARDBAND_MIN_L = saved_gate
+        CLI.make_mesh = saved_make_mesh
+    log("shardband_path: %.1f s in all" % (time.time() - t_sb))
+
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
     mega, mtree = megabase()
@@ -1919,12 +2337,32 @@ def main():
     log("timing linear_fill: kernel A's ordinary build on the main path's "
         "call takes %.3f ms a launch (1.614 ms before the pair-end build "
         "existed, on an NVIDIA H100 80GB HBM3 at 700.00 W)" % lin_t[0])
-    fan_t = time_kernel(recorded["fanin"], VF.fanin_fill,
+    # kernel B on the main path's calls and on the full-width calls of
+    # the --full-probability run: every call timed; the first call of
+    # each build (templated fan-in, ring placement, rows a thread) held
+    # bit-equal to its plain version, timed with it and given its bound
+    # (the others repeat a build at another width or batch: 5 of the
+    # main path's 7 calls held, 1 of the --full-probability run's 3;
+    # every call was held until the mesh, multiprocess and shardband
+    # phases came, ~40 s of plain versions on a fast host)
+    def first_of_build(calls):
+        seen, first = set(), []
+        for kw in calls:
+            p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
+                               kw["roff"].shape[2], kw["table"].shape[1])
+            key = (p["KL"], p["KR"], p["placement"], p["rows"])
+            if key not in seen:
+                seen.add(key)
+                first.append(kw)
+        return first
+    fan_t = time_kernel(first_of_build(recorded["fanin"]), VF.fanin_fill,
                         VF.fanin_fill_plain, fanin_bound, same_floats, 3)
-    # kernel B also on the full-width calls of the --full-probability
-    # run, each held bit-equal to its plain version
-    fan_fp_t = time_kernel(rec_fp["fanin"], VF.fanin_fill,
+    fan_ms = [cuda_ms(lambda kw=kw: VF.fanin_fill(**kw), 3)
+              for kw in recorded["fanin"]]
+    fan_fp_t = time_kernel(first_of_build(rec_fp["fanin"]), VF.fanin_fill,
                            VF.fanin_fill_plain, fanin_bound, same_floats, 3)
+    fan_fp_ms = [cuda_ms(lambda kw=kw: VF.fanin_fill(**kw), 3)
+                 for kw in rec_fp["fanin"]]
     # kernel A also on the call of the --full-probability run, held
     # bit-equal to its plain version
     lin_fp_t = time_kernel(rec_fp["linear"], VL.linear_fill,
@@ -1935,14 +2373,18 @@ def main():
                                          lin_fp_t[0]))
     lin_err = max(lin_err, lin_t[4], lin_fp_t[4])
     fan_err = max(fan_err, fan_t[4], fan_fp_t[4])
-    fan_fp_ms = fan_fp_t[7]
     log("timing fanin_fill: the %d full-width calls of the fullprob_path "
-        "run take %.3f ms together, bit-equal" % (len(fan_fp_ms),
-                                                  sum(fan_fp_ms)))
-    for name, t in (("linear", lin_t), ("fanin", fan_t)):
-        log("timing %s: kernel %.3f ms/launch over %d main-path calls, "
-            "plain %.1f ms (every call), bound %.5f ms (%s), bit-equal"
-            % (name, t[0], len(recorded[name]), t[1], t[2], t[3]))
+        "run take %.3f ms together; %d held bit-equal"
+        % (len(fan_fp_ms), sum(fan_fp_ms), len(fan_fp_t[7])))
+    log("timing linear: kernel %.3f ms/launch over %d main-path calls, "
+        "plain %.1f ms (every call), bound %.5f ms (%s), bit-equal"
+        % (lin_t[0], len(recorded["linear"]), lin_t[1], lin_t[2],
+           lin_t[3]))
+    log("timing fanin: kernel %.3f ms/launch over the %d main-path calls; "
+        "on the %d held (one a build): kernel %.3f ms, plain %.1f ms, "
+        "bound %.5f ms (%s), bit-equal"
+        % (sum(fan_ms) / len(fan_ms), len(fan_ms), len(fan_t[7]),
+           fan_t[0], fan_t[1], fan_t[2], fan_t[3]))
     # kernels D and E on the calls the --full-probability run made:
     # each entry point timed on its own calls (planes bit-equal, cum
     # within D * eps * max(1, |cum|)); a kernel's line takes the mean
@@ -2002,6 +2444,27 @@ def main():
         return "%s, ring %s" % ("templated" if p["KL"] else "runtime K",
                                 p["placement"])
 
+    def build_key(name, kw):
+        """The build a call launches, as kernel B's holds above count
+        builds (A: rows a thread; C: its build)."""
+        if name == "fanin":
+            p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
+                               kw["roff"].shape[2], kw["table"].shape[1])
+            return (p["KL"], p["KR"], p["placement"], p["rows"])
+        return build_of(name, kw)
+
+    # builds already held bit-equal above: placement's calls hold only
+    # the others (holding again the builds that the main,
+    # --full-probability and long paths hold took ~27 s of plain
+    # versions on a fast host)
+    held_keys = {
+        "linear": {build_key("linear", kw) for kw in
+                   recorded["linear"] + rec_fp["linear"]},
+        "fanin": {build_key("fanin", kw) for kw in
+                  first_of_build(recorded["fanin"])
+                  + first_of_build(rec_fp["fanin"])},
+        "banded": {build_key("banded", kw) for kw in
+                   rec_long["banded"] + rec_mega["banded"]}}
     place_t = {}
     for name, bound in (("linear", linear_bound), ("fanin", fanin_bound),
                         ("banded", banded_bound)):
@@ -2010,22 +2473,25 @@ def main():
             continue
         first = {}
         for kw in calls:
-            first.setdefault(build_of(name, kw), kw)
-        held = time_kernel(list(first.values()), real[name], plain[name],
-                           bound, same_floats, 3)
+            if build_key(name, kw) not in held_keys[name]:
+                first.setdefault(build_key(name, kw), kw)
         ms = [cuda_ms(lambda kw=kw: real[name](**kw), 1) for kw in calls]
         place_t[name] = {
             "calls": len(calls), "ms_all_calls": sum(ms) / len(calls),
-            "builds_held": sorted(first), "ms": held[0],
-            "plain_ms": held[1], "bound_ms": held[2], "bound_by": held[3],
-            "max_abs_err": held[4]}
+            "builds": sorted({build_of(name, kw) for kw in calls}),
+            "builds_held_here": len(first)}
+        if first:
+            held = time_kernel(list(first.values()), real[name],
+                               plain[name], bound, same_floats, 3)
+            place_t[name].update(ms=held[0], plain_ms=held[1],
+                                 bound_ms=held[2], bound_by=held[3],
+                                 max_abs_err=held[4])
         log("timing %s on placement_path run (a): kernel %.3f ms/launch "
-            "over its %d calls; the first call of each build (%s) "
-            "bit-equal to the plain version: kernel %.3f ms, plain %.1f "
-            "ms, bound %.5f ms (%s)"
-            % (name, place_t[name]["ms_all_calls"], len(calls),
-               "; ".join(sorted(first)), held[0], held[1], held[2],
-               held[3]))
+            "over its %d calls (builds %s); %d build(s) not held above "
+            "held bit-equal here" % (name, place_t[name]["ms_all_calls"],
+                                     len(calls),
+                                     "; ".join(place_t[name]["builds"]),
+                                     len(first)))
     lin_err = max(lin_err, place_t.get("linear", {}).get("max_abs_err", 0))
     fan_err = max(fan_err, place_t.get("fanin", {}).get("max_abs_err", 0))
     ban_err = max(ban_err, place_t.get("banded", {}).get("max_abs_err", 0))
@@ -2108,6 +2574,91 @@ def main():
                               1e3 * mega_ms / mkw["ms"].shape[0],
                               mega_bound, mega_by, nbytes, ops))
 
+    # kernels G and H on the call each kept from the middle of its
+    # shardband_path fill (a shard past the first, the block's carry as
+    # it was): the kernel and the plain version on copies of it, every
+    # output bit-equal, then the kernel timed alone
+    def sb_bound(k, kw):
+        """Kernels G and H: per cell of the block that lies in the matrix
+        (and band) on the shard's owned lanes, its code written (1 B,
+        H: 4 B) and, for G, its match score read (4 B; H looks its score
+        up in the nf x nf table); the carry read and written (G: six
+        vectors, H: three rings of G diagonals); the owned lanes'
+        vectors and the columns the block touches; G: LINEAR_OPS_PER_CELL
+        operations a cell, H: 2 for each of its 3 (kl + kr + kl kr)
+        candidates."""
+        H, base, d0, n = kw["H"], kw["base"], kw["d0"], kw["nsteps"]
+        wloc = kw["cin"].shape[-1]
+        li = np.arange(H, wloc)
+        ii = base + li
+        d = np.arange(d0, d0 + n)[:, None]
+        j = d - ii[None, :]
+        vlo = kw["vlo"].cpu().numpy()[li]
+        vhi = kw["vhi"].cpu().numpy()[li]
+        cell = (j >= 0) & (j < kw["R"]) & (ii < kw["L"]) & (j >= vlo) & \
+            (j <= vhi)
+        cells = float(cell.sum())
+        ncols = len(np.unique(j[cell])) if cells else 0
+        if k == "sb_linear":
+            nbytes = 5 * cells + 2 * 6 * 4 * wloc + 5 * 4 * (wloc - H) + \
+                3 * 4 * ncols + 3 * 4
+            return nbytes, LINEAR_OPS_PER_CELL * cells
+        G = kw["cin"].shape[1]
+        KL, KR = kw["loff"].shape[1], kw["roff"].shape[1]
+        rows, cols = np.nonzero(cell)
+        kl = (kw["loff"].cpu().numpy()[li[cols]] > 0).sum(-1)
+        kr = (kw["roff"].cpu().numpy()[np.clip(j[rows, cols], 0,
+                                               kw["R"] - 1)] > 0).sum(-1)
+        ops = 2 * 3 * float((kl + kr + kl * kr).sum())
+        nf = kw["table"].shape[0]
+        nbytes = 4 * cells + 2 * 3 * G * 4 * wloc + \
+            (wloc - H) * (3 * 4 * KL + 4 * 4) + ncols * (3 * 4 * KR + 2 * 4) \
+            + 4 * nf * nf
+        return nbytes, ops
+
+    sb_t = {}
+    for k, dt, out_key in (("sb_linear", torch.uint8, "corner"),
+                           ("sb_fanin", torch.int32, "snap")):
+        kw = sb_keep[k]
+        d0, rows = kw["d0"], kw["d0"] + kw["nsteps"]
+        w = kw["cin"].shape[-1] - kw["H"]
+
+        def copy():
+            return dict(kw, cout=kw["cout"].clone(),
+                        codes=torch.zeros((rows, w), dtype=dt, device=dev),
+                        **{out_key: kw[out_key].clone()})
+        kk, pp = copy(), copy()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain[k](**pp)
+        t1.record()
+        real[k](**kk)
+        torch.cuda.synchronize()
+        if not (same_floats(kk["cout"], pp["cout"])
+                and torch.equal(kk["codes"][d0:], pp["codes"][d0:])
+                and same_floats(kk[out_key], pp[out_key])):
+            fail("timing: kernel %s's kept call differs from its plain "
+                 "version" % k)
+        err = max_abs_err(kk["cout"], pp["cout"])
+        k_ms = cuda_ms(lambda: real[k](**kk), 20)
+        nbytes, ops = sb_bound(k, kw)
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        plan = SB.linear_block_plan(kw["H"]) if k == "sb_linear" else \
+            SB.fanin_block_plan(kw["H"], kw["cin"].shape[1])
+        sb_t[k] = dict(ms=k_ms, plain_ms=t0.elapsed_time(t1),
+                       bound_ms=1e3 * max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations",
+                       err=err, plan=plan, d0=d0, nsteps=kw["nsteps"],
+                       lanes=w)
+        log("timing %s: one block (diagonals %d-%d, %d owned lanes, H %d, "
+            "plan %s): kernel %.4f ms (%.3f us per diagonal), plain %.1f "
+            "ms, bound %.6f ms (%s: %.0f bytes, %.0f operations), "
+            "bit-equal" % (k, d0, rows - 1, w, kw["H"], json.dumps(plan),
+                           k_ms, 1e3 * k_ms / kw["nsteps"],
+                           sb_t[k]["plain_ms"], sb_t[k]["bound_ms"],
+                           sb_t[k]["bound_by"], nbytes, ops))
+
     # ---- trace: device busy share of the main path and of the
     # --full-probability path ----
     from torch.profiler import profile, ProfilerActivity
@@ -2171,6 +2722,7 @@ def main():
          "launches": counts["fanin"], "max_abs_err": fan_err,
          "ms": fan_t[0], "plain_ms": fan_t[1], "bound_ms": fan_t[2],
          "bound_by": fan_t[3], "library_ms": None,
+         "calls_held": len(fan_t[7]), "ms_every_call": fan_ms,
          "fullprob_calls_ms": fan_fp_ms, "k454_16x2047_ms": fan_454_ms[0],
          "launches_by_path": by_path("fanin"),
          "placement_path": place_t.get("fanin")},
@@ -2193,6 +2745,30 @@ def main():
                      "pagan2_tpu_torch/csrc/fullprob_bwd.cu",
                      "pagan2_tpu/align/fullprob_pallas.py:108", "bwd"),
     ]}
+    # kernels G and H: the band-sharded fills, which replace the JAX
+    # package's shard_map scans (no Pallas kernel there)
+    for name, k, kind, replaces, extra in (
+            ("viterbi_shardband_linear", "sb_linear", "linear",
+             "pagan2_tpu/align/viterbi_shardband.py:83",
+             {"gate_fill_s": gate_g_s, "gate_launches": gate_g_launches,
+              "kernel_a_pair_end_gate_ms": gate_a_ms}),
+            ("viterbi_shardband_fanin", "sb_fanin", "fanin",
+             "pagan2_tpu/align/viterbi_shardband.py:362", {})):
+        t = sb_t[k]
+        kernels_line["kernels"].append(dict({
+            "name": name, "route": "cuda",
+            "source": "pagan2_tpu_torch/csrc/viterbi_shardband.cu",
+            "replaces": replaces,
+            "launches": path_launches["shardband_" + kind][k],
+            "max_abs_err": max(sb_err[kind], t["err"]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "timed_on": "shardband_path, one block: diagonals %d-%d, %d "
+                        "owned lanes" % (t["d0"], t["d0"] + t["nsteps"] - 1,
+                                         t["lanes"]),
+            "plan": t["plan"],
+            "path_wall_s": sb_walls["shardband_" + kind][0],
+            "launches_by_path": by_path(k)}, **extra))
     # kernel F: launches in the tools' run, ms and bound of the tools'
     # first case, plain ms on the same inputs in kernel_probe
     for name, tool, res, plain_ms, replaces in (

@@ -137,14 +137,21 @@ def linear_job_arrays(inp, Lp: int, band=None):
 def shear_table(tab, Lp: int, D: int):
     """(L, R) table -> (D, Lp) diagonal-major: out[d, i] = tab[i, d - i],
     the column clamped to [0, R] with column R reading 0 (rows >= L read
-    0 too); the fills mask what lies outside the matrix."""
+    0 too); the fills mask what lies outside the matrix. Gathered a block
+    of diagonals at a time, so the index tensors stay near 2**27
+    elements whatever the table (65,536 rows x 66,559 diagonals would
+    need 35 GB of them at once)."""
     L, R = tab.shape
     pad = torch.zeros((Lp, R + 1), dtype=tab.dtype, device=tab.device)
     pad[:L, :R] = tab
-    d = torch.arange(D, device=tab.device)[:, None]
+    out = torch.empty((D, Lp), dtype=tab.dtype, device=tab.device)
     i = torch.arange(Lp, device=tab.device)[None, :]
-    j = torch.clamp(d - i, 0, R).expand(D, Lp)
-    return pad[i.expand(D, Lp), j]
+    step = max(1, (1 << 27) // max(Lp, 1))
+    for d0 in range(0, D, step):
+        d = torch.arange(d0, min(d0 + step, D), device=tab.device)[:, None]
+        j = torch.clamp(d - i, 0, R)
+        out[d0:d0 + len(d)] = pad[i.expand(len(d), Lp), j]
+    return out
 
 
 def fold_shear(ms, lw, rw, lng, Lp: int, D: int, pair_end: bool = False):

@@ -12,14 +12,19 @@ Usage:  python -m pagan2_tpu_torch -s seqs.fas -t tree.nh -o out
         python -m pagan2_tpu_torch -s seqs.fas -o out   (guide tree inferred)
 
 The kernels run on CUDA unless --device cpu is given; without a card,
---device cuda raises. More than one device (--threads/--devices/--jax-*)
-is not ported yet and raises NotImplementedError naming its ROADMAP item.
+--device cuda raises. --threads/--devices N shard each generation's
+batches over up to N cards (make_mesh: one card, or --device cpu, runs
+unsharded); --jax-coordinator HOST:PORT --jax-num-processes N
+--jax-process-id RANK joins N processes into one mesh over gloo
+(parallel/multihost.py), each writing the whole alignment.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -604,15 +609,38 @@ def write_config_log(path, argv, cfg_args):
         f.write("\n".join(lines) + "\n")
 
 
-def unported_request(args):
-    """(what, ROADMAP item) when the run asks for more than one device,
-    the one part of the JAX CLI the port does not have yet, else None."""
-    from . import pending as P
-    if (args.devices or args.threads or 1) > 1 or args.jax_coordinator \
-            or args.jax_num_processes > 1 or args.jax_process_id:
-        return ("more than one device (--threads/--devices/--jax-*)",
-                P.MULTI_GPU)
+def make_mesh(args, device):
+    """The jobs mesh of --threads/--devices (the JAX CLI's _make_mesh):
+    with --jax-coordinator one over every rank's devices
+    (parallel/multihost.py); else none with --device cpu, with --engine
+    oracle or where one card is all there is, so --threads N on one card
+    gives the one-device output; else one over up to N cards."""
+    if args.jax_coordinator:
+        from .parallel.multihost import global_jobs_mesh
+        return global_jobs_mesh(device)
+    n = args.devices or args.threads
+    if n and n > 1 and args.engine != "oracle" and \
+            device.type == "cuda" and torch.cuda.device_count() > 1:
+        from .parallel.executor import make_jobs_mesh
+        return make_jobs_mesh(n)
     return None
+
+
+def kernel_launches() -> str:
+    """Launches of each kernel's wrapper in this process so far (A-H),
+    and the calls that took a plain version instead."""
+    from .align import (fullprob_fill as ff, viterbi_banded as vb,
+                        viterbi_fanin as vf, viterbi_linear as vl,
+                        viterbi_shardband as sb)
+    n = dict(A=vl.LAUNCHES, B=vf.LAUNCHES, C=vb.LAUNCHES,
+             D=sum(v for k, v in ff.LAUNCHES.items() if "fwd" in k),
+             E=sum(v for k, v in ff.LAUNCHES.items() if "bwd" in k),
+             G=sb.LAUNCHES["shardband_linear_block"],
+             H=sb.LAUNCHES["shardband_fanin_block"])
+    plain = vl.PLAIN_CALLS + vf.PLAIN_CALLS + vb.PLAIN_CALLS + \
+        sum(ff.PLAIN_CALLS.values()) + sum(sb.PLAIN_CALLS.values())
+    return "%s; %d plain-version calls" % (
+        " ".join("%s=%d" % kv for kv in n.items()), plain)
 
 
 def write_outputs(args, tree, alignment, data_type):
@@ -715,7 +743,8 @@ def run_pileup(args, device, tick):
     return 0
 
 
-def handle_queries(args, res, data_type, mf, settings, dna_map, device):
+def handle_queries(args, res, data_type, mf, settings, dna_map, device,
+                   mesh=None):
     """Align the -q queries onto a finished alignment, as the JAX CLI's
     handle_queries does after any alignment, progressive or read from
     --ref-seqfile (main.cpp:206-218): with --align-reads-at-root by the
@@ -803,7 +832,7 @@ def handle_queries(args, res, data_type, mf, settings, dna_map, device):
                       all_nodes=False)
     outcome = place_queries(res, queries, data_type, cfg,
                             model_factory=mf, settings=settings,
-                            device=device, dna_map=dna_map)
+                            device=device, dna_map=dna_map, mesh=mesh)
     if args.output_discarded_queries and outcome.discarded:
         from .io.fasta import write_fasta
         write_fasta(outcome.discarded, f"{args.outfile}.discarded")
@@ -841,7 +870,7 @@ def run_reference(args, device, tick):
         perfect_reference=args.perfect_reference)
     tick("reference alignment")
     res = handle_queries(args, res, data_type, mf, settings, dna_map,
-                         device)
+                         device, mesh=make_mesh(args, device))
     tick("query placement")
     full = res.alignment
     if args.output_ancestors or args.events:
@@ -966,13 +995,24 @@ def main(argv=None) -> int:
     if not args.seqfile and not (args.pileup or args.ref_seqfile):
         print("need -s/--seqfile (or --pileup -q reads)", file=sys.stderr)
         return 1
-    pending = unported_request(args)
-    if pending is not None:
-        from .pending import not_ported
-        raise not_ported(*pending)
     from .device import resolve_device
     device = resolve_device(args.device)
+    if args.jax_coordinator:
+        # a multi-process run: join the process group before any work
+        from .parallel.multihost import init_multihost, shutdown_multihost
+        init_multihost(args.jax_coordinator, args.jax_num_processes,
+                       args.jax_process_id)
+        try:
+            return _run(args, device)
+        finally:
+            shutdown_multihost()
+    return _run(args, device)
 
+
+def _run(args, device):
+    """The run after the device is known (and, in a multi-process run,
+    the process group joined): the read paths, --ref-seqfile or the
+    progressive path, then the outputs. Returns the exit code."""
     # --use-aa-groups flips the protein alphabet globally before any
     # model or graph is built (define_protein_alphabet_groups,
     # model_factory.cpp:670-838)
@@ -1030,11 +1070,15 @@ def main(argv=None) -> int:
         print("TIME %-24s %d batched fan-in launches; %d windowed + %d "
               "full-width anchored fan-in fills; %d banded linear fills; "
               "%d linear + %d fan-in batched full-probability fills"
+              "; %d band-sharded fills"
               % ("routes", EXEC_STATS["fanin_batches"],
                  EXEC_STATS["fanin_windowed"],
                  EXEC_STATS["fanin_banded_full"],
                  EXEC_STATS["banded_fills"], EXEC_STATS["fp_batches"],
-                 EXEC_STATS["fanin_fp_batches"]), file=sys.stderr)
+                 EXEC_STATS["fanin_fp_batches"],
+                 EXEC_STATS["shardband_fills"]), file=sys.stderr)
+        print("TIME %-24s %s" % ("kernel launches", kernel_launches()),
+              file=sys.stderr)
 
     if args.mpost_posterior_plot_file:
         from .io.plots import open_posterior_sink
@@ -1074,19 +1118,21 @@ def main(argv=None) -> int:
         scale=args.scale_branches, fixed=args.fixed_branches,
         real_branches=args.real_branches)
 
+    mesh = make_mesh(args, device)
+
     from .pipeline import align_progressive
     res = align_progressive(
         entries, tree, data_type=data_type, settings=settings,
         model_factory=mf, engine=args.engine,
         include_internal_nodes=args.output_ancestors,
         mode454=args.mode454, homopolymer=args.homopolymer,
-        checkpoint_dir=args.checkpoint_dir, device=device)
+        checkpoint_dir=args.checkpoint_dir, device=device, mesh=mesh)
     _tick("alignment")
     if args.queryfile:
         # the reference aligns -q queries after ANY alignment
         # (main.cpp:206-218), not only after --ref-seqfile
         res = handle_queries(args, res, data_type, mf, settings, dna_map,
-                             device)
+                             device, mesh=mesh)
         _tick("query placement")
 
     full = res.alignment

@@ -18,13 +18,26 @@ Routing reproduces the reference's decisions (`_plan_job`): the
 anchoring gates (3000 sites, 200 for scan-core-bound fan-in pairs), the
 window-vs-full choice `_bucket(Wreal) * 2 <= _bucket(R)`, and the
 single-job dispatch of over-cap and windowed fan-in pairs.
+
+A jobs mesh (`JobsMesh`: one torch.device per shard, across processes
+too) shards each batch as the reference's `NamedSharding(P("jobs"))`
+does: padded to a power of two that is a multiple of the shard count
+with copies of job 0, shard s filling its contiguous slice on its own
+device. On a mesh of more than one shard the reference changes more than
+where the work runs, and so does the port: single-job buckets batch
+too, linear batches fill on the reference's scan-core rule (kernel A's
+pair-end build with no break column: M's candidates compared after the
+match score is added), and a giant pair of a generation that leaves
+shards idle is band-sharded (align/viterbi_shardband.py, kernels G and
+H).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..align.settings import AlignSettings
 from ..utils import log_out
@@ -35,12 +48,19 @@ from ..utils import log_out
 # align._acct. fanin_windowed / fanin_banded_full count anchored fan-in
 # fills that ran windowed or masked at full width, banded_fills the
 # windowed banded fills of thin-band linear pairs (kernel C), fp_batches
-# / fanin_fp_batches the batched full-probability plane fills.
+# / fanin_fp_batches the batched full-probability plane fills,
+# shardband_fills the band-sharded fills of giant pairs over a mesh.
 EXEC_STATS = {"launches": 0, "batched_jobs": 0, "single_jobs": 0,
               "batched_cells": 0, "fill_seconds": 0.0,
               "single_fills": 0, "fanin_batches": 0,
               "fanin_windowed": 0, "fanin_banded_full": 0,
-              "banded_fills": 0, "fp_batches": 0, "fanin_fp_batches": 0}
+              "banded_fills": 0, "fp_batches": 0, "fanin_fp_batches": 0,
+              "shardband_fills": 0}
+
+# band-axis sharding threshold: a pair whose left side has at least this
+# many sites (and no thin anchor band) is split over the mesh's shards
+# when the generation would otherwise leave them idle
+SHARDBAND_MIN_L = 1 << 16
 
 
 def reset_stats():
@@ -64,6 +84,78 @@ class PairJob:
     # filled by planning
     band: Any = None
     skipped: bool = False
+
+
+@dataclass
+class JobsMesh:
+    """The `jobs` axis of a device mesh: one torch.device per shard, in
+    shard order. In a multi-process run (parallel/multihost.py) the
+    list spans every rank's devices: `ranks[s]` is the rank that owns
+    shard s, `rank`/`world_size` this process's place and `group` the
+    torch.distributed group; only a shard's owner launches its work. A
+    list may repeat a device (`[cuda:0] * 4`: logical shards on one
+    card)."""
+    devices: list
+    ranks: list | None = None
+    rank: int = 0
+    world_size: int = 1
+    group: Any = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.devices = [torch.device(d) for d in self.devices]
+        if not self.devices:
+            raise ValueError("a jobs mesh needs at least one device")
+        if self.ranks is not None and len(self.ranks) != len(self.devices):
+            raise ValueError("%d ranks for %d shards"
+                             % (len(self.ranks), len(self.devices)))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def is_local(self, s: int) -> bool:
+        """Whether this process launches shard s's work."""
+        return self.ranks is None or self.ranks[s] == self.rank
+
+
+def _mesh_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size
+
+
+def make_jobs_mesh(n_devices: int | None = None) -> JobsMesh:
+    """A jobs mesh over the first min(n_devices, device count) CUDA
+    devices (all of them when n_devices is None)."""
+    n = torch.cuda.device_count()
+    n = min(n_devices or n, n)
+    if n < 1:
+        raise RuntimeError("make_jobs_mesh: no CUDA device is visible")
+    return JobsMesh([torch.device("cuda", k) for k in range(n)])
+
+
+def _shard_fill(mesh: JobsMesh, items: list, fill):
+    """Run one batch over the mesh's `jobs` axis as the reference's
+    NamedSharding(P("jobs")) splits it: `items` padded to a power of two
+    that is a multiple of the shard count with copies of items[0], shard
+    s filling its contiguous slice with `fill(part, device)` (a tuple of
+    tensors, batch first) on its device. Every rank ends with the whole
+    result: numpy arrays in job order, the padding dropped."""
+    from .multihost import gather_to_host
+    n = mesh.size
+    B = len(items)
+    pad_to = 1
+    while pad_to < B:
+        pad_to *= 2
+    pad_to = -(-pad_to // n) * n
+    padded = list(items) + [items[0]] * (pad_to - B)
+    per = pad_to // n
+    outs = {s: fill(padded[s * per:(s + 1) * per], mesh.devices[s])
+            for s in range(n) if mesh.is_local(s)}
+    # only the rows of real jobs travel to the host
+    host = gather_to_host(mesh, {
+        s: [t[:max(0, min(per, B - s * per))].cpu().numpy() for t in ts]
+        for s, ts in outs.items()})
+    return tuple(np.concatenate([host[s][k] for s in range(n)])
+                 for k in range(len(host[0])))
 
 
 # ----------------------------------------------------------------------
@@ -146,14 +238,55 @@ MAX_BATCH_CELLS = 1 << 28
 MAX_FP_BATCH_CELLS = 1 << 26
 
 
+def _run_shardband(job: PairJob, mesh: JobsMesh, fanin: bool):
+    """Band-axis-sharded fill of one giant pair over the mesh's shards
+    (align/viterbi_shardband.py: kernel G for a linear pair, kernel H
+    for a fan-in pair; codes bit-identical to the one-device fill), then
+    the host ancestral build. A fan-in pair past the one-hot caps or
+    with a left bridge wider than the halo raises ValueError; the caller
+    runs it single."""
+    import time
+    from ..align import _acct, _band_cells
+    from ..align.ancestral import build_ancestral_graph
+    from ..align import viterbi_shardband as sb
+    t0 = time.perf_counter()
+    settings = _job_settings(job)
+    run = sb.shardband_fanin_align_path if fanin else \
+        sb.shardband_align_path
+    path, end = run(job.left, job.right, job.model, settings, mesh,
+                    job.left_branch_length, job.right_branch_length,
+                    band=job.band)
+    L = job.left.num_sites() - 1
+    R = job.right.num_sites() - 1
+    _acct(t0, _band_cells(job.band, L, R))
+    EXEC_STATS["shardband_fills"] += 1
+    EXEC_STATS["launches"] += 1
+    log_out("band-sharded %sfill: %dx%d over %d shards"
+            % ("fan-in " if fanin else "", L, R, mesh.size), 2)
+    anc = build_ancestral_graph(job.left, job.right, path, job.model,
+                                settings, job.left_branch_length,
+                                job.right_branch_length,
+                                job.is_reads_sequence,
+                                compute_consensus=job.compute_consensus)
+    return anc, end
+
+
 def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
-                      device="cuda"):
+                      device="cuda", mesh: JobsMesh | None = None):
     """Run independent pairwise jobs, batching eligible ones into shared
-    kernel launches (one per shape bucket) on `device`. Returns
+    kernel launches (one per shape bucket) on `device`, or sharded over
+    the `jobs` axis of `mesh` (a JobsMesh whose shards are devices of
+    `device`'s type; single jobs run on `device`). Returns
     [(ancestral_graph, end_ptr)] in job order. Skipped jobs
     (anchoring-coverage heuristic) yield (None, None)."""
     from ..device import resolve_device
     device = resolve_device(device)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if mesh is not None and any(d.type != device.type
+                                for d in mesh.devices):
+        raise ValueError("mesh shards on %s, device %s"
+                         % ([str(d) for d in mesh.devices], device))
     results: list = [None] * len(jobs)
     if engine == "oracle":
         for i, job in enumerate(jobs):
@@ -181,6 +314,32 @@ def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
              "fanin_fp": fanin_fp_buckets}[kind].setdefault(
                  key, []).append(i)
 
+    n_shards = _mesh_size(mesh)
+    # band-axis sharding: when the generation underfills the mesh and a
+    # pair is giant (no thin band: those took kernel C as 'banded'),
+    # split its lane axis over the shards instead of leaving them idle
+    if n_shards > 1 and sum(len(v) for v in buckets.values()) + \
+            sum(len(v) for v in fanin_buckets.values()) < n_shards:
+        for bkt, fanin in ((buckets, False), (fanin_buckets, True)):
+            for key in list(bkt):
+                keep = []
+                for i in bkt[key]:
+                    if jobs[i].left.num_sites() - 1 < SHARDBAND_MIN_L:
+                        keep.append(i)
+                        continue
+                    try:
+                        results[i] = _run_shardband(jobs[i], mesh, fanin)
+                    except ValueError:
+                        if not fanin:
+                            raise
+                        # past the one-hot caps or a left bridge wider
+                        # than the halo: the unsharded fill
+                        results[i] = _run_single(jobs[i], engine, device)
+                if keep:
+                    bkt[key] = keep
+                else:
+                    del bkt[key]
+
     # buckets in the reference's order, jobs in job order inside each:
     # the sampled draws of a seeded run come from one RNG stream
     for bkt, launcher, cap in (
@@ -190,47 +349,74 @@ def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
             (fanin_fp_buckets, _launch_fanin_fullprob_batch,
              MAX_FP_BATCH_CELLS)):
         for (Lp, Rp), idxs in sorted(bkt.items()):
-            if len(idxs) == 1:
+            if len(idxs) == 1 and n_shards == 1:
                 # no batching win; single dispatch avoids the stack copy
                 i = idxs[0]
                 results[i] = _run_single(jobs[i], engine, device)
                 continue
-            chunk = max(1, cap // (Lp * Rp))
+            # the reference's chunking: a multiple of the shard count
+            chunk = max(n_shards, (cap // (Lp * Rp) // n_shards)
+                        * n_shards or n_shards)
             for c0 in range(0, len(idxs), chunk):
                 launcher(jobs, idxs[c0:c0 + chunk], results, engine,
-                         device)
+                         device, mesh)
     return results
 
 
-def _launch_linear_batch(jobs, idxs, results, engine, device):
-    """One kernel A launch for a bucket of linear-chain jobs, then the
-    per-job host backtrack and ancestral build."""
+def _fill_linear(pjobs, device, mesh, D):
+    """Codes and corners (numpy) of kernel A on a batch of
+    linear_job_arrays dicts: one launch on `device`, or one a shard."""
+    from ..align.viterbi_linear import linear_batch_args, linear_fill
+
+    def fill(part, dev):
+        return linear_fill(**linear_batch_args(part, dev, D=D))
+    if mesh is None:
+        return tuple(t.cpu().numpy() for t in fill(pjobs, device))
+    return _shard_fill(mesh, pjobs, fill)
+
+
+def _linear_inputs(jobs, idxs, settings, scan_rule: bool):
+    """kernel A's prep of the jobs idxs (settings[k] for the k-th); with
+    `scan_rule` each takes the pair-end build with no break column: the
+    reference's scan-core rule (batched_sheared_fill), M's candidates
+    compared after the match score is added."""
+    from ..align.viterbi_linear import _add_scalar_params
+    from ..align.viterbi_sheared import prepare_sheared
+    out = []
+    for i, s in zip(idxs, settings):
+        inp = prepare_sheared(jobs[i].left, jobs[i].right, jobs[i].model,
+                              s, np.float32)
+        if scan_rule and not inp["pair_end"]:
+            inp["pair_end"], inp["jbrk"] = True, -1
+        out.append(_add_scalar_params(inp))
+    return out
+
+
+def _launch_linear_batch(jobs, idxs, results, engine, device, mesh):
+    """One kernel A launch (one a shard on a mesh) for a bucket of
+    linear-chain jobs, then the per-job host backtrack and ancestral
+    build. On a mesh the jobs take the reference's scan-core rule."""
     import time
     from ..align.viterbi_linear import (linear_job_arrays, batch_rows,
-                                        linear_batch_args, linear_fill,
-                                        _add_scalar_params, _finish_linear)
-    from ..align.viterbi_sheared import prepare_sheared
+                                        _finish_linear)
     from ..align.ancestral import build_ancestral_graph
 
     t_launch = time.perf_counter()
-    inputs = []
-    for i in idxs:
-        job = jobs[i]
-        inputs.append(_add_scalar_params(prepare_sheared(
-            job.left, job.right, job.model, _job_settings(job),
-            np.float32)))
+    inputs = _linear_inputs(jobs, idxs,
+                            [_job_settings(jobs[i]) for i in idxs],
+                            scan_rule=mesh is not None)
     Lp = batch_rows(inputs)
+    D = max(x["L"] + x["R"] for x in inputs) - 1
     pjobs = [linear_job_arrays(inp, Lp, band=jobs[i].band)
              for inp, i in zip(inputs, idxs)]
-    codes, corner = linear_fill(**linear_batch_args(pjobs, device))
-    codes = codes.cpu().numpy()
-    corner = corner.cpu().numpy()
+    codes, corner = _fill_linear(pjobs, device, mesh, D)
     EXEC_STATS["launches"] += 1
     EXEC_STATS["batched_jobs"] += len(idxs)
     EXEC_STATS["batched_cells"] += sum(inp["L"] * inp["R"]
                                        for inp in inputs)
-    log_out("batched launch: %d jobs (%d rows, kernel A)"
-            % (len(idxs), Lp), 3)
+    log_out("batched launch: %d jobs (%d rows, kernel A, %d shard%s)"
+            % (len(idxs), Lp, _mesh_size(mesh),
+               "s" if mesh is not None else ""), 3)
     EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
     for b, i in enumerate(idxs):
         job = jobs[i]
@@ -253,11 +439,12 @@ def _launch_linear_batch(jobs, idxs, results, engine, device):
         results[i] = (anc, end)
 
 
-def _fanin_batch_paths(jobs, idxs, device):
-    """One kernel B launch (full width, band bounds as masks) for a
-    bucket of fan-in graph jobs. Returns [(path, end)] per idx; a None
-    entry means the banded fill dead-ended and the caller must retry
-    that job single (viterbi_alignment.cpp:298-317)."""
+def _fanin_batch_paths(jobs, idxs, device, mesh):
+    """One kernel B launch (one a shard on a mesh; full width, band
+    bounds as masks) for a bucket of fan-in graph jobs. Returns
+    [(path, end)] per idx; a None entry means the banded fill dead-ended
+    and the caller must retry that job single
+    (viterbi_alignment.cpp:298-317)."""
     import time
     from ..align.viterbi_fanin import (prepare_fanin, fanin_batch_args,
                                        fanin_fill, finish_fanin)
@@ -277,19 +464,30 @@ def _fanin_batch_paths(jobs, idxs, device):
                 R - 1).astype(np.int32)
             EXEC_STATS["fanin_banded_full"] += 1
         inputs.append(inp)
-    args = fanin_batch_args(inputs, device)
-    KR = args["roff"].shape[2]
-    bp, snap = fanin_fill(**args)
-    bp = bp.cpu().numpy().view(np.uint32)
-    snap = snap.cpu().numpy()
+    # the batch's shapes, shared by every shard's slice
+    shape = dict(W=max(x["L"] for x in inputs),
+                 G=max(x["OL"] + x["OR"] for x in inputs),
+                 KL=max(x["KL"] for x in inputs),
+                 KR=max(x["KR"] for x in inputs),
+                 D=max(x["L"] + x["R"] - 1 for x in inputs))
+
+    def fill(part, dev):
+        return fanin_fill(**fanin_batch_args(part, dev, **shape))
+    if mesh is None:
+        bp, snap = (t.cpu().numpy() for t in fill(inputs, device))
+    else:
+        bp, snap = _shard_fill(mesh, inputs, fill)
+    bp = bp.view(np.uint32)
+    KR = shape["KR"]
     EXEC_STATS["launches"] += 1
     EXEC_STATS["fanin_batches"] += 1
     EXEC_STATS["batched_jobs"] += len(idxs)
     EXEC_STATS["batched_cells"] += sum(inp["L"] * inp["R"]
                                        for inp in inputs)
     log_out("batched fan-in launch: %d jobs (%d rows, K%d/%d G%d, "
-            "kernel B)" % (len(idxs), args["W"], args["loff"].shape[2],
-                           KR, args["G"]), 3)
+            "kernel B, %d shard%s)"
+            % (len(idxs), shape["W"], shape["KL"], KR, shape["G"],
+               _mesh_size(mesh), "s" if mesh is not None else ""), 3)
     EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
     ilo = np.zeros(bp.shape[1], np.int32)
     paths: list = [None] * len(idxs)
@@ -304,10 +502,10 @@ def _fanin_batch_paths(jobs, idxs, device):
     return paths
 
 
-def _launch_fanin_batch(jobs, idxs, results, engine, device):
+def _launch_fanin_batch(jobs, idxs, results, engine, device, mesh):
     """Batched fan-in Viterbi fills + per-job ancestral builds."""
     from ..align.ancestral import build_ancestral_graph
-    paths = _fanin_batch_paths(jobs, idxs, device)
+    paths = _fanin_batch_paths(jobs, idxs, device, mesh)
     for b, i in enumerate(idxs):
         job = jobs[i]
         if paths[b] is None:
@@ -384,45 +582,55 @@ def _finish_fullprob_jobs(jobs, idxs, results, sjobs, inputs, fills,
         results[i] = (anc, end)
 
 
-def _to_host(fills):
-    """The four outputs of a bucket's two fills as numpy arrays: one
-    copy per tensor, not one per job and plane."""
-    return tuple((p.cpu().numpy(), c.cpu().numpy()) for p, c in fills)
+def _plane_fills(fill, inputs, device, mesh):
+    """((f_planes, fcum), (b_planes, bcum)) as numpy arrays of a
+    bucket's forward and backward fills, `fill(part, dev)` giving the
+    four tensors: one copy per tensor, not one per job and plane."""
+    if mesh is None:
+        out = tuple(t.cpu().numpy() for t in fill(inputs, device))
+    else:
+        out = _shard_fill(mesh, inputs, fill)
+    return (out[0], out[1]), (out[2], out[3])
 
 
-def _launch_fullprob_batch(jobs, idxs, results, engine, device):
-    """One kernel D and one kernel E launch fill a bucket of linear
-    full-probability / sampling jobs' scaled planes, one kernel A launch
-    fills the Viterbi matrices of the jobs that do not sample their
-    path; the rest finishes per job on the host."""
+def _launch_fullprob_batch(jobs, idxs, results, engine, device, mesh):
+    """One kernel D and one kernel E launch (one each a shard on a mesh)
+    fill a bucket of linear full-probability / sampling jobs' scaled
+    planes, one kernel A launch fills the Viterbi matrices of the jobs
+    that do not sample their path; the rest finishes per job on the
+    host. The Viterbi jobs take kernel A's pair-end build with no break
+    column, on one device as on a mesh: the reference fills them on its
+    scan core (batched_sheared_fill) on every backend."""
     import time
     from ..align import fullprob as fp
     from ..align import fullprob_fill as ff
     from ..align.viterbi_linear import (linear_job_arrays, batch_rows,
-                                        linear_batch_args, linear_fill,
-                                        _add_scalar_params, _finish_linear)
-    from ..align.viterbi_sheared import prepare_sheared
+                                        _finish_linear)
 
     t_launch = time.perf_counter()
     sjobs = [_fullprob_settings(jobs[i]) for i in idxs]
     inputs = [fp.linear_fullprob_inputs(jobs[i].left, jobs[i].right,
                                         jobs[i].model) for i in idxs]
-    fills = _to_host(ff.linear_plane_fills(
-        **ff.linear_batch_args(inputs, device)))
+    shape = dict(Lp=ff.batch_rows(inputs),
+                 D=max(p["L"] + p["R"] - 1 for p in inputs))
+
+    def planes(part, dev):
+        f, b = ff.linear_plane_fills(
+            **ff.linear_batch_args(part, dev, **shape))
+        return f + b
+    fills = _plane_fills(planes, inputs, device, mesh)
 
     # batched Viterbi fill for the jobs that follow the best path
     # (sampling jobs draw their path from the planes instead)
     vit = [b for b in range(len(idxs)) if not sjobs[b].sample_path]
     vpaths = {}
     if vit:
-        vin = [_add_scalar_params(prepare_sheared(
-            jobs[idxs[b]].left, jobs[idxs[b]].right, jobs[idxs[b]].model,
-            sjobs[b], np.float32)) for b in vit]
+        vin = _linear_inputs(jobs, [idxs[b] for b in vit],
+                             [sjobs[b] for b in vit], scan_rule=True)
         Lp = batch_rows(vin)
-        codes, corner = linear_fill(**linear_batch_args(
-            [linear_job_arrays(x, Lp) for x in vin], device))
-        codes = codes.cpu().numpy()
-        corner = corner.cpu().numpy()
+        codes, corner = _fill_linear(
+            [linear_job_arrays(x, Lp) for x in vin], device, mesh,
+            max(x["L"] + x["R"] for x in vin) - 1)
         for k, b in enumerate(vit):
             job = jobs[idxs[b]]
             vpaths[b] = _finish_linear(
@@ -440,11 +648,12 @@ def _launch_fullprob_batch(jobs, idxs, results, engine, device):
                           vpaths, fanin=False)
 
 
-def _launch_fanin_fullprob_batch(jobs, idxs, results, engine, device):
-    """One kernel D and one kernel E launch (fan-in entry points) fill a
-    bucket of fan-in full-probability / sampling jobs' scaled planes,
-    one kernel B launch the Viterbi matrices of the jobs that do not
-    sample their path."""
+def _launch_fanin_fullprob_batch(jobs, idxs, results, engine, device,
+                                 mesh):
+    """One kernel D and one kernel E launch (fan-in entry points; one
+    each a shard on a mesh) fill a bucket of fan-in full-probability /
+    sampling jobs' scaled planes, one kernel B launch the Viterbi
+    matrices of the jobs that do not sample their path."""
     import time
     from ..align import fullprob as fp
     from ..align import fullprob_fill as ff
@@ -453,15 +662,23 @@ def _launch_fanin_fullprob_batch(jobs, idxs, results, engine, device):
     sjobs = [_fullprob_settings(jobs[i]) for i in idxs]
     inputs = [fp.fanin_fullprob_inputs(jobs[i].left, jobs[i].right,
                                        jobs[i].model) for i in idxs]
-    fwd_kw, bwd_kw = ff.fanin_batch_args(inputs, device)
-    fills = _to_host(ff.fanin_plane_fills(fwd_kw, bwd_kw))
+    shape = dict(Lp=ff.batch_rows(inputs),
+                 D=max(p["L"] + p["R"] - 1 for p in inputs),
+                 G=max(p["OLm"] + p["ORm"] for p in inputs))
+
+    def planes(part, dev):
+        f, b = ff.fanin_plane_fills(*ff.fanin_batch_args(part, dev,
+                                                         **shape))
+        return f + b
+    fills = _plane_fills(planes, inputs, device, mesh)
     EXEC_STATS["launches"] += 1
     EXEC_STATS["fanin_fp_batches"] += 1
     EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
     log_out("batched fan-in full-prob launch: %d jobs (%d rows, K%d/%d "
             "G%d, kernels D, E)"
-            % (len(idxs), fills[0][0].shape[3], fwd_kw["loff"].shape[2],
-               fwd_kw["roff"].shape[2], fwd_kw["G"]), 3)
+            % (len(idxs), fills[0][0].shape[3],
+               max(p["loffp"].shape[1] for p in inputs),
+               max(p["roffp"].shape[1] for p in inputs), shape["G"]), 3)
 
     # batched fan-in Viterbi fill for the jobs that follow the best
     # path. Each job counts once in batched_jobs/cells: Viterbi jobs
@@ -473,7 +690,8 @@ def _launch_fanin_fullprob_batch(jobs, idxs, results, engine, device):
         for b in range(len(idxs)) if sjobs[b].sample_path)
     vpaths = {}
     if vit:
-        paths = _fanin_batch_paths(jobs, [idxs[b] for b in vit], device)
+        paths = _fanin_batch_paths(jobs, [idxs[b] for b in vit], device,
+                                   mesh)
         for k, b in enumerate(vit):
             if paths[k] is None:
                 raise RuntimeError("fan-in fill could not reach the end "

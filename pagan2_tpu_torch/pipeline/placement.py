@@ -609,7 +609,8 @@ def place_queries(res: ProgressiveResult, queries: list[FastaEntry],
                   data_type: str, cfg: PlacementConfig | None = None,
                   model_factory: ModelFactory | None = None,
                   settings: AlignSettings | None = None,
-                  dna_map=None, device="cuda") -> PlacementOutcome:
+                  dna_map=None, device="cuda",
+                  mesh=None) -> PlacementOutcome:
     """query_placement_one (reads_aligner.cpp:623-911), every alignment
     on `device`."""
     cfg = cfg or PlacementConfig()
@@ -619,7 +620,7 @@ def place_queries(res: ProgressiveResult, queries: list[FastaEntry],
         return place_queries_grouped(res, queries, data_type, cfg,
                                      model_factory=model_factory,
                                      settings=settings, dna_map=dna_map,
-                                     device=device)
+                                     device=device, mesh=mesh)
     tree = res.tree
     if model_factory is None:
         model_factory = ModelFactory(data_type)
@@ -686,7 +687,7 @@ def place_queries(res: ProgressiveResult, queries: list[FastaEntry],
                 entry, cand, nodes_map, fwd_graph, rc_graph, model,
                 settings, cfg, dna_model=dna_model, dna_map=dna_map)
             results = execute_pair_jobs(jobs, engine=cfg.engine,
-                                        device=device)
+                                        device=device, mesh=mesh)
             scores = [_match_score_from_anc(anc, j.left, j.right,
                                             smodel, cfg)
                       for j, (anc, _e) in zip(jobs, results)]
@@ -733,7 +734,8 @@ def place_queries_grouped(res: ProgressiveResult,
                           cfg: PlacementConfig | None = None,
                           model_factory: ModelFactory | None = None,
                           settings: AlignSettings | None = None,
-                          dna_map=None, device="cuda") -> PlacementOutcome:
+                          dna_map=None, device="cuda",
+                  mesh=None) -> PlacementOutcome:
     """--fragments: query_placement_all (reads_aligner.cpp:372-621).
 
     All queries find their target nodes up-front — here as ONE batched
@@ -813,7 +815,7 @@ def place_queries_grouped(res: ProgressiveResult,
     if all_jobs:
         from ..parallel.executor import execute_pair_jobs
         results = execute_pair_jobs(all_jobs, engine=cfg.engine,
-                                    device=device)
+                                    device=device, mesh=mesh)
         for start, info, per_strand, smodel in spans:
             cand = info["cand"]
             n = len(cand) * per_strand

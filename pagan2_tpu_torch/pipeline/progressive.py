@@ -5,9 +5,10 @@ Node::start_alignment / align_sequences_this_node / get_alignment
 (src/main/node.cpp:52-345, :537-832). The guide tree is executed in
 *generations*: every node whose two children are done is ready, and one
 generation's pairwise alignments are independent jobs — the unit that
-gets batched into one kernel launch per shape bucket on `device` (the
+gets batched into one kernel launch per shape bucket on `device`, or
+one a shard over the jobs mesh `mesh` (parallel/executor.py), the
 reference's OpenMP wavefront, node.cpp:227-269, re-expressed
-data-parallel).
+data-parallel.
 """
 from __future__ import annotations
 
@@ -145,7 +146,7 @@ def align_progressive(entries: list[FastaEntry], tree: TreeNode | str,
                       mode454: bool = False,
                       homopolymer: bool = False,
                       checkpoint_dir: str | None = None,
-                      device="cuda") -> ProgressiveResult:
+                      device="cuda", mesh=None) -> ProgressiveResult:
     if isinstance(tree, str):
         tree = parse_newick(tree)
     if not getattr(tree, "branch_rules_applied", False):
@@ -213,7 +214,7 @@ def align_progressive(entries: list[FastaEntry], tree: TreeNode | str,
                         done, n_internal), 0)
         for job, (anc, _end) in zip(
                 jobs, execute_pair_jobs(jobs, engine=engine,
-                                        device=device)):
+                                        device=device, mesh=mesh)):
             job.key.graph = anc
             # --mostcommon: resolve ambiguity chains now that the
             # subtree below this node is complete (node.cpp:167)

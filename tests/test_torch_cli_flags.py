@@ -5,9 +5,10 @@ end (tests/test_translate.py's CLI cases), --score-as-dna with
 --translate forcing --terminal-nodes, --jax-profile's torch.profiler
 trace, --version offline, the ML ancestors' errors left to surface,
 and the flag sweep of tests/test_flags_wiring.py against the port's
-parser: every flag has the JAX CLI's consumer, and only more than one
-device still raises not_ported. Everything runs with --device cpu (the
-kernels' plain versions)."""
+parser: every flag has the JAX CLI's consumer, and no flag raises
+not_ported any more. Everything runs with --device cpu (the kernels'
+plain versions)."""
+import importlib.util
 import json
 import os
 import pathlib
@@ -18,7 +19,6 @@ import pytest
 import pagan2_tpu_torch
 import pagan2_tpu_torch.cli as P_CLI
 import pagan2_tpu_torch.parallel.executor as P_EX
-import pagan2_tpu_torch.pending as P_PENDING
 import pagan2_tpu_torch.pipeline.ancestors as P_AN
 import pagan2_tpu_torch.pipeline.placement as P_PL
 from pagan2_tpu_torch.io.fasta import FastaEntry, read_fasta
@@ -30,7 +30,7 @@ import pagan2_tpu
 from pagan2_tpu.cli import build_parser as jax_parser
 from test_flags_wiring import ALLOWED_NOOP
 
-# more than one device: the one part of the JAX CLI still to port
+# more than one device: the last part of the JAX CLI the port took
 MULTI_DEVICE = ("threads", "devices", "jax_coordinator",
                 "jax_num_processes", "jax_process_id")
 
@@ -241,7 +241,7 @@ def test_every_jax_flag_has_the_same_consumer_in_the_port():
     against the port: the parsers take the same flags (the port adds
     --device); each flag the JAX package reads is read by the port in
     the same files; the documented no-ops are read by neither; the
-    multi-device flags are read where the port raises for them."""
+    multi-device flags are read by the CLI, as in the JAX package."""
     jax_dests = {a.dest for a in jax_parser()._actions} - {"help",
                                                           "full_help"}
     port_dests = {a.dest for a in P_CLI.build_parser()._actions} - \
@@ -258,25 +258,19 @@ def test_every_jax_flag_has_the_same_consumer_in_the_port():
 
 
 def test_only_more_than_one_device_raises_not_ported(fam, tmp_path):
-    """After this slice pending.py names only the multi-device item: each
-    multi-device request raises not_ported naming it, and every flag of
-    the JAX parser outside it passes unported_request."""
-    assert not hasattr(P_PENDING, "CLI_REST")
-    base = ["--device", "cpu", "-s", str(fam / "fam.fas"), "-t",
-            str(fam / "fam.nh"), "-o", str(tmp_path / "o")]
-    for extra in (["--threads", "2"], ["--devices", "4"],
-                  ["--jax-coordinator", "localhost:1234"],
-                  ["--jax-num-processes", "2"], ["--jax-process-id", "1"]):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(P_PENDING.MULTI_GPU)):
-            P_CLI.main(base + extra)
-    parser = P_CLI.build_parser()
-    for action in parser._actions:
-        if action.dest in MULTI_DEVICE or not action.option_strings or \
-                action.dest in ("help", "full_help"):
-            continue
-        flag = action.option_strings[-1]
-        value = [] if action.nargs == 0 else [
-            action.choices[-1] if action.choices else "1"]
-        args = parser.parse_args(base + [flag] + value)
-        assert P_CLI.unported_request(args) is None, flag
+    """With this slice nothing is left to port: pending.py and the CLI's
+    unported_request are gone, and each multi-device request with
+    --device cpu runs unsharded, writing the bytes of the run without
+    it (the JAX CLI makes no mesh on one device either)."""
+    assert importlib.util.find_spec("pagan2_tpu_torch.pending") is None
+    assert not hasattr(P_CLI, "unported_request")
+    base = ["--device", "cpu", "--silent", "-s", str(fam / "fam.fas"),
+            "-t", str(fam / "fam.nh")]
+    assert P_CLI.main(base + ["-o", str(tmp_path / "one")]) == 0
+    want = (tmp_path / "one.fas").read_bytes()
+    for k, extra in enumerate((["--threads", "2"], ["--devices", "4"],
+                               ["--jax-num-processes", "2"],
+                               ["--jax-process-id", "1"])):
+        out = str(tmp_path / ("o%d" % k))
+        assert P_CLI.main(base + extra + ["-o", out]) == 0, extra
+        assert (tmp_path / ("o%d.fas" % k)).read_bytes() == want, extra

@@ -1181,3 +1181,143 @@ def test_cli_cuda_matches_cpu(cuda, tmp_path):
                        env=env, cwd=ROOT, check=True, timeout=600)
         outs.append(open(out + ".fas", "rb").read())
     assert outs[0] == outs[1]
+
+
+# ---- kernels G and H: the band-sharded fills (align/viterbi_shardband.py)
+def _sb_linear_fill(n, dev, seed=3, n1=700, n2=650, H=32, band=False):
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
+    from pagan2_tpu_torch.parallel.executor import JobsMesh
+    g1, g2 = _related(np.random.default_rng(seed), n1)
+    L, R = g1.num_sites() - 1, g2.num_sites() - 1
+    bnd = None
+    if band:
+        c = np.arange(L) * R // L
+        bnd = (np.maximum(c - 40, 0), np.minimum(c + 40, R - 1))
+    H = min(H, SB._lane_split(L, n))
+    shards, meta = SB.shardband_args(g1, g2, MODEL, AlignSettings(), n,
+                                     band=bnd, H=H)
+    return SB.shardband_fill(JobsMesh([dev] * n), shards, meta), meta
+
+
+@pytest.mark.parametrize("n,H,band", [(1, 32, False), (2, 8, False),
+                                      (4, 32, False), (4, 32, True),
+                                      (3, 64, False)])
+def test_shardband_linear_kernel_matches_plain(cuda, n, H, band):
+    """Kernel G over n logical shards on the card against its plain
+    version over n CPU shards: every code (the sheared plane, all
+    lanes) and the corner scores bit-equal."""
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
+    before = SB.LAUNCHES["shardband_linear_block"]
+    (codes, corner), meta = _sb_linear_fill(n, cuda, H=H, band=band)
+    assert SB.LAUNCHES["shardband_linear_block"] > before
+    (pc, pcorner), _m = _sb_linear_fill(n, "cpu", H=H, band=band)
+    assert np.array_equal(codes, pc)
+    assert np.array_equal(corner.view(np.uint32), pcorner.view(np.uint32))
+    assert np.isfinite(corner).any()
+
+
+def test_shardband_linear_kernel_equals_kernel_a_pair_end_build(cuda):
+    """Kernel G on 4 shards against kernel A's pair-end build with no
+    break column (the scan-core rule) on a 5,000-row pair (A's global
+    build): every code field G defines is A's, and the corner equal."""
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
+    from pagan2_tpu_torch.parallel.executor import JobsMesh
+    g1, g2 = _related(np.random.default_rng(5), 5000)
+    g2 = build_leaf_graph("".join("ACGT"[s] for s in g2.states[1:1201]),
+                          alph.DNA)
+    shards, meta = SB.shardband_args(g1, g2, MODEL, AlignSettings(), 4)
+    codes, corner = SB.shardband_fill(JobsMesh([cuda] * 4), shards, meta)
+    inp = prepare_sheared(g1, g2, MODEL, AlignSettings(), np.float32)
+    inp["pair_end"], inp["jbrk"] = True, -1
+    tl._add_scalar_params(inp)
+    Lp = tl.batch_rows([inp])
+    a, acorner = tl.linear_fill(**tl.linear_batch_args(
+        [tl.linear_job_arrays(inp, Lp)], cuda))
+    L, R = meta["L"], meta["R"]
+    a = a[0, :, :L].cpu().numpy()
+    g = codes[:, :L]
+    for sh in (0, 2, 4):
+        f = (g >> sh) & 3
+        defined = f != 3
+        assert np.array_equal(f[defined], ((a >> sh) & 3)[defined]), sh
+    assert np.array_equal(corner.view(np.uint32),
+                          acorner[0].cpu().numpy().view(np.uint32))
+
+
+def _sb_fanin_case(case):
+    rng = np.random.default_rng(17)
+    if case == "454":
+        g1, g2 = _related(rng, 400, mode454=True)
+        return g1, g2
+    base = "".join(rng.choice(list("ACGT"), size=300))
+    cut = {"bridge_left": 12, "bridge_right": 12, "deep_ring": 40}[case]
+    anc, _e = align_pair(build_leaf_graph(base, alph.DNA),
+                         build_leaf_graph(base[:90] + base[90 + cut:],
+                                          alph.DNA),
+                         MODEL, AlignSettings(), use_anchors=False,
+                         device="cpu")
+    leaf = build_leaf_graph(base, alph.DNA)
+    return (anc, leaf) if case == "bridge_left" else (leaf, anc)
+
+
+@pytest.mark.parametrize("case", ["454", "bridge_left", "bridge_right",
+                                  "deep_ring"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_shardband_fanin_kernel_matches_plain(cuda, case, n):
+    """Kernel H over n logical shards against its plain version: codes
+    and the corner rings bit-equal (a deep ring: a right bridge of 41,
+    ring depth 64)."""
+    from pagan2_tpu_torch.align import viterbi_fanin as tf_
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
+    from pagan2_tpu_torch.parallel.executor import JobsMesh
+    g1, g2 = _sb_fanin_case(case)
+    inp = tf_.prepare_fanin(g1, g2, MODEL, AlignSettings(), np.float32)
+    OLm, ORm = max(inp["OL"], 1), max(inp["OR"], 1)
+    G = SB._g_bucket(OLm + ORm)
+    H = min(32, SB._lane_split(inp["L"], n))
+    if case == "deep_ring":
+        assert G == 64
+    shards, meta = SB.shardband_fanin_args(inp, n, H=H)
+    before = SB.LAUNCHES["shardband_fanin_block"]
+    out = SB.shardband_fanin_fill(JobsMesh([cuda] * n), shards, meta, G,
+                                  max(1, H // OLm))
+    assert SB.LAUNCHES["shardband_fanin_block"] > before
+    ref = SB.shardband_fanin_fill(JobsMesh(["cpu"] * n), shards, meta, G,
+                                  max(1, H // OLm))
+    assert np.array_equal(out[0], ref[0])
+    assert np.array_equal(out[1].view(np.uint32), ref[1].view(np.uint32))
+
+
+@pytest.mark.parametrize("shards", ["logical", "cards"])
+def test_executor_mesh_on_cuda_matches_cpu(cuda, monkeypatch, shards):
+    """execute_pair_jobs over [cuda:0] * 4 (or one shard a visible card,
+    make_jobs_mesh, given more than one) against as many CPU shards:
+    batches sharded, then a pair band-sharded (SHARDBAND_MIN_L lowered,
+    its halo copied card to card), the same ancestral graphs and
+    scores."""
+    from pagan2_tpu_torch.parallel import executor as EX
+    from pagan2_tpu_torch.parallel.executor import JobsMesh
+    if shards == "cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs more than one card")
+    mesh = JobsMesh([cuda] * 4) if shards == "logical" else \
+        EX.make_jobs_mesh()
+
+    def jobs():
+        rng = np.random.default_rng(23)
+        out = [EX.PairJob(*_related(rng, n), MODEL, AlignSettings())
+               for n in (200, 210, 190, 60)]
+        out += [EX.PairJob(*_related(rng, 150, mode454=True), MODEL,
+                           AlignSettings()) for _ in range(3)]
+        return out
+
+    def keys(res):
+        return [([int(x) for x in a.states[:a.num_sites()]], e.score)
+                for a, e in res]
+    for gate in (1 << 16, 128):
+        monkeypatch.setattr(EX, "SHARDBAND_MIN_L", gate)
+        got = EX.execute_pair_jobs(jobs()[-1 if gate == 128 else 0:],
+                                   device=cuda, mesh=mesh)
+        want = EX.execute_pair_jobs(jobs()[-1 if gate == 128 else 0:],
+                                    device="cpu",
+                                    mesh=JobsMesh(["cpu"] * mesh.size))
+        assert keys(got) == keys(want)

@@ -50,20 +50,32 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flags", [["-q", "r.fas", "--threads", "2"],
                                    ["--devices", "2"],
-                                   ["--jax-coordinator", "localhost:1234"],
+                                   ["--jax-coordinator", "127.0.0.1:PORT"],
                                    ["--jax-num-processes", "2"],
                                    ["--jax-process-id", "1"],
                                    ["--threads", "4"]])
 def test_unported_flags_raise(tmp_path, flags):
-    """Only more than one device is still to port (ROADMAP Queue 1 item
-    11): each such request raises, naming the item, before any input is
-    read."""
+    """The multi-device flags, once ROADMAP Queue 1 item 11's request and
+    refused, run (make_mesh): with --device cpu, or one process joining
+    a group of one, the run is unsharded and writes the bytes of the run
+    without them; --jax-num-processes/--jax-process-id without
+    --jax-coordinator are read by nothing, as in the JAX CLI."""
+    import socket
     (tmp_path / "s.fas").write_text(">a\nACGTACGTTGCA\n>b\nACGTACTTGCA\n")
     (tmp_path / "t.nh").write_text("(a:0.1,b:0.1);\n")
+    (tmp_path / "r.fas").write_text(">q\nACGTACGTTGC\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    flags = [f.replace("r.fas", str(tmp_path / "r.fas"))
+             .replace("PORT", str(port)) for f in flags]
     argv = ["--device", "cpu", "-s", str(tmp_path / "s.fas"),
-            "-t", str(tmp_path / "t.nh"), "-o", str(tmp_path / "out")]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        cli.main(argv + flags)
+            "-t", str(tmp_path / "t.nh"), "--silent"]
+    extra = flags[:2] if flags[0] == "-q" else []
+    assert cli.main(argv + extra + ["-o", str(tmp_path / "one")]) == 0
+    assert cli.main(argv + flags + ["-o", str(tmp_path / "out")]) == 0
+    assert (tmp_path / "out.fas").read_bytes() == \
+        (tmp_path / "one.fas").read_bytes()
 
 
 @pytest.mark.parametrize("flags", [["--full-probability"],

@@ -4,8 +4,10 @@
 kernels in interpret mode) on a 6 x 120 family whose ancestors carry the
 skip edges of a 12-bp deletion. The FASTA files must be byte-identical:
 the seeded draws of both come from np.random.default_rng(7), in the same
-job order. The posterior support of the root's sites, which no output
-file of the CLI carries, is compared through align_progressive of both
+job order. The amplicon family of ROADMAP Queue 3 (homopolymer-rich reads, many
+tied paths) holds the Viterbi jobs of a batched full-probability bucket
+to the reference's scan-core rule. The posterior support of the root's
+sites, which no output file of the CLI carries, is compared through align_progressive of both
 packages in this process (the reference at f64, the port at f32):
 tolerance 1e-4 absolute."""
 import os
@@ -61,6 +63,46 @@ def test_port_cli_matches_reference_cli(tmp_path, mode):
     # the leaf pairs batch on the linear entry points, the ancestor
     # pairs of the later generations on the fan-in ones
     assert int(m.group(1)) >= 1 and int(m.group(2)) >= 1
+
+
+# ROADMAP Queue 3's tie-prone family: tools/reads.py's amplicon reads as
+# a FASTA family under a balanced 8-leaf tree
+AMPLICON_TREE = ("(((r000:0.1,r001:0.1):0.05,(r002:0.1,r003:0.1):0.05):0.05,"
+                 "((r004:0.1,r005:0.1):0.05,(r006:0.1,r007:0.1):0.05)"
+                 ":0.05);\n")
+
+
+def amplicon_family(d):
+    from pagan2_tpu_torch.tools.reads import amplicon_reads, write_reads
+    write_reads(str(d / "amp.fas"), amplicon_reads(8, 120, 400, seed=7))
+    (d / "amp.nh").write_text(AMPLICON_TREE)
+    return d / "amp.fas", d / "amp.nh"
+
+
+def test_full_probability_viterbi_jobs_take_the_scan_core_rule(tmp_path):
+    """The reference fills the Viterbi jobs of a batched full-probability
+    bucket on its scan core (batched_sheared_fill: M's candidates
+    compared after the match score is added) on every backend; on the
+    amplicon family the Pallas rule writes GGGG- where the scan core's
+    writes GGG-G (first difference at byte 225). The port's CLI must
+    write the JAX CLI's bytes."""
+    fas, nh = amplicon_family(tmp_path)
+    common = ["-s", str(fas), "-t", str(nh), "--full-probability"]
+    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu",
+               JAX_ENABLE_X64="0", PAGAN2_STRICT="1",
+               PAGAN2_JAX_CACHE=str(tmp_path / "jax_cache"))
+    ref = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE_FP,
+         "-o", str(tmp_path / "ref")] + common,
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    from pagan2_tpu_torch import cli
+    assert cli.main(["--device", "cpu", "--silent",
+                     "-o", str(tmp_path / "port")] + common) == 0
+    rout, rerr = ref.communicate(timeout=600)
+    assert ref.returncode == 0, rerr[-3000:]
+    assert (tmp_path / "port.fas").read_bytes() == \
+        (tmp_path / "ref.fas").read_bytes()
 
 
 def test_posterior_support_matches_reference(tmp_path):
