@@ -71,13 +71,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                base case equal to kernel A on the 16 x 2047 batch
   kernel_shardband  kernels G and H (the band-sharded linear and fan-in
                fills, csrc/viterbi_shardband.cu) vs their plain versions
-               forced on the same CUDA tensors, on 2 and 4 logical shards
-               of the card: a 400 x 380 pair (halo 8, and 32 banded),
-               454 graphs, ancestors with an indel bridge left and right and
-               a ring of 64 diagonals; codes, corners and rings bit-equal;
-               then G at the sharding gate (65,536 x 1,024 cells on 4
-               shards) against kernel A's pair-end build with no break
-               column: every code G defines equal, corner bit-equal
+               taking every launch of the same launch plan on the same
+               CUDA tensors, on 2 and 4 logical shards of the card: a
+               400 x 380 pair (halo 8, and 32 banded), 454 graphs,
+               ancestors with an indel bridge left and right and a ring
+               of 64 diagonals; codes, corners and rings bit-equal; then
+               G at the sharding gate (65,536 x 1,024 cells on 4 shards,
+               the default halo, launches as the plan says, the launch
+               loop and the gather timed apart) against kernel A's
+               pair-end build with no break column: every code G defines
+               equal, corner bit-equal
   small_oracle the device path against the host oracle on small pairs
   main_path    16 x 1535 bp family (bench.py's generator, seed 5) through
                the CLI with default flags on CUDA: 1535 columns, kernel A
@@ -204,10 +207,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                every call of placement_path's run (a), the first call of
                each build not held above bit-equal to the plain version,
                with its plain time and bound; kernels G and H on one
-               block of
-               their shardband_path fills, a shard past the first in
-               mid-fill, bit-equal to the plain version, with the plan
-               and the bound)
+               launch of a fill of their shardband_path pairs, a shard
+               past the first in mid-fill, on its tile range, bit-equal
+               to the plain version, with the plan and the bound)
   trace        the main path, the --full-probability path and the pileup
                path once more under torch.profiler: the device's busy
                share and time by kernel
@@ -943,32 +945,27 @@ def main():
     # Small shapes on 2 and 4 logical shards of this card (400 x 380 and
     # 300-site 454 pairs; 700 x 650 and 400 sites cost 15 s more of plain
     # versions), each fill run
-    # with the kernel and again with the plain version forced on the same
-    # CUDA tensors (the wrapper swapped in the module): codes, corners
-    # and rings bit-equal. Then G at the gate (65,536 left sites) against
-    # kernel A's pair-end build with no break column on the same pair.
-    sb_real = {"linear": SB.shardband_linear_block,
-               "fanin": SB.shardband_fanin_block}
+    # with the kernels and again with the plain versions taking every
+    # launch of the same launch plan on the same CUDA tensors (the fill's
+    # `block`): codes, corners and rings bit-equal. Then G at the gate
+    # (65,536 left sites, the default halo) against kernel A's pair-end
+    # build with no break column on the same pair.
     sb_plain = {"linear": SB.shardband_linear_block_plain,
                 "fanin": SB.shardband_fanin_block_plain}
     sb_err = {"linear": 0.0, "fanin": 0.0}
 
     def sb_forced(kind, fn, *a):
-        """A band-sharded fill with `fn` as kernel `kind`'s wrapper."""
-        name = "shardband_%s_block" % kind
-        setattr(SB, name, fn)
-        try:
-            out = (SB.shardband_fill if kind == "linear"
-                   else SB.shardband_fanin_fill)(*a)
-            torch.cuda.synchronize()
-        finally:
-            setattr(SB, name, sb_real[kind])
+        """A band-sharded fill, every launch through `fn` when given."""
+        out = (SB.shardband_fill if kind == "linear"
+               else SB.shardband_fanin_fill)(*a, block=fn)
+        torch.cuda.synchronize()
         return out
 
     def sb_check(kind, what, n, *a):
         t = time.time()
-        k = sb_forced(kind, sb_real[kind], *a)
+        k = sb_forced(kind, None, *a)
         tk = time.time() - t
+        launched = SB.FILL_STATS["launches"]
         t = time.time()
         p = sb_forced(kind, sb_plain[kind], *a)
         tp = time.time() - t
@@ -981,8 +978,9 @@ def main():
         sb_err[kind] = max(sb_err[kind], max_abs_err(
             torch.from_numpy(k[1]), torch.from_numpy(p[1])))
         log("kernel_shardband %s %s on %d shards: bit-equal (kernel fill "
-            "%.2f s, plain %.2f s by the host clock)"
-            % (kind, what, n, tk, tp))
+            "%.2f s, %d launches of %d blocks x %d shards; plain %.2f s by "
+            "the host clock)" % (kind, what, n, tk, launched,
+                                 SB.FILL_STATS["blocks"], n, tp))
 
     def sb_linear_case(n, n1, n2, H, band, seed):
         base = rng_sb.choice(list("ACGT"), size=n1)
@@ -1042,13 +1040,17 @@ def main():
     gate_read = mutate(rng_gate, gate_base[20000:21023])
     gg1 = build_leaf_graph("".join(gate_base), alph.DNA)
     gg2 = build_leaf_graph(gate_read, alph.DNA)
-    shards, meta = SB.shardband_args(gg1, gg2, model, settings, 4)
+    gshards, gmeta = SB.shardband_args(gg1, gg2, model, settings, 4)
     SB.LAUNCHES["shardband_linear_block"] = 0
     t = time.time()
-    gcodes, gcorner = SB.shardband_fill(JobsMesh([dev] * 4), shards, meta)
+    gcodes, gcorner = SB.shardband_fill(JobsMesh([dev] * 4), gshards, gmeta)
     torch.cuda.synchronize()
     gate_g_s = time.time() - t
     gate_g_launches = SB.LAUNCHES["shardband_linear_block"]
+    gate_stats = dict(SB.FILL_STATS)
+    if gate_g_launches != gate_stats["launches"]:
+        fail("kernel_shardband: %d launches of G, the plan's %d"
+             % (gate_g_launches, gate_stats["launches"]))
     ginp = prepare_sheared(gg1, gg2, model, settings, np.float32)
     ginp["pair_end"], ginp["jbrk"] = True, -1
     VL._add_scalar_params(ginp)
@@ -1062,7 +1064,7 @@ def main():
     torch.cuda.synchronize()
     gate_a_ms = t0.elapsed_time(t1)
     del gargs
-    Lg, Rg = meta["L"], meta["R"]
+    Lg, Rg = gmeta["L"], gmeta["R"]
     step = 4096
     diff = 0
     for d0 in range(0, Lg + Rg - 1, step):
@@ -1076,10 +1078,13 @@ def main():
         fail("kernel_shardband: G at the gate differs from kernel A's "
              "pair-end build (%d code fields)" % diff)
     log("kernel_shardband: G at the gate (%d x %d cells, 4 shards of %d "
-        "lanes, H %d): %d launches in %.2f s (host clock, the halo "
-        "exchanges included); every code field it defines equals kernel "
-        "A's pair-end build (%s, %.3f ms), corner bit-equal"
-        % (Lg, Rg, meta["w"], meta["H"], gate_g_launches, gate_g_s,
+        "lanes, H %d): %d launches (%d tiles, %d halos passed) of %d "
+        "blocks in %.2f s (host clock: launch loop %.3f s, gather of the "
+        "codes %.3f s); every code field it defines equals kernel A's "
+        "pair-end build (%s, %.3f ms), corner bit-equal"
+        % (Lg, Rg, gmeta["w"], gmeta["H"], gate_g_launches,
+           gate_stats["tiles"], gate_stats["passes"], gate_stats["blocks"],
+           gate_g_s, gate_stats["loop_s"], gate_stats["gather_s"],
            linear_plan_text(VL, acodes.shape[2]), gate_a_ms))
     del acodes, gcodes
 
@@ -2025,22 +2030,6 @@ def main():
     # 4.3-second launches of kernel A's global build, one a shard) was
     # cut for the script's time.
     t_sb = time.time()
-    sb_keep = {}
-
-    def sb_recorder(k):
-        """Kernel k's wrapper, keeping one call of a shard past the
-        first from the middle of the fill (its carries copied)."""
-        def fill(**kw):
-            if k not in sb_keep and kw["base"] > 0 and \
-                    kw["d0"] >= (kw["L"] + kw["R"]) // 2:
-                sb_keep[k] = {n: v.clone() if n in ("cin", "cout",
-                                                    "corner", "snap")
-                              else v for n, v in kw.items()
-                              if n != "codes"}
-            return real[k](**kw)
-        return fill
-    fills_sb = dict(real, sb_linear=sb_recorder("sb_linear"),
-                    sb_fanin=sb_recorder("sb_fanin"))
     read454 = mutate(rng_gate, gate_base[3000:4023])
     fas_g = write_reads(os.path.join(work, "gate.fas"),
                         [("ref", "".join(gate_base)), ("read", gate_read)])
@@ -2062,7 +2051,8 @@ def main():
             EX.SHARDBAND_MIN_L = gate
             out_s = os.path.join(work, tag)
             wall, c_s, plain_calls, st = run_cli(tag, fas_x, nh_sb, out_s,
-                                                 fills_sb, extra)
+                                                 real, extra)
+            sb_stats = dict(SB.FILL_STATS)
             check_rows(tag, out_s, read_fasta(fas_x))
             same, wall_b, c_b, plain_b = True, None, {}, 0
             if key == "sb_fanin":
@@ -2072,9 +2062,12 @@ def main():
                     tag + "_batched", fas_x, nh_sb, out_b, real, extra)
                 same = open(out_s + ".fas", "rb").read() == \
                     open(out_b + ".fas", "rb").read()
-            log("shardband_path %s: %.1f s wall, %d band-sharded fill(s), "
+            log("shardband_path %s: %.1f s wall, %d band-sharded fill(s) "
+                "(launch loop %.3f s, gather %.3f s, %d blocks, %d tiles), "
                 "launches %s, every row intact%s"
-                % (tag, wall, st["shardband_fills"], json.dumps(c_s),
+                % (tag, wall, st["shardband_fills"], sb_stats["loop_s"],
+                   sb_stats["gather_s"], sb_stats["blocks"],
+                   sb_stats["tiles"], json.dumps(c_s),
                    "" if wall_b is None else
                    "; the batched run on the mesh (%.1f s, launches %s) %s"
                    % (wall_b, json.dumps(c_b), "writes the same FASTA"
@@ -2084,7 +2077,7 @@ def main():
                 fail("shardband_path %s: FASTA %s, launches %s / %s"
                      % (tag, "equal" if same else "differs", c_s, c_b))
             path_launches[tag] = c_s
-            sb_walls[tag] = (wall, wall_b)
+            sb_walls[tag] = (wall, wall_b, sb_stats)
     finally:
         EX.SHARDBAND_MIN_L = saved_gate
         CLI.make_mesh = saved_make_mesh
@@ -2574,10 +2567,59 @@ def main():
                               1e3 * mega_ms / mkw["ms"].shape[0],
                               mega_bound, mega_by, nbytes, ops))
 
-    # kernels G and H on the call each kept from the middle of its
-    # shardband_path fill (a shard past the first, the block's carry as
-    # it was): the kernel and the plain version on copies of it, every
-    # output bit-equal, then the kernel timed alone
+    # kernels G and H on one launch each kept from the middle of a fill
+    # (a shard past the first, the block's carry as it was, a tile range
+    # of the launch plan, so a live call). The fill is a re-run at the
+    # shapes of shardband_path's pairs, not the CLI's own call: G's on
+    # kernel_shardband's gate prep, H's on a prepare_fanin of the 454
+    # pair, both with this script's model (the CLI's model takes the
+    # data's base frequencies). The kernel and the plain version run on
+    # copies of the kept call, every output bit-equal, then the kernel
+    # is timed alone
+    class SbKept(Exception):
+        pass
+
+    def sb_kept(k, run):
+        """The first launch of a shard past the first from the middle of
+        the fill `run(block)` (every launch through `block`), its
+        carries copied; the fill stops there."""
+        kept = {}
+
+        def block(**kw):
+            if kw["base"] > 0 and kw["d0"] >= (kw["L"] + kw["R"]) // 2:
+                kept.update({n: v.clone() if n in ("cin", "cout", "corner",
+                                                   "snap") else v
+                             for n, v in kw.items() if n != "codes"})
+                raise SbKept
+            return real[k](**kw)
+        try:
+            run(block)
+        except SbKept:
+            pass
+        if not kept:
+            fail("timing: no launch of %s kept" % k)
+        return kept
+    inp454 = VF.prepare_fanin(
+        build_leaf_graph("".join(gate_base[:8191]), alph.DNA, mode454=True),
+        build_leaf_graph(read454[:1023], alph.DNA, mode454=True), model,
+        settings, np.float32)
+    olm454 = max(inp454["OL"], 1)
+    g454 = SB._g_bucket(olm454 + max(inp454["OR"], 1))
+    h454 = SB.fanin_halo(SB.HALO, g454, SB._lane_split(inp454["L"], 4))
+    s454, m454 = SB.shardband_fanin_args(inp454, 4, H=h454)
+    sb_keep = {
+        "sb_linear": sb_kept("sb_linear", lambda block: SB.shardband_fill(
+            JobsMesh([dev] * 4), gshards, gmeta, block=block)),
+        "sb_fanin": sb_kept("sb_fanin",
+                            lambda block: SB.shardband_fanin_fill(
+                                JobsMesh([dev] * 4), s454, m454, g454,
+                                max(1, h454 // olm454), block=block))}
+    del s454
+
+    def sb_plan(k, kw):
+        return SB.linear_block_plan(kw["H"]) if k == "sb_linear" else \
+            SB.fanin_block_plan(kw["H"], kw["cin"].shape[1])
+
     def sb_bound(k, kw):
         """Kernels G and H: per cell of the block that lies in the matrix
         (and band) on the shard's owned lanes, its code written (1 B,
@@ -2589,7 +2631,9 @@ def main():
         candidates."""
         H, base, d0, n = kw["H"], kw["base"], kw["d0"], kw["nsteps"]
         wloc = kw["cin"].shape[-1]
-        li = np.arange(H, wloc)
+        tt = sb_plan(k, kw)["tile"]
+        t0_, t1_ = kw["tiles"]
+        li = np.arange(H + t0_ * tt, min(H + (t1_ + 1) * tt, wloc))
         ii = base + li
         d = np.arange(d0, d0 + n)[:, None]
         j = d - ii[None, :]
@@ -2599,9 +2643,10 @@ def main():
             (j <= vhi)
         cells = float(cell.sum())
         ncols = len(np.unique(j[cell])) if cells else 0
+        lanes = len(li)
         if k == "sb_linear":
-            nbytes = 5 * cells + 2 * 6 * 4 * wloc + 5 * 4 * (wloc - H) + \
-                3 * 4 * ncols + 3 * 4
+            nbytes = 5 * cells + 2 * 6 * 4 * lanes + 4 * 4 * lanes + \
+                2 * 4 * ncols + 3 * 4
             return nbytes, LINEAR_OPS_PER_CELL * cells
         G = kw["cin"].shape[1]
         KL, KR = kw["loff"].shape[1], kw["roff"].shape[1]
@@ -2611,8 +2656,8 @@ def main():
                                                kw["R"] - 1)] > 0).sum(-1)
         ops = 2 * 3 * float((kl + kr + kl * kr).sum())
         nf = kw["table"].shape[0]
-        nbytes = 4 * cells + 2 * 3 * G * 4 * wloc + \
-            (wloc - H) * (3 * 4 * KL + 4 * 4) + ncols * (3 * 4 * KR + 2 * 4) \
+        nbytes = 4 * cells + 2 * 3 * G * 4 * lanes + \
+            lanes * (3 * 4 * KL + 4 * 4) + ncols * (3 * 4 * KR + 2 * 4) \
             + 4 * nf * nf
         return nbytes, ops
 
@@ -2644,15 +2689,15 @@ def main():
         k_ms = cuda_ms(lambda: real[k](**kk), 20)
         nbytes, ops = sb_bound(k, kw)
         tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        plan = SB.linear_block_plan(kw["H"]) if k == "sb_linear" else \
-            SB.fanin_block_plan(kw["H"], kw["cin"].shape[1])
+        plan = dict(sb_plan(k, kw), tiles=list(kw["tiles"]))
         sb_t[k] = dict(ms=k_ms, plain_ms=t0.elapsed_time(t1),
                        bound_ms=1e3 * max(tb, to),
                        bound_by="bytes" if tb >= to else "operations",
                        err=err, plan=plan, d0=d0, nsteps=kw["nsteps"],
                        lanes=w)
-        log("timing %s: one block (diagonals %d-%d, %d owned lanes, H %d, "
-            "plan %s): kernel %.4f ms (%.3f us per diagonal), plain %.1f "
+        log("timing %s: one block (diagonals %d-%d, tiles of a shard of %d "
+            "owned lanes, H %d, plan %s): kernel %.4f ms (%.3f us per "
+            "diagonal), plain %.1f "
             "ms, bound %.6f ms (%s: %.0f bytes, %.0f operations), "
             "bit-equal" % (k, d0, rows - 1, w, kw["H"], json.dumps(plan),
                            k_ms, 1e3 * k_ms / kw["nsteps"],
@@ -2751,6 +2796,9 @@ def main():
             ("viterbi_shardband_linear", "sb_linear", "linear",
              "pagan2_tpu/align/viterbi_shardband.py:83",
              {"gate_fill_s": gate_g_s, "gate_launches": gate_g_launches,
+              "gate_loop_s": gate_stats["loop_s"],
+              "gate_gather_s": gate_stats["gather_s"],
+              "gate_tiles": gate_stats["tiles"],
               "kernel_a_pair_end_gate_ms": gate_a_ms}),
             ("viterbi_shardband_fanin", "sb_fanin", "fanin",
              "pagan2_tpu/align/viterbi_shardband.py:362", {})):
@@ -2763,11 +2811,20 @@ def main():
             "max_abs_err": max(sb_err[kind], t["err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "timed_on": "shardband_path, one block: diagonals %d-%d, %d "
-                        "owned lanes" % (t["d0"], t["d0"] + t["nsteps"] - 1,
-                                         t["lanes"]),
+            "timed_on": "a re-run fill of %s at shardband_path's "
+                        "shapes (this script's model), one launch: "
+                        "diagonals %d-%d, tiles %d-%d of a shard of %d "
+                        "owned lanes"
+                        % ("kernel_shardband's gate prep"
+                           if kind == "linear" else "the 454 pair",
+                           t["d0"], t["d0"] + t["nsteps"] - 1,
+                           t["plan"]["tiles"][0], t["plan"]["tiles"][1],
+                           t["lanes"]),
             "plan": t["plan"],
             "path_wall_s": sb_walls["shardband_" + kind][0],
+            "path_loop_s": sb_walls["shardband_" + kind][2]["loop_s"],
+            "path_gather_s": sb_walls["shardband_" + kind][2]["gather_s"],
+            "path_blocks": sb_walls["shardband_" + kind][2]["blocks"],
             "launches_by_path": by_path(k)}, **extra))
     # kernel F: launches in the tools' run, ms and bound of the tools'
     # first case, plain ms on the same inputs in kernel_probe

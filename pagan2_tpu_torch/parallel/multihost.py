@@ -90,15 +90,16 @@ def gather_to_host(mesh, parts: dict) -> dict:
     return out
 
 
-def pass_edges(mesh, edges: dict, halos: dict) -> None:
-    """The halo exchange of a band-sharded fill: for every shard s > 0,
-    the tensor view halos[s] takes the values of edges[s - 1] (shard
-    s - 1's edge lanes). Between two shards of this process they are
-    copied device to device; across ranks they travel as a host tensor
-    (isend/irecv, all posted before any wait). `edges` and `halos` hold
-    this rank's shards only."""
+def pass_edges(mesh, edges: dict, halos: dict, pairs=None) -> None:
+    """The halo exchange of a band-sharded fill: for every shard s of
+    `pairs` (default: every s > 0), the tensor view halos[s] takes the
+    values of edges[s - 1] (shard s - 1's edge lanes). Between two
+    shards of this process they are copied device to device; across
+    ranks they travel as a host tensor (isend/irecv, all posted before
+    any wait), so every rank must pass the same `pairs`. `edges` and
+    `halos` hold this rank's shards only."""
     reqs, recvs, held = [], [], []
-    for s in range(1, mesh.size):
+    for s in (range(1, mesh.size) if pairs is None else pairs):
         src, dst = mesh.is_local(s - 1), mesh.is_local(s)
         if src and dst:
             halos[s].copy_(edges[s - 1])

@@ -1188,6 +1188,9 @@ def _sb_linear_fill(n, dev, seed=3, n1=700, n2=650, H=32, band=False):
     from pagan2_tpu_torch.align import viterbi_shardband as SB
     from pagan2_tpu_torch.parallel.executor import JobsMesh
     g1, g2 = _related(np.random.default_rng(seed), n1)
+    if n2 < n1:
+        g2 = build_leaf_graph("".join("ACGT"[s] for s in g2.states[1:n2]),
+                              alph.DNA)
     L, R = g1.num_sites() - 1, g2.num_sites() - 1
     bnd = None
     if band:
@@ -1196,24 +1199,74 @@ def _sb_linear_fill(n, dev, seed=3, n1=700, n2=650, H=32, band=False):
     H = min(H, SB._lane_split(L, n))
     shards, meta = SB.shardband_args(g1, g2, MODEL, AlignSettings(), n,
                                      band=bnd, H=H)
-    return SB.shardband_fill(JobsMesh([dev] * n), shards, meta), meta
+    out = SB.shardband_fill(JobsMesh([dev] * n), shards, meta)
+    return out, meta, dict(SB.FILL_STATS)
 
 
-@pytest.mark.parametrize("n,H,band", [(1, 32, False), (2, 8, False),
-                                      (4, 32, False), (4, 32, True),
-                                      (3, 64, False)])
-def test_shardband_linear_kernel_matches_plain(cuda, n, H, band):
+# (shards, halo, banded, kernel G's threads a CUDA block, G_THREADS:
+# None the plan's 256 of two lanes, 512 lanes a tile; 1,024 the widest;
+# fewer make many tiles, most of them skipped)
+SB_LINEAR_CASES = [(1, 32, False, None), (2, 8, False, None),
+                   (4, 32, False, None), (4, 32, True, None),
+                   (3, 64, False, None), (2, 128, False, None),
+                   (2, 256, True, None), (2, 512, False, 1024),
+                   (4, 32, False, 32), (3, 16, True, 64),
+                   (2, 256, False, 160)]
+
+
+@pytest.mark.parametrize("n,H,band,threads", SB_LINEAR_CASES)
+def test_shardband_linear_kernel_matches_plain(cuda, monkeypatch, n, H, band,
+                                               threads):
     """Kernel G over n logical shards on the card against its plain
-    version over n CPU shards: every code (the sheared plane, all
-    lanes) and the corner scores bit-equal."""
+    version over n CPU shards, on the same launch plan: every code (the
+    sheared plane, all lanes) and the corner scores bit-equal, and one
+    launch a shard and block of the plan."""
     from pagan2_tpu_torch.align import viterbi_shardband as SB
+    if threads is not None:
+        monkeypatch.setattr(SB, "G_THREADS", threads)
     before = SB.LAUNCHES["shardband_linear_block"]
-    (codes, corner), meta = _sb_linear_fill(n, cuda, H=H, band=band)
-    assert SB.LAUNCHES["shardband_linear_block"] > before
-    (pc, pcorner), _m = _sb_linear_fill(n, "cpu", H=H, band=band)
+    (codes, corner), meta, st = _sb_linear_fill(n, cuda, H=H, band=band)
+    assert SB.LAUNCHES["shardband_linear_block"] - before == \
+        st["launches"] > 0
+    (pc, pcorner), _m, pst = _sb_linear_fill(n, "cpu", H=H, band=band)
+    assert (st["launches"], st["tiles"]) == (pst["launches"], pst["tiles"])
     assert np.array_equal(codes, pc)
     assert np.array_equal(corner.view(np.uint32), pcorner.view(np.uint32))
     assert np.isfinite(corner).any()
+
+
+@pytest.mark.parametrize("kind", ["linear", "fanin"])
+def test_shardband_kernels_skip_a_shard(cuda, monkeypatch, kind):
+    """141 rows on 4 shards of 64 lanes: shard 3 owns no row, is never
+    launched, and its codes stay masked; the fill on the card equals
+    the plain version's, with fewer launches than shards x blocks."""
+    from pagan2_tpu_torch.align import viterbi_fanin as tf_
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
+    from pagan2_tpu_torch.parallel.executor import JobsMesh
+    monkeypatch.setattr(SB, "G_THREADS", 32)
+    monkeypatch.setattr(SB, "H_LANES", 64)
+    if kind == "linear":
+        (codes, corner), meta, st = _sb_linear_fill(4, cuda, n1=140, n2=90)
+        (pc, pcorner), _m, _s = _sb_linear_fill(4, "cpu", n1=140, n2=90)
+        masked = 0x3F
+    else:
+        g1, g2 = _related(np.random.default_rng(9), 140, mode454=True)
+        inp = tf_.prepare_fanin(g1, g2, MODEL, AlignSettings(), np.float32)
+        OLm = max(inp["OL"], 1)
+        G = SB._g_bucket(OLm + max(inp["OR"], 1))
+        shards, meta = SB.shardband_fanin_args(inp, 4, H=32)
+        codes, corner = SB.shardband_fanin_fill(
+            JobsMesh([cuda] * 4), shards, meta, G, 32 // OLm)
+        st = dict(SB.FILL_STATS)
+        pc, pcorner = SB.shardband_fanin_fill(
+            JobsMesh(["cpu"] * 4), shards, meta, G, 32 // OLm)
+        masked = 0xFFFFFFFF
+    w = meta["w"]
+    assert meta["L"] <= 3 * w
+    assert st["launches"] < st["blocks"] * 3
+    assert np.all(codes[:, 3 * w:] == masked)
+    assert np.array_equal(codes, pc)
+    assert np.array_equal(corner.view(np.uint32), pcorner.view(np.uint32))
 
 
 def test_shardband_linear_kernel_equals_kernel_a_pair_end_build(cuda):
@@ -1262,11 +1315,16 @@ def _sb_fanin_case(case):
 
 @pytest.mark.parametrize("case", ["454", "bridge_left", "bridge_right",
                                   "deep_ring"])
-@pytest.mark.parametrize("n", [2, 4])
-def test_shardband_fanin_kernel_matches_plain(cuda, case, n):
-    """Kernel H over n logical shards against its plain version: codes
-    and the corner rings bit-equal (a deep ring: a right bridge of 41,
-    ring depth 64)."""
+@pytest.mark.parametrize("n,H,lanes", [(2, 32, None), (4, 32, None),
+                                       (2, 256, None), (4, 128, None),
+                                       (3, 32, 64), (2, 256, 1024)])
+def test_shardband_fanin_kernel_matches_plain(cuda, monkeypatch, case, n, H,
+                                              lanes):
+    """Kernel H over n logical shards against its plain version, on the
+    same launch plan: codes and the corner rings bit-equal (a deep ring:
+    a right bridge of 41, ring depth 64); the plan's tile of 256 lanes
+    caps the halo at 128; lanes 64 makes many tiles, most skipped, and
+    1,024 is the widest tile."""
     from pagan2_tpu_torch.align import viterbi_fanin as tf_
     from pagan2_tpu_torch.align import viterbi_shardband as SB
     from pagan2_tpu_torch.parallel.executor import JobsMesh
@@ -1274,18 +1332,81 @@ def test_shardband_fanin_kernel_matches_plain(cuda, case, n):
     inp = tf_.prepare_fanin(g1, g2, MODEL, AlignSettings(), np.float32)
     OLm, ORm = max(inp["OL"], 1), max(inp["OR"], 1)
     G = SB._g_bucket(OLm + ORm)
-    H = min(32, SB._lane_split(inp["L"], n))
+    if lanes is not None:
+        # at most the lanes whose ring fits in shared memory
+        monkeypatch.setattr(SB, "H_LANES", lanes)
+    H = SB.fanin_halo(H, G, SB._lane_split(inp["L"], n))
     if case == "deep_ring":
         assert G == 64
     shards, meta = SB.shardband_fanin_args(inp, n, H=H)
     before = SB.LAUNCHES["shardband_fanin_block"]
     out = SB.shardband_fanin_fill(JobsMesh([cuda] * n), shards, meta, G,
                                   max(1, H // OLm))
-    assert SB.LAUNCHES["shardband_fanin_block"] > before
+    assert SB.LAUNCHES["shardband_fanin_block"] - before == \
+        SB.FILL_STATS["launches"] > 0
     ref = SB.shardband_fanin_fill(JobsMesh(["cpu"] * n), shards, meta, G,
                                   max(1, H // OLm))
     assert np.array_equal(out[0], ref[0])
     assert np.array_equal(out[1].view(np.uint32), ref[1].view(np.uint32))
+
+
+def test_shardband_block_wrappers_on_cuda(cuda, monkeypatch):
+    """The public wrappers of G and H on CUDA tensors, one block each on
+    a tile range of shard 0 from the fill's start, equal their plain
+    versions on the same inputs (codes pre-filled with the masked
+    code)."""
+    from pagan2_tpu_torch.align import viterbi_fanin as tf_
+    from pagan2_tpu_torch.align import viterbi_shardband as SB
+    monkeypatch.setattr(SB, "G_THREADS", 32)
+    monkeypatch.setattr(SB, "H_LANES", 64)
+    g1, g2 = _related(np.random.default_rng(4), 600)
+    shards, meta = SB.shardband_args(g1, g2, MODEL, AlignSettings(), 2,
+                                     H=32)
+    w, H = meta["w"], meta["H"]
+    rows = meta["L"] + meta["R"] - 1
+    outs = []
+    for dev in (cuda, "cpu"):
+        a = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in shards[0].items()}
+        cin = torch.full((6, H + w), -np.inf, device=dev)
+        cin[0, H] = 0.0                  # M(0, 0) on diagonal 0
+        kw = dict(cin=cin, cout=cin.clone(),
+                  codes=torch.full((rows, w), 0x3F, dtype=torch.uint8,
+                                   device=dev),
+                  corner=torch.full((3,), -np.inf, device=dev),
+                  lng=meta["lng"], lgo=meta["lgo"], L=meta["L"],
+                  R=meta["R"], base=-H, H=H, d0=1, nsteps=32,
+                  tiles=(0, 2), **a)
+        SB.shardband_linear_block(**kw)
+        outs.append([kw["codes"].cpu(), kw["cout"].cpu()])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1].view(torch.int32),
+                       outs[1][1].view(torch.int32))
+    assert bool((outs[0][0] != 0x3F).any())
+    g1, g2 = _related(np.random.default_rng(4), 300, mode454=True)
+    inp = tf_.prepare_fanin(g1, g2, MODEL, AlignSettings(), np.float32)
+    G = SB._g_bucket(max(inp["OL"], 1) + max(inp["OR"], 1))
+    shards, meta = SB.shardband_fanin_args(inp, 2, H=32)
+    w, H = meta["w"], meta["H"]
+    rows = meta["L"] + meta["R"] - 1
+    outs = []
+    for dev in (cuda, "cpu"):
+        a = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in shards[0].items()}
+        cin = torch.full((3, G, H + w), -np.inf, device=dev)
+        kw = dict(cin=cin, cout=cin.clone(),
+                  codes=torch.full((rows, w), -1, dtype=torch.int32,
+                                   device=dev),
+                  snap=torch.full((3, G, w), -np.inf, device=dev),
+                  lng=meta["lng"], lgo=meta["lgo"], L=meta["L"],
+                  R=meta["R"], base=-H, H=H, d0=0, nsteps=10,
+                  tiles=(0, 1), **a)
+        SB.shardband_fanin_block(**kw)
+        outs.append([kw["codes"].cpu(), kw["cout"].cpu()])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1].view(torch.int32),
+                       outs[1][1].view(torch.int32))
+    assert bool((outs[0][0] != -1).any())
 
 
 @pytest.mark.parametrize("shards", ["logical", "cards"])

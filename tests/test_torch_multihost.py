@@ -78,11 +78,14 @@ def test_two_ranks_match_each_other_and_jax(tmp_path, monkeypatch):
     r0 = json.load(open(tmp_path / "rank0.json"))
     r1 = json.load(open(tmp_path / "rank1.json"))
     assert r0["n_shards"] == 2 and r0["ranks"] == [0, 1]
+    # each rank launches the blocks its own shard holds cells on (the
+    # launch plan), so only those counts may differ between the ranks
+    blocks = [r.pop("plain_blocks") for r in (r0, r1)]
     assert r0 == r1
     assert r0["stats"]["batched_jobs"] == 8 and \
         r0["stats"]["single_jobs"] == 0
     assert r0["linear_shardband_fills"] == r0["fanin_shardband_fills"] == 1
-    assert all(v > 0 for v in r0["plain_blocks"].values())
+    assert all(v > 0 for b in blocks for v in b.values())
 
     mesh = executor.make_jobs_mesh(2)
     for kind, gate in (("batch", 1 << 16), ("linear", 32), ("fanin", 32)):

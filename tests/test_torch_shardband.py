@@ -406,8 +406,12 @@ def test_block_wrappers_check_their_arguments():
         SB.shardband_linear_block(**dict(kw, vlo=a["vlo"].float()))
     with pytest.raises(ValueError, match="ms must"):
         SB.shardband_linear_block(**dict(kw, ms=a["ms"][:, :-1].clone()))
-    assert SB.linear_block_plan(32) == dict(threads=512, tile=480,
-                                            smem=36 * 512)
+    assert SB.linear_block_plan(32) == dict(threads=256, lanes=512,
+                                            tile=480)
+    with pytest.raises(ValueError, match="nsteps|codes"):
+        SB.shardband_linear_block(**dict(kw, nsteps=9))
+    with pytest.raises(ValueError, match="tiles"):
+        SB.shardband_linear_block(**dict(kw, tiles=(0, 1)))
     p = SB.fanin_block_plan(32, 64)
     assert p["threads"] > 32 and p["smem"] <= SB.SHARED_BYTES
     with pytest.raises(ValueError, match="no owned lane"):
