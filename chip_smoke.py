@@ -17,11 +17,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   build        nvcc for sm_90a, one process per source, started together
   kernel_linear  kernel A vs linear_fill_plain: 8 jobs at 2047 x 2047, a
                ragged banded batch and 2 jobs past 4096 rows
-               (tools/bench_linear_calls.py's linear_batches), 4 x 120 and
-               2 x 3,000 against 700; codes and corner scores bit-equal,
+               (tools/bench_linear_calls.py's linear_batches) and 4 x 120;
+               codes and corner scores bit-equal,
                each batch with its launch plan and us per diagonal, every
-               build of the plan (1, 2 and 4 rows a thread, global) met;
-               then kernel A's pair-end build (the break column, M's
+               build of the plan (1 and 2 rows a thread, tiled) met;
+               the tiled build at 12,000 x 700 and 2,500 x 2,500
+               (kernel_linear_tiles); then kernel A's pair-end build (the break column, M's
                candidates compared after the score is added) on
                tools/bench_linear_calls.py's pair_end_batches: breaks at
                0, 1, mid, R - 2, R - 1 and none, with and without reduced
@@ -55,7 +56,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                posteriors of a small linear and a small fan-in pair
                against the f64 host oracle
   kernel_probe   kernel F (the probe's and the bisect's ablation
-               variants of the linear step, on kernel A's lane builds)
+               variants of the linear step, on kernel A's lane builds
+               and its own four-rows and global builds)
                vs its plain versions: every flag set of both entry
                points on 4 x 511 bp pairs and on random 4 x 512 rows,
                on batches whose plan takes one row a thread (3 x 127
@@ -179,6 +181,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                bp (--454, the gate lowered to its 8,192 rows) on kernel
                H, its FASTA equal to the same run with the gate raised
                (batched over the mesh on kernel B)
+  mito_path    a 16,569 bp pair (a sequence and a copy with 10% of its
+               sites redrawn, tools/bench_linear_calls.py's giant_pairs)
+               through the CLI with --no-anchors on one card: one launch
+               of kernel A's tiled build, every row intact, its FASTA
+               equal to the same run with the plain versions forced; the
+               host phases timed (prep, fill, the codes' copy to the
+               host, backtrack, ancestral build, write)
   megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
@@ -192,7 +201,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                gave it: bit-equal, ms per launch (CUDA events) and the
                lower bound (kernel C: bit-equal on the long_family calls;
                kernel, plain version and bound on the megabase call cut
-               to its first 16,384 diagonals; the kernel and its bound
+               to its first 16,384 diagonals; kernel A's tiled build on
+               mito_path's call, bit-equal, with its plain time and
+               bound; the kernel and its bound
                on the whole megabase call; kernels D and E per entry
                point on the calls of the --full-probability run, planes
                bit-equal (the fan-in calls timed on every call, held on
@@ -386,8 +397,9 @@ def main():
     from pagan2_tpu_torch.tools.bench_fullprob import (fanin_plan_text,
                                                        plan_text)
     from pagan2_tpu_torch.tools.bench_linear_calls import (
-        batch_args as linear_batch_args, lane_plans, linear_batches,
-        pair_end_batches, plan_text as linear_plan_text)
+        batch_args as linear_batch_args, call_pair_end, giant_pairs,
+        lane_plans, linear_batches, pair_end_batches,
+        plan_text as linear_plan_text)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -421,6 +433,24 @@ def main():
     rng = np.random.default_rng(11)
 
     # ---- kernel_linear ----
+    def linear_bound(kw):
+        """Kernel A: per needed cell its folded score read (4 B) and its
+        code written (1 B); per job its L rows of the five per-row
+        vectors, fscal, iscal and the corner."""
+        h = {k: t.cpu().numpy().astype(np.int64) for k, t in kw.items()
+             if k in ("vlox", "vloy", "vhi", "iscal")}
+        lo = np.minimum(h["vlox"], h["vloy"])    # rows >= L: 2**30
+        cells = float(np.clip(h["vhi"] - lo + 1, 0, None).sum())
+        nbytes = (5 * cells + 5 * 4 * float(h["iscal"][:, 0].sum())
+                  + len(h["iscal"]) * (2 * 8 * 4 + 3 * 4))
+        return nbytes, LINEAR_OPS_PER_CELL * cells
+
+    def build_of(plan):
+        """A plan's build of kernel A: rows a thread of a lane build, or
+        "tiles"."""
+        return plan["rows"] if plan["diagonals"] == "registers" else \
+            plan["diagonals"]
+    every_a = {r for r, _top in VL.LANES} | {"tiles"}
     lin_builds = set()
 
     def linear_check(inps, bands, what):
@@ -438,24 +468,31 @@ def main():
         if not bool(torch.isfinite(corner).any(dim=1).all()):
             fail("kernel_linear %s: a job never reached its corner" % what)
         B, D, Lp = args["ms"].shape
-        lin_builds.add(VL.linear_plan(Lp)["rows"])
+        plan = VL.linear_plan(Lp, args["pair_end"])
+        lin_builds.add(build_of(plan))
         ms = cuda_ms(lambda: VL.linear_fill(**args), 3)
-        log("kernel_linear %s: %d jobs, Lp %d, D %d: bit-equal; %s, %.3f "
-            "ms, %.3f us per diagonal" % (what, B, Lp, D,
-                                          linear_plan_text(VL, Lp), ms,
-                                          1e3 * ms / D))
-        return max_abs_err(corner, pk)
+        tiles = ""
+        if plan["diagonals"] == "tiles":
+            tp = VL.tile_plan(args["iscal"][:, :2].tolist(), Lp, D,
+                              plan["threads"])
+            tiles = " (%d tiles, %d live)" % (len(tp),
+                                              sum(t["live"] for t in tp))
+        log("kernel_linear %s: %d jobs, Lp %d, D %d: bit-equal; %s%s, "
+            "%.3f ms, %.3f us per diagonal"
+            % (what, B, Lp, D, linear_plan_text(VL, Lp, args["pair_end"]),
+               tiles, ms,
+               1e3 * ms / D))
+        return max_abs_err(corner, pk), ms
 
     lin_err = 0.0
     # 8 x 2047, a ragged banded batch and 2 jobs past 4096 rows (the
-    # global build), drawn from rng as before
+    # tiled build), drawn from rng as before
     for what, inps, bands in linear_batches(rng, model, settings):
-        lin_err = max(lin_err, linear_check(inps, bands, what))
-    # the plan's other builds, from a generator of their own: one row a
-    # thread (4 x 120) and four (2 x 3,000 against 700)
+        lin_err = max(lin_err, linear_check(inps, bands, what)[0])
+    # one row a thread (4 x 120), from a generator of its own (2 x 3,000
+    # against 700, there for four rows a thread, went with that build)
     rng_l = np.random.default_rng(13)
-    for what, shape in (("4x120", [(120, 120)] * 4),
-                        ("2x3000", [(3000, 700)] * 2)):
+    for what, shape in (("4x120", [(120, 120)] * 4),):
         inps = []
         for n, m in shape:
             base = rng_l.choice(list("ACGT"), size=n)
@@ -464,18 +501,38 @@ def main():
                 build_leaf_graph(mutate(rng_l, base[:m]), alph.DNA), model,
                 settings, np.float32)))
         lin_err = max(lin_err, linear_check(inps, [None] * len(inps),
-                                            what))
-    if lin_builds != {r for r, _top in VL.LANES} | {0}:
+                                            what)[0])
+    if lin_builds != every_a:
         fail("kernel_linear: the batches met the builds %s of kernel A, "
-             "not every one" % sorted(lin_builds))
-    log("kernel_linear: every build of kernel A met (rows a thread %s)"
-        % sorted(lin_builds))
+             "not every one" % sorted(map(str, lin_builds)))
+    log("kernel_linear: every build of kernel A met (%s)"
+        % sorted(map(str, lin_builds)))
+
+    # ---- kernel_linear_tiles: the tiled build at its users' sizes ----
+    # a 12,000 bp sequence against a 700 bp stretch of it (a read mapped
+    # onto a region: 24 tiles of 512 rows, the read's 701 columns) and a
+    # square 2,500 x 2,500 pair (5 tiles, all in flight together), each
+    # against the plain version (8-18 and 4-8 s of plain loop on the card;
+    # mito_path holds a 16,570 x 16,570 call)
+    tiles_err, tiles_ms = 0.0, {}
+    rng_t = np.random.default_rng(12000)
+    for what, (n, m0, m) in (("12000x700", (12000, 5000, 700)),
+                             ("2500x2500", (2500, 0, 2500))):
+        base = rng_t.choice(list("ACGT"), size=n)
+        inp = VL._add_scalar_params(prepare_sheared(
+            build_leaf_graph("".join(base), alph.DNA),
+            build_leaf_graph(mutate(rng_t, base[m0:m0 + m]), alph.DNA),
+            model, settings, np.float32))
+        err, tiles_ms[what] = linear_check([inp], [None], what)
+        tiles_err = max(tiles_err, err)
+    log("kernel_linear_tiles: the tiled build bit-equal to its plain "
+        "version at 12000 x 700 and 2500 x 2500")
 
     # pair-end batches (tools/bench_linear_calls.py's pair_end_batches,
     # their own generator): break columns 0, 1, mid, R - 2, R - 1 and
     # none, with and without reduced terminal penalties, each build of
     # the plan forced on the same batch; 2 jobs past 4096 rows on the
-    # plan's global build. Each build is timed in its pair-end form and
+    # plan's tiled build. Each build is timed in its pair-end form and
     # in its ordinary form on the same inputs.
     pe_builds = set()
     pe_us = {}
@@ -485,7 +542,8 @@ def main():
             fail("kernel_linear %s: not a pair-end batch" % what)
         pc, pk = VL.linear_fill_plain(**args)
         B, D, Lp = args["ms"].shape
-        for k, (text, plan) in enumerate(lane_plans(VL, Lp)):
+        for k, (text, plan) in enumerate(lane_plans(VL, Lp,
+                                                    pair_end=True)):
             codes, corner = VL._launch_linear(plan, **args)
             torch.cuda.synchronize()
             if not torch.equal(codes, pc) or not same_floats(corner, pk):
@@ -496,7 +554,7 @@ def main():
                 fail("kernel_linear %s: a job never reached its corner"
                      % what)
             lin_err = max(lin_err, max_abs_err(corner, pk))
-            pe_builds.add(plan["rows"])
+            pe_builds.add(build_of(plan))
             ms_pe = cuda_ms(lambda: VL._launch_linear(plan, **args), 3)
             ms_or = cuda_ms(lambda: VL._launch_linear(
                 plan, **dict(args, pair_end=False)), 3)
@@ -507,9 +565,9 @@ def main():
                 "build on the same inputs %.3f ms (%.3f us)"
                 % (what, B, Lp, D, text, " (plan)" if k == 0 else "",
                    ms_pe, 1e3 * ms_pe / D, ms_or, 1e3 * ms_or / D))
-    if pe_builds != {r for r, _top in VL.LANES} | {0}:
+    if pe_builds != every_a:
         fail("kernel_linear: the pair-end batches met the builds %s"
-             % sorted(pe_builds))
+             % sorted(map(str, pe_builds)))
 
     # ---- kernel_fanin ----
     def fanin_check(inps, what, timed=False, **kw):
@@ -914,7 +972,7 @@ def main():
     for shape in ((32, 256, 2048), (8, 4096, 8192)):
         probe_check("bisect", "x".join(map(str, shape)), bisect_kw(*shape),
                     ("full",))
-    every = {r for r, _top in VL.LANES} | {0}
+    every = {r for r, _top in VP.PROBE_LANES} | {0}
     short = {k: sorted(every - b) for k, b in probe_builds.items()
              if b != every}
     if short:
@@ -1063,6 +1121,12 @@ def main():
     t1.record()
     torch.cuda.synchronize()
     gate_a_ms = t0.elapsed_time(t1)
+    # A's bound at the gate: its cells (linear_bound), and writing the
+    # whole codes tensor once
+    nbytes, ops = linear_bound(gargs)
+    gate_a_bound = (1e3 * max(nbytes / HBM_BYTES_PER_S,
+                              ops / F32_OPS_PER_S),
+                    1e3 * acodes.numel() / HBM_BYTES_PER_S)
     del gargs
     Lg, Rg = gmeta["L"], gmeta["R"]
     step = 4096
@@ -1081,11 +1145,13 @@ def main():
         "lanes, H %d): %d launches (%d tiles, %d halos passed) of %d "
         "blocks in %.2f s (host clock: launch loop %.3f s, gather of the "
         "codes %.3f s); every code field it defines equals kernel A's "
-        "pair-end build (%s, %.3f ms), corner bit-equal"
+        "pair-end build (%s, %.3f ms; bound %.5f ms for its cells, %.3f "
+        "ms to write its whole codes tensor), corner bit-equal"
         % (Lg, Rg, gmeta["w"], gmeta["H"], gate_g_launches,
            gate_stats["tiles"], gate_stats["passes"], gate_stats["blocks"],
            gate_g_s, gate_stats["loop_s"], gate_stats["gather_s"],
-           linear_plan_text(VL, acodes.shape[2]), gate_a_ms))
+           linear_plan_text(VL, acodes.shape[2], True), gate_a_ms,
+           gate_a_bound[0], gate_a_bound[1]))
     del acodes, gcodes
 
     # ---- small_oracle ----
@@ -1161,12 +1227,14 @@ def main():
     def run_cli(what, fas, nh, out, fills, extra=()):
         """One CLI run with `fills` in the wrappers' places and every
         count set to 0 just before it; returns (wall s, launches per
-        kernel, plain-version calls, EXEC_STATS) read just after. With
-        nh None, fas is the read file of a --pileup run; with both None,
-        `extra` holds every input flag."""
+        kernel, plain-version calls, EXEC_STATS) read just after; the
+        launches hold kernel A's tiled ones apart as "linear_tiles" too
+        (counted in "linear" as well). With nh None, fas is the read
+        file of a --pileup run; with both None, `extra` holds every
+        input flag."""
         EX.reset_stats()
         zero_counts()
-        VL.PAIR_END_LAUNCHES = 0
+        VL.PAIR_END_LAUNCHES = VL.TILE_LAUNCHES = 0
         for k, (m, n) in KERNELS.items():
             setattr(m, n, fills[k])
         captured = [(PIPE, "align_progressive"), (PILE, "pileup_align"),
@@ -1194,9 +1262,10 @@ def main():
                 setattr(m, n, real[k])
         if rc != 0:
             fail("%s: CLI returned %d" % (what, rc))
-        return (time.time() - t,
-                {k: read_count(m, n, "LAUNCHES")
-                 for k, (m, n) in KERNELS.items()},
+        launches = {k: read_count(m, n, "LAUNCHES")
+                    for k, (m, n) in KERNELS.items()}
+        launches["linear_tiles"] = VL.TILE_LAUNCHES
+        return (time.time() - t, launches,
                 sum(read_count(m, n, "PLAIN_CALLS")
                     for m, n in KERNELS.values()),
                 dict(EX.EXEC_STATS))
@@ -2027,8 +2096,8 @@ def main():
     # codes alone take 17.4 GB, and the gather to the host twice that),
     # its FASTA equal to the same run with the gate raised (batched over
     # the mesh on kernel B). The linear pair's batched run (four
-    # 4.3-second launches of kernel A's global build, one a shard) was
-    # cut for the script's time.
+    # launches of kernel A, one a shard, each with the 4.4 GB of its
+    # shard's codes to gather) stays cut for the script's time.
     t_sb = time.time()
     read454 = mutate(rng_gate, gate_base[3000:4023])
     fas_g = write_reads(os.path.join(work, "gate.fas"),
@@ -2082,6 +2151,108 @@ def main():
         EX.SHARDBAND_MIN_L = saved_gate
         CLI.make_mesh = saved_make_mesh
     log("shardband_path: %.1f s in all" % (time.time() - t_sb))
+
+    # ---- mito_path: a 16,569 bp pair without anchors on one card ----
+    # tools/bench_linear_calls.py's giant_pairs: a 16,569 bp sequence (a
+    # human mitochondrion's length) and a copy with 10% of its sites
+    # redrawn, --no-anchors: one linear pair past 4,096 rows, so kernel
+    # A's tiled build (16,570 x 16,570 cells); its FASTA equal to the
+    # same run with the plain versions forced; the host phases timed
+    # where the CLI calls them
+    _g, (_n, mito_a, mito_b) = giant_pairs()
+    fas_mt, nh_mt = write_input(work, "mito", [("a", mito_a),
+                                               ("b", mito_b)],
+                                "(a:0.1,b:0.1);")
+    mito_phases = {}
+
+    def phase_timer(fn, key, sync=False):
+        def run(*a, **kw):
+            t = time.time()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            mito_phases[key] = mito_phases.get(key, 0.0) + time.time() - t
+            return out
+        return run
+
+    mito_patches = [
+        (PROG, "build_leaf_graph", "graph build", False),
+        (VL, "prepare_sheared", "prep: prepare_sheared (host)", False),
+        (VL, "linear_batch_args", "prep: match scores folded and sheared "
+         "on the card", True),
+        (VL, "_finish_linear", "backtrack", False),
+        (VL, "linear_align_path", "linear_align_path", True),
+        (ALIGN, "build_ancestral_graph", "ancestral build", False),
+        (PROG, "extract_alignment", "extract alignment", False),
+        (CLI, "write_outputs", "write", False)]
+    # the fill's outputs in the kernel run and in the forced-plain run,
+    # and the plain fill's time (host clock, synchronized)
+    mito_out = {}
+
+    def keep(tag, fn):
+        def run(**kw):
+            t = time.time()
+            out = fn(**kw)
+            torch.cuda.synchronize()
+            mito_out[tag] = out, 1e3 * (time.time() - t)
+            return out
+        return run
+
+    rec_mito = {k: [] for k in KERNELS}
+    fills = recording(rec_mito)
+    fills["linear"] = phase_timer(keep("kernel", fills["linear"]),
+                                  "fill (kernel A)", True)
+    saved = [(m, n, getattr(m, n)) for m, n, _k, _s in mito_patches]
+    for m, n, key, sync in mito_patches:
+        setattr(m, n, phase_timer(getattr(m, n), key, sync))
+    out_mt = os.path.join(work, "mito_kernel")
+    try:
+        wall_mt, c_mt, plain_calls, st_mt = run_cli(
+            "mito_path", fas_mt, nh_mt, out_mt, fills, ["--no-anchors"])
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    path_launches["mito_path"] = c_mt
+    check_rows("mito_path", out_mt, [("a", mito_a), ("b", mito_b)])
+    if c_mt["linear"] != 1 or c_mt["linear_tiles"] != 1 or plain_calls:
+        fail("mito_path: launches %s, %d plain-version calls (one tiled "
+             "launch of kernel A wanted)" % (c_mt, plain_calls))
+    mito_kw = rec_mito["linear"][0]
+    log("mito_path: %.1f s wall; B, D, Lp = %s, %s; launches %s"
+        % (wall_mt, tuple(mito_kw["ms"].shape),
+           linear_plan_text(VL, mito_kw["ms"].shape[2]),
+           json.dumps(c_mt)))
+    rest = mito_phases["linear_align_path"] - sum(
+        mito_phases[k] for k in mito_phases if k.startswith("prep")
+        or k in ("fill (kernel A)", "backtrack"))
+    mito_phases["codes and corner to the host (the rest of "
+                "linear_align_path)"] = rest
+    for key, v in mito_phases.items():
+        log("mito_path host phase %-58s %8.3f s" % (key, v))
+    # the same run with the plain versions forced: the same FASTA, and
+    # the plain fill's codes and corner those of the tiled build (its
+    # hold at this call's shape; ~20-50 s of plain loop)
+    out_mp = os.path.join(work, "mito_plain")
+    wall_mp, c_mp, _p, _s = run_cli(
+        "mito_path", fas_mt, nh_mt, out_mp,
+        dict(plain, linear=keep("plain", plain["linear"])),
+        ["--no-anchors"])
+    (k_codes, k_corner), _k_ms = mito_out.pop("kernel")
+    (p_codes, p_corner), tiles_plain_ms = mito_out.pop("plain")
+    if any(c_mp.values()) or open(out_mt + ".fas", "rb").read() != \
+            open(out_mp + ".fas", "rb").read():
+        fail("mito_path: the forced-plain run launched %s or wrote other "
+             "FASTA" % c_mp)
+    if not torch.equal(k_codes, p_codes) or not same_floats(k_corner,
+                                                            p_corner):
+        fail("mito_path: the tiled build's codes (%d differ) or corner "
+             "differ from the plain version's"
+             % int((k_codes != p_codes).sum()))
+    tiles_err = max(tiles_err, max_abs_err(k_corner, p_corner))
+    del k_codes, p_codes
+    log("mito_path: plain versions on CUDA (%.1f s) give byte-identical "
+        "FASTA; the plain fill (%.1f ms) gives the tiled build's codes "
+        "and corner" % (wall_mp, tiles_plain_ms))
 
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
@@ -2181,18 +2352,6 @@ def main():
     # the cells it must fill (in the matrix, in the band, in the window),
     # each job's inputs read once and its outputs written once; padding
     # rows, columns and lanes are not counted.
-    def linear_bound(kw):
-        """Kernel A: per needed cell its folded score read (4 B) and its
-        code written (1 B); per job its L rows of the five per-row
-        vectors, fscal, iscal and the corner."""
-        h = {k: t.cpu().numpy().astype(np.int64) for k, t in kw.items()
-             if k in ("vlox", "vloy", "vhi", "iscal")}
-        lo = np.minimum(h["vlox"], h["vloy"])    # rows >= L: 2**30
-        cells = float(np.clip(h["vhi"] - lo + 1, 0, None).sum())
-        nbytes = (5 * cells + 5 * 4 * float(h["iscal"][:, 0].sum())
-                  + len(h["iscal"]) * (2 * 8 * 4 + 3 * 4))
-        return nbytes, LINEAR_OPS_PER_CELL * cells
-
     def fanin_bound(kw):
         """Kernel B: per needed cell its 4-B code written and ~2 f32
         operations for each of its 3 (kl + kr + kl kr) candidates (kl,
@@ -2280,7 +2439,8 @@ def main():
         if "ms" in kw:
             return "B, D, Lp = %s; %s%s" % (
                 tuple(kw["ms"].shape),
-                linear_plan_text(VL, kw["ms"].shape[2]), "" if ms is None
+                linear_plan_text(VL, kw["ms"].shape[2], call_pair_end(kw)),
+                "" if ms is None
                 else ", %.3f us per diagonal" % (1e3 * ms / kw["ms"].shape[1]))
         B, D = kw["ilo"].shape
         return "B %d, D %d, W %d, G %d, %s%s" % (
@@ -2364,6 +2524,22 @@ def main():
     log("timing linear_fill: the %d call(s) of the fullprob_path run take "
         "%.3f ms a launch, bit-equal" % (len(rec_fp["linear"]),
                                          lin_fp_t[0]))
+    # kernel A's tiled build on mito_path's call (16,570 x 16,570 cells),
+    # held bit-equal to its plain version there, which was timed in the
+    # forced-plain run
+    tiles_k_ms = cuda_ms(lambda: VL.linear_fill(**mito_kw), 3)
+    nbytes, ops = linear_bound(mito_kw)
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    tiles_bound = (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
+    B_mt, D_mt, Lp_mt = mito_kw["ms"].shape
+    # the whole codes tensor written once, padding included
+    tiles_whole_ms = 1e3 * B_mt * D_mt * Lp_mt / HBM_BYTES_PER_S
+    log("timing linear_fill: the tiled build on mito_path's call takes "
+        "%.3f ms (%.4f us per diagonal), plain %.1f ms, bound %.5f ms (%s: "
+        "%.0f bytes, %.0f operations; %.3f ms to write the whole codes "
+        "tensor), bit-equal"
+        % (tiles_k_ms, 1e3 * tiles_k_ms / D_mt, tiles_plain_ms,
+           tiles_bound[0], tiles_bound[1], nbytes, ops, tiles_whole_ms))
     lin_err = max(lin_err, lin_t[4], lin_fp_t[4])
     fan_err = max(fan_err, fan_t[4], fan_fp_t[4])
     log("timing fanin_fill: the %d full-width calls of the fullprob_path "
@@ -2428,8 +2604,9 @@ def main():
     # hundreds of calls)
     def build_of(name, kw):
         if name == "linear":
-            return "%d rows a thread" % VL.linear_plan(
-                kw["ms"].shape[2])["rows"]
+            p = VL.linear_plan(kw["ms"].shape[2], call_pair_end(kw))
+            return "tiled build" if p["diagonals"] == "tiles" else \
+                "%d rows a thread" % p["rows"]
         if name == "banded":
             return VB.banded_plan(kw["ms"].shape[1])["build"]
         p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
@@ -2748,19 +2925,43 @@ def main():
         {"name": "viterbi_linear", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_linear.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas.py:58",
-         "launches": counts["linear"], "max_abs_err": lin_err,
+         "launches": counts["linear"] - counts["linear_tiles"],
+         "max_abs_err": lin_err,
          "ms": lin_t[0], "plain_ms": lin_t[1], "bound_ms": lin_t[2],
          "bound_by": lin_t[3], "library_ms": None,
-         "plans": [linear_plan_text(VL, kw["ms"].shape[2])
+         "plans": [linear_plan_text(VL, kw["ms"].shape[2],
+                                    call_pair_end(kw))
                    for kw in recorded["linear"]],
          "us_per_diagonal": [1e3 * ms / kw["ms"].shape[1] for ms, kw in
                              zip(lin_t[7], recorded["linear"])],
          "fullprob_calls_ms": lin_fp_t[7],
-         "launches_by_path": by_path("linear"),
+         "builds": "the lane builds (1 and 2 rows a thread); the tiled "
+                   "build's launches are under viterbi_linear_tiles",
+         "launches_by_path": {path: c.get("linear", 0)
+                              - c.get("linear_tiles", 0)
+                              for path, c in path_launches.items()},
          "placement_path": place_t.get("linear"),
          "pair_end_us_per_diagonal": {
              text: [{"pair_end": a, "ordinary": b} for a, b in v]
              for text, v in pe_us.items()}},
+        {"name": "viterbi_linear_tiles", "route": "cuda",
+         "source": "pagan2_tpu_torch/csrc/viterbi_linear.cu",
+         "replaces": "pagan2_tpu/align/viterbi_pallas.py:58",
+         "launches": path_launches["mito_path"]["linear_tiles"],
+         "max_abs_err": tiles_err, "ms": tiles_k_ms,
+         "plain_ms": tiles_plain_ms, "bound_ms": tiles_bound[0],
+         "bound_by": tiles_bound[1], "library_ms": None,
+         "timed_on": "mito_path's call, B, D, Lp = %d, %d, %d"
+                     % (B_mt, D_mt, Lp_mt),
+         "plan": linear_plan_text(VL, Lp_mt),
+         "us_per_diagonal": 1e3 * tiles_k_ms / D_mt,
+         "bound_whole_codes_ms": tiles_whole_ms,
+         "kernel_linear_tiles_ms": tiles_ms,
+         "pair_end_gate_ms": gate_a_ms,
+         "pair_end_gate_bound_ms": gate_a_bound[0],
+         "pair_end_gate_bound_whole_codes_ms": gate_a_bound[1],
+         "mito_path_wall_s": wall_mt, "mito_path_phases_s": mito_phases,
+         "launches_by_path": by_path("linear_tiles")},
         {"name": "viterbi_fanin", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_fanin.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_fanin.py:140",

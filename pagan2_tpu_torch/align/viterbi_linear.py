@@ -34,12 +34,20 @@ from .backtrack import _backtrack_arrays
 
 LAUNCHES = 0          # kernel A launches (one per linear_fill on CUDA)
 PAIR_END_LAUNCHES = 0  # those of them in the pair-end build
+TILE_LAUNCHES = 0     # those of them in the tiled build
 PLAIN_CALLS = 0       # linear_fill_plain calls made by linear_fill
 
 _BIG = np.int32(2 ** 30)     # "never valid" lower bound sentinel
 # kernel A's lane builds: rows a thread and the most rows each is planned
-# for; past the last, the global build
-LANES = ((1, 128), (2, 2048), (4, 4096))
+# for; past the last, the tiled build (on the H100 it beat the four rows
+# a thread that ran 2,049-4,096 rows by 12-37% on 8-pair batches there,
+# tools/bench_linear_calls.py --lanes)
+LANES = ((1, 128), (2, 2048))
+# the tiled build's tile, threads of two rows, in the ordinary and in the
+# pair-end build (tools/bench_linear_calls.py --giant --tiles); its
+# hand-off is released every 32 diagonals (CHUNK in csrc/viterbi_linear.cu)
+TILE_THREADS = 256
+PAIR_END_TILE_THREADS = 128
 
 
 def _add_scalar_params(inp):
@@ -234,39 +242,83 @@ def _block(lanes: int, rows: int) -> int:
     return -(-lanes // (rows * 32)) * 32
 
 
-def linear_plan(Lp: int) -> dict:
-    """How kernel A is launched on Lp rows:
+def linear_plan(Lp: int, pair_end: bool = False) -> dict:
+    """How kernel A is launched on Lp rows (in its pair-end build when
+    `pair_end`):
 
     - rows: rows a thread, each thread's rows consecutive, their M, X, Y
       in registers from one diagonal to the next (LANES: 1 up to 128
-      rows, 2 up to 2048, 4 up to 4096; on the H100, tools/
-      bench_linear_calls.py --lanes, one row a thread led at 64 and 128
-      rows, two from 256 to 2,048 and four past that); 0, the global
-      build (threads strided over the rows, three diagonals in a global
-      scratch), past 4096 rows or on rows that are not a whole number
-      of warps (no caller makes such a batch: batch_rows rounds up to a
-      warp);
+      rows, 2 up to 2048; on the H100, tools/bench_linear_calls.py
+      --lanes, one row a thread led at 64 and 128 rows, two from 256 to
+      2,048, and the tiled build past that);
     - threads: the block, whole warps, at most 1024;
-    - diagonals: where the diagonals live between steps, "registers"
-      (and a shared row of warp-edge values) or "global"."""
+    - diagonals: "registers", a lane build (one block a job; a shared
+      row of warp-edge values between warps), or "tiles", the tiled
+      build past 2048 rows and on rows that are not a whole number of
+      warps (no caller makes such a batch: batch_rows rounds up to a
+      warp): tiles of `threads` threads x 2 rows (TILE_THREADS, or
+      PAIR_END_TILE_THREADS in the pair-end build), many a job on many
+      SMs, each running only its live diagonals, the last row of a tile
+      handed to the next through device memory (tile_plan lists the
+      tiles)."""
     rows = next((r for r, top in LANES if Lp <= top), 0) \
         if Lp % 32 == 0 else 0
     if rows:
         return dict(rows=rows, threads=_block(Lp, rows),
                     diagonals="registers")
-    return dict(rows=0, threads=min(1024, _block(Lp, 1)),
-                diagonals="global")
+    return tiled_plan(PAIR_END_TILE_THREADS if pair_end else TILE_THREADS)
+
+
+def tiled_plan(threads: int) -> dict:
+    """The tiled build's plan: tiles of `threads` threads x 2 rows."""
+    return dict(rows=2, threads=threads, diagonals="tiles")
+
+
+def has_lane_build(plan, Lp: int, lanes=LANES) -> bool:
+    """Whether `plan` is a lane build on Lp rows: rows a thread of
+    `lanes` (kernel A's LANES, or kernel F's) in whole warps, the block
+    holding every row."""
+    rows, threads = plan["rows"], plan["threads"]
+    return rows in tuple(r for r, _top in lanes) and \
+        32 <= threads <= 1024 and threads % 32 == 0 and \
+        Lp % 32 == 0 and rows * threads >= Lp and \
+        plan["diagonals"] == "registers"
 
 
 def has_build(plan, Lp: int) -> bool:
-    """Whether the builds of kernels A and F (one, two or four rows a
-    thread in whole warps, or the global build) take `plan` on Lp
-    rows."""
-    rows, threads = plan["rows"], plan["threads"]
-    return rows in (0,) + tuple(r for r, _top in LANES) and \
-        32 <= threads <= 1024 and threads % 32 == 0 and \
-        not (rows and (Lp % 32 or rows * threads < Lp)) and \
-        plan["diagonals"] == ("registers" if rows else "global")
+    """Whether kernel A has a build for `plan` on Lp rows: a lane build,
+    or the tiled build (two rows a thread, tiles of whole warps up to
+    1024 threads) on any Lp."""
+    if plan["diagonals"] != "tiles":
+        return has_lane_build(plan, Lp)
+    threads = plan["threads"]
+    return set(plan) == {"rows", "threads", "diagonals"} and \
+        plan["rows"] == 2 and 32 <= threads <= 1024 and threads % 32 == 0
+
+
+def tile_plan(LR, Lp: int, D: int, threads: int) -> list:
+    """The tiled build's tiles for jobs of (L, R) = LR on Lp rows and D
+    diagonals, in the order blocks claim them (ticket t = job * ntiles +
+    tile, so a tile's predecessor has the ticket before it): per tile
+    its job and index, its rows [r0, r1], whether it is live (r0 <= L:
+    a cell of it has a source in the matrix), its live diagonals
+    (first, last) (None when not live), and whether it hands its last
+    row on (its successor is live)."""
+    rows = 2 * threads
+    ntiles = -(-Lp // rows)
+    out = []
+    for b, (L, R) in enumerate(LR):
+        for k in range(ntiles):
+            r0 = k * rows
+            r1 = min(r0 + rows, Lp) - 1
+            live = r0 <= L
+            out.append(dict(
+                ticket=b * ntiles + k, job=b, tile=k, rows=(r0, r1),
+                live=live,
+                diagonals=(max(r0, 1), min(D - 1, min(r1, L) + R))
+                if live else None,
+                feeds=k + 1 < ntiles and r0 + rows <= L))
+    return out
 
 
 def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
@@ -279,22 +331,30 @@ def _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
     if not has_build(plan, Lp):
         raise ValueError("kernel A has no build for the plan %s on %d rows"
                          % (plan, Lp))
+    tiled = plan["diagonals"] == "tiles"
     lib = kernels.load("viterbi_linear")
     fn = lib.viterbi_linear_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     codes = torch.empty((B, D, Lp), dtype=torch.uint8, device=ms.device)
     corner = torch.empty((B, 3), dtype=torch.float32, device=ms.device)
-    gbuf = None if rows else torch.empty(
-        (B, 9, Lp), dtype=torch.float32, device=ms.device)
+    edges = flags = None
+    if tiled:
+        # per ticket its last row's M, X, Y (and a pad) by column, at most
+        # D columns: 16 / (2 * threads) bytes a byte of codes
+        n = B * -(-Lp // (2 * threads))
+        edges = torch.empty((n, D, 4), dtype=torch.float32,
+                            device=ms.device)
+        flags = torch.empty(1 + n, dtype=torch.int32, device=ms.device)
     with torch.cuda.device(ms.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ms.data_ptr(), gexti.data_ptr(), ol.data_ptr(),
                  vlox.data_ptr(), vloy.data_ptr(), vhi.data_ptr(),
                  fscal.data_ptr(), iscal.data_ptr(), codes.data_ptr(),
-                 corner.data_ptr(), 0 if gbuf is None else gbuf.data_ptr(),
-                 B, D, Lp, rows, threads, int(bool(pair_end)), stream)
+                 corner.data_ptr(), 0 if edges is None else edges.data_ptr(),
+                 0 if flags is None else flags.data_ptr(), B, D, Lp, rows,
+                 threads, int(tiled), int(bool(pair_end)), stream)
     kernels.check(err, "viterbi_linear")
     return codes, corner
 
@@ -316,12 +376,13 @@ def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
     a tie, as that core does; its match score comes folded in that
     core's order (fold_shear).
 
-    On a CUDA tensor it launches kernel A as linear_plan(Lp) says; the
-    kernel refuses a plan it has no build for, and the wrapper raises on
-    any launch error. The inputs are linear_job_arrays' (rows >= L and
-    columns >= R never valid): kernel A skips the warps whose cells have
-    no source in the matrix on that rule."""
-    global LAUNCHES, PLAIN_CALLS, PAIR_END_LAUNCHES
+    On a CUDA tensor it launches kernel A as linear_plan(Lp, pair_end)
+    says; the kernel refuses a plan it has no build for, and the wrapper
+    raises on any launch error. The inputs are linear_job_arrays' (rows >= L and
+    columns >= R never valid): kernel A skips the warps (and the tiled
+    build the tiles and diagonals) whose cells have no source in the
+    matrix on that rule."""
+    global LAUNCHES, PLAIN_CALLS, PAIR_END_LAUNCHES, TILE_LAUNCHES
     B, D, Lp = _check_args(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal)
     if ms.device.type == "cpu":
         PLAIN_CALLS += 1
@@ -332,10 +393,12 @@ def linear_fill(ms, gexti, ol, vlox, vloy, vhi, fscal, iscal,
         pair_end = bool(pe.any())
         if pair_end != bool(pe.all()):
             raise ValueError("a kernel A batch of pair-end and other jobs")
-    out = _launch_linear(linear_plan(Lp), ms, gexti, ol, vlox, vloy, vhi,
-                         fscal, iscal, pair_end)
+    plan = linear_plan(Lp, pair_end)
+    out = _launch_linear(plan, ms, gexti, ol, vlox, vloy, vhi, fscal,
+                         iscal, pair_end)
     LAUNCHES += 1
     PAIR_END_LAUNCHES += bool(pair_end)
+    TILE_LAUNCHES += plan["diagonals"] == "tiles"
     return out
 
 

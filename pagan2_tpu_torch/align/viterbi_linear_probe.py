@@ -17,8 +17,8 @@ TPU. The probe's `vmem_mb` is a Mosaic VMEM limit with no CUDA
 counterpart and is not taken.
 
 Device rule: a CPU tensor takes the plain version; a CUDA tensor
-launches kernel F as probe_plan(Lp) (kernel A's launch plan) says, or
-raises.
+launches kernel F as probe_plan(Lp) (kernel A's lane plan up to 2048
+rows) says, or raises.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .viterbi_linear import has_build, linear_batch_args, linear_plan
+from .viterbi_linear import _block, has_lane_build, linear_batch_args
 
 # flag bits, as in the CUDA source
 NOBP, NOMS, NOMASK, NOCORNER, NOROLL = 1, 2, 4, 8, 16
@@ -41,6 +41,9 @@ PROBE_VARIANTS = ("base", "nobp", "noms", "nomask", "nocorner",
 BISECT_VARIANTS = ("full", "nobp", "noroll", "nomask", "nobp,noroll",
                    "nobp,noroll,nomask")
 PROBE_NEG = float("-inf")           # the probe's NEG (viterbi_sheared)
+# kernel F's lane builds: rows a thread and the most rows each is planned
+# for (kernel A's up to 2048 rows); past the last, F's global build
+PROBE_LANES = ((1, 128), (2, 2048), (4, 4096))
 BISECT_NEG = float(np.float32(-1e30))   # the bisect tool's own NEG
 
 # kernel F launches and plain-version calls, keyed "probe:<variant>" and
@@ -134,14 +137,30 @@ def _check_args(fscal, iscal, gexti, ol, vlo, vhi, ms, TD):
 
 
 def probe_plan(Lp: int) -> dict:
-    """How kernel F is launched on Lp rows: kernel A's plan
-    (viterbi_linear.linear_plan), so that F's flag sets split A's step
-    on the build A runs. rows: 1, 2 or 4 consecutive rows a thread, their
-    M, X, Y in registers (1 up to 128 rows, 2 up to 2048, 4 up to 4096);
-    0, the global build (threads strided over the rows, three diagonals
-    in a global scratch) past 4096 rows or on rows that are not a whole
-    number of warps; threads: the block."""
-    return linear_plan(Lp)
+    """How kernel F is launched on Lp rows: rows a thread from
+    PROBE_LANES (1, 2 or 4 consecutive rows, their M, X, Y in registers;
+    1 up to 128 rows, 2 up to 2048, 4 up to 4096: up to 2048 rows kernel
+    A's plan, so that F's flag sets split A's step on the build A runs);
+    0, F's global build (threads strided over the rows, three diagonals
+    in a global scratch), past 4096 rows or on rows that are not a whole
+    number of warps; threads: the block. Kernel A runs its tiled build
+    past 2048 rows; F has none."""
+    rows = next((r for r, top in PROBE_LANES if Lp <= top), 0) \
+        if Lp % 32 == 0 else 0
+    if rows:
+        return dict(rows=rows, threads=_block(Lp, rows),
+                    diagonals="registers")
+    return dict(rows=0, threads=min(1024, _block(Lp, 1)),
+                diagonals="global")
+
+
+def has_build(plan, Lp: int) -> bool:
+    """Whether kernel F has a build for `plan` on Lp rows: a lane build
+    of PROBE_LANES, or its global build."""
+    if plan["diagonals"] == "global":
+        return plan["rows"] == 0 and 32 <= plan["threads"] <= 1024 and \
+            plan["threads"] % 32 == 0
+    return has_lane_build(plan, Lp, PROBE_LANES)
 
 
 def _launch(plan, entry, key, flags, neg, fscal, iscal, gexti, ol, vlo,

@@ -72,9 +72,11 @@
 // warps): one block per job, threads strided over the rows, the three
 // diagonals of M/X/Y in a global scratch (B, 9, Lp) resident in L2.
 //
-// The launch plan is kernel A's (align/viterbi_linear.py::linear_plan,
-// through viterbi_linear_probe.probe_plan); the kernel takes only a plan
-// it has a build for and refuses any other.
+// The launch plan is viterbi_linear_probe.probe_plan: kernel A's lane
+// plan up to 2048 rows, then four rows a thread up to 4096 and the
+// global build past that (kernel A runs its tiled build past 2048 rows,
+// which F does not have); the kernel takes only a plan it has a build
+// for and refuses any other.
 //
 // What bounds it on an H100: the same serial chain of Dpk dependent
 // diagonals as kernel A, each ending in a block barrier, B blocks on 132

@@ -15,7 +15,9 @@ the sum of each source's calls.
     python -m pagan2_tpu_torch.tools.bench_linear_calls [--device cpu --small]
     python pagan2_tpu_torch/tools/bench_linear_calls.py --root DIR [--save OUT]
     python pagan2_tpu_torch/tools/bench_linear_calls.py --check OUT
-    python pagan2_tpu_torch/tools/bench_linear_calls.py --lanes
+    python pagan2_tpu_torch/tools/bench_linear_calls.py --lanes [--tiles T,...]
+    python pagan2_tpu_torch/tools/bench_linear_calls.py --giant [--root DIR]
+        [--save OUT | --check OUT] [--tiles T,...]
 
 Run as a file, --root times the pagan2_tpu_torch package of the
 checkout DIR instead of this one, so that two versions of the kernel
@@ -26,9 +28,19 @@ OUT; --check holds this run's bit for bit against them
 
 --lanes (a card only) times kernel A's builds instead: on a batch of 8
 pairs at each row count of LANE_ROWS (32 to 4,096), every build that
-can take it (lane_plans: 1, 2 and 4 rows a thread, and the global
-build) is launched, held bit for bit against the build its plan names,
-and timed; each line marks the plan's own.
+can take it (lane_plans: 1 and 2 rows a thread, and the tiled build)
+is launched, held bit for bit against the build its plan names, and
+timed; each line marks the plan's own.
+
+--giant replays kernel A's calls past 4,096 rows instead, each in its
+ordinary and its pair-end build (giant_batches: chip_smoke.py's gate
+pair, 65,535 bp against a 1,023 bp read of it; a 16,569 bp pair, the
+length of a human mitochondrion; the global batch of linear_batches),
+with --root, --save and --check as above.
+
+--tiles T,... (with --lanes or --giant, this checkout's tiled build)
+also launches the tiled build at each tile of T threads x 2 rows on
+each batch, held bit for bit against the plan's build and timed.
 """
 from __future__ import annotations
 
@@ -48,6 +60,9 @@ LANE_ROWS = (32, 64, 128, 256, 512, 768, 1024, 1536, 2048, 2560, 3072,
 # --lanes: seconds of untimed launches on the first batch before
 # anything is timed
 WARM_UP_S = 1.0
+# --giant: timed launches a call after the first (a parent's global
+# build took ~4.2 s a launch at the gate)
+GIANT_REPS = 3
 
 
 def linear_batches(rng, model, settings, small=False):
@@ -98,6 +113,68 @@ def linear_batches(rng, model, settings, small=False):
         inps.append(prep("".join(base), mutate(base[n // 3: n // 3 + m])))
     out.append(("%d rows" % big[0][0], inps, [None] * len(big)))
     return out
+
+
+def giant_pairs(small=False):
+    """--giant's pairs as (name, left, right) sequences: chip_smoke.py's
+    gate pair (default_rng(65536): a 65,535 bp sequence against a
+    1,023 bp read of it at 20,000 with 10% of its sites redrawn) and a
+    16,569 bp pair, the length of a human mitochondrion
+    (default_rng(16569): a sequence and a copy with 10% of its sites
+    redrawn). small: 600 x 100 and 300 x 300 (for the CPU)."""
+    import numpy as np
+
+    def mutate(rng, base):
+        mut = base.copy()
+        idx = rng.random(len(base)) < 0.1
+        mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+        return "".join(mut)
+
+    (gl, gr, g0), mito = ((600, 100, 200), 300) if small else \
+        ((65535, 1023, 20000), 16569)
+    rng = np.random.default_rng(65536)
+    gate = rng.choice(list("ACGT"), size=gl)
+    read = mutate(rng, gate[g0:g0 + gr])
+    rng = np.random.default_rng(16569)
+    base = rng.choice(list("ACGT"), size=mito)
+    return [("gate %dx%d" % (gl, gr), "".join(gate), read),
+            ("pair %d" % mito, "".join(base), mutate(rng, base))]
+
+
+def giant_batches(model, settings, small=False):
+    """--giant's batches, each in the ordinary and then the pair-end
+    build (every job pair-end with no break column, the reference's
+    scan-core rule): the two giant_pairs, one job each, and the global
+    batch of linear_batches (default_rng(11)). Yields (name, inputs,
+    bands) one at a time, so that a gate batch's inputs (17.4 GB of
+    match scores on the card) leave before the next is made."""
+    import numpy as np
+    from pagan2_tpu_torch.align.viterbi_linear import _add_scalar_params
+    from pagan2_tpu_torch.align.viterbi_sheared import prepare_sheared
+    from pagan2_tpu_torch.graph import build_leaf_graph
+    from pagan2_tpu_torch.models import alphabets as alph
+
+    def prep(s1, s2, pe):
+        inp = prepare_sheared(build_leaf_graph(s1, alph.DNA),
+                              build_leaf_graph(s2, alph.DNA), model,
+                              settings, np.float32)
+        if pe:
+            inp["pair_end"], inp["jbrk"] = True, -1
+        return _add_scalar_params(inp)
+
+    big = linear_batches(np.random.default_rng(11), model, settings,
+                         small)[2]
+    for name, s1, s2 in giant_pairs(small):
+        for pe in (False, True):
+            yield (name + (" pair-end" if pe else ""), [prep(s1, s2, pe)],
+                   [None])
+    for pe in (False, True):
+        inps = [dict(x) for x in big[1]]
+        if pe:
+            for x in inps:
+                x["pair_end"], x["jbrk"] = True, -1
+                _add_scalar_params(x)
+        yield big[0] + (" pair-end" if pe else ""), inps, big[2]
 
 
 def pair_end_batches(model, small=False):
@@ -158,16 +235,33 @@ def batch_args(VL, inps, bands, dev):
         dev)
 
 
-def plan_text(VL, Lp):
+def own_plan(VL, Lp, pair_end=False):
+    """Kernel A's launch plan on Lp rows in the ordinary or the pair-end
+    build (a package whose plan does not depend on the build: its one
+    plan)."""
+    if hasattr(VL, "PAIR_END_TILE_THREADS"):
+        return VL.linear_plan(Lp, pair_end)
+    return VL.linear_plan(Lp)
+
+
+def plan_text(VL, Lp, pair_end=False):
     """Kernel A's launch plan on Lp rows as text ("" for a package
     without linear_plan: the parent of the lane builds)."""
     if not hasattr(VL, "linear_plan"):
         return ""
-    return build_text(VL.linear_plan(Lp))
+    return build_text(own_plan(VL, Lp, pair_end))
+
+
+def call_pair_end(kw):
+    """Whether linear_fill takes its pair-end build on the call kw."""
+    pe = kw.get("pair_end")
+    return bool((kw["iscal"][:, 3] != 0).any()) if pe is None else bool(pe)
 
 
 def build_text(p):
     """One of kernel A's builds as text."""
+    if p.get("diagonals") == "tiles":
+        return "tiles of %d threads x 2 rows (tiled build)" % p["threads"]
     if p["rows"]:
         return "%d threads x %d rows, diagonals in registers" % (
             p["threads"], p["rows"])
@@ -175,21 +269,72 @@ def build_text(p):
         % p["threads"]
 
 
-def lane_plans(VL, Lp):
+def lane_plans(VL, Lp, tiles=(), pair_end=False):
     """Every build of kernel A that can take Lp rows, as [(label, plan)],
-    the plan's own first: 1, 2 and 4 rows a thread where the block holds
-    Lp rows in at most 1024 threads (Lp a whole number of warps), and
-    the global build."""
-    own = VL.linear_plan(Lp)
+    the plan's own (in the ordinary or the pair-end build) first: each
+    lane build of LANES where the block holds Lp rows in at most 1024
+    threads (Lp a whole number of warps), and the tiled build at the
+    ordinary and the pair-end build's tiles and at each tile threads of
+    `tiles` (a package without it: the global build)."""
+    own = own_plan(VL, Lp, pair_end)
     cands = []
     if Lp % 32 == 0:
         cands = [dict(rows=r, threads=VL._block(Lp, r),
                       diagonals="registers") for r, _top in VL.LANES
                  if VL._block(Lp, r) <= 1024]
-    cands.append(dict(rows=0, threads=min(1024, VL._block(Lp, 1)),
-                      diagonals="global"))
+    if hasattr(VL, "tiled_plan"):
+        cands += [VL.tiled_plan(t) for t in
+                  [VL.TILE_THREADS, VL.PAIR_END_TILE_THREADS] + list(tiles)]
+    else:
+        cands.append(dict(rows=0, threads=min(1024, VL._block(Lp, 1)),
+                          diagonals="global"))
     cands = [own] + [c for c in cands if c != own]
-    return [(build_text(p), p) for p in cands]
+    out = []
+    for p in cands:
+        if p not in [q for _t, q in out]:
+            out.append((build_text(p), p))
+    return out
+
+
+def tile_sweep(text):
+    """--tiles: "T,T,..." as [threads]."""
+    return [int(t) for t in text.split(",")]
+
+
+def time_builds(torch, VL, kw, source, plans, warm):
+    """Each of `plans` ([(label, plan)], the plan's own first) launched
+    on kw, held bit for bit against the first and timed (CUDA events,
+    REPS launches); `warm`: seconds of untimed launches of the plan's
+    own build first. Returns the runs."""
+    B, D, Lp = kw["ms"].shape
+    t = time.perf_counter()
+    while time.perf_counter() - t < warm:
+        # the card's clocks up before the first timing
+        VL._launch_linear(plans[0][1], **kw)
+        torch.cuda.synchronize()
+    runs, ref = [], None
+    for k, (text, plan) in enumerate(plans):
+        out = VL._launch_linear(plan, **kw)
+        torch.cuda.synchronize()
+        if ref is None:
+            ref, same = out, True
+        else:
+            same = torch.equal(out[0], ref[0]) and torch.equal(
+                out[1].view(torch.int32), ref[1].view(torch.int32))
+        del out
+        ms = replay.time_call(
+            torch, lambda p=plan: VL._launch_linear(p, **kw), {},
+            replay.REPS)
+        runs.append(dict(source=source, B=B, D=D, Lp=Lp, build=text,
+                         rows=plan["rows"], plan=k == 0, ms=ms,
+                         us_per_diagonal=1e3 * ms / D, same=same))
+        print("%-8s B %d, D %d, Lp %d: %-50s %9.4f ms, %.4f us per "
+              "diagonal%s%s" % (source, B, D, Lp, text, ms, 1e3 * ms / D,
+                                " (plan)" if k == 0 else "",
+                                "" if same else
+                                ", DIFFERS from the plan's build"),
+              flush=True)
+    return runs
 
 
 def time_lanes(args, torch, VL, common):
@@ -200,35 +345,49 @@ def time_lanes(args, torch, VL, common):
     for Lp in LANE_ROWS:
         inps, _cells = common.pair_jobs(8, Lp - 1)
         kw = batch_args(VL, inps, [None] * len(inps), args.device)
-        B, D, _Lp = kw["ms"].shape
-        t = time.perf_counter()
-        while not runs and time.perf_counter() - t < WARM_UP_S:
-            # the card's clocks up before the first timing
-            VL.linear_fill(**kw)
-            torch.cuda.synchronize()
-        ref = None
-        for k, (text, plan) in enumerate(lane_plans(VL, Lp)):
-            out = VL._launch_linear(plan, **kw)
-            torch.cuda.synchronize()
-            if ref is None:
-                ref, same = out, True
-            else:
-                same = torch.equal(out[0], ref[0]) and torch.equal(
-                    out[1].view(torch.int32), ref[1].view(torch.int32))
-            ms = replay.time_call(
-                torch, lambda p=plan: VL._launch_linear(p, **kw), {},
-                replay.REPS)
-            runs.append(dict(source="8x%d" % (Lp - 1), B=B, D=D, Lp=Lp,
-                             build=text, rows=plan["rows"], plan=k == 0,
-                             ms=ms, us_per_diagonal=1e3 * ms / D,
-                             same=same))
-            print("%-8s B %d, D %d, Lp %d: %-50s %9.4f ms, %.4f us per "
-                  "diagonal%s%s" % (runs[-1]["source"], B, D, Lp, text, ms,
-                                    1e3 * ms / D,
-                                    " (plan)" if k == 0 else "",
-                                    "" if same else
-                                    ", DIFFERS from the plan's build"),
-                  flush=True)
+        runs += time_builds(torch, VL, kw, "8x%d" % (Lp - 1),
+                            lane_plans(VL, Lp, args.tiles),
+                            0.0 if runs else WARM_UP_S)
+    return runs
+
+
+def time_giant(args, torch, dev, root, VL):
+    """--giant: giant_batches through linear_fill (replayed: digests
+    saved or checked, then timed), and with --tiles every tiled build of
+    the sweep on the same inputs."""
+    from pagan2_tpu_torch.align import AlignSettings
+    from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
+    model = ModelFactory(alph.DNA).alignment_model(0.2)
+    names, sweeps = [], []
+
+    def calls():
+        for name, inps, bands in giant_batches(model, AlignSettings(),
+                                               args.small):
+            names.append(name)
+            yield VL.linear_fill, batch_args(VL, inps, bands, dev), \
+                GIANT_REPS
+    runs = []
+    for k, kw, ms, same in replay.replay(args, torch, dev, "linear_giant",
+                                         calls()):
+        B, D, Lp = kw["ms"].shape
+        pe = call_pair_end(kw)
+        rec = dict(source=names[k], B=B, D=D, Lp=Lp,
+                   plan=plan_text(VL, Lp, pe), ms=ms,
+                   us_per_diagonal=1e3 * ms / D, same=same)
+        runs.append(rec)
+        print("%-22s B %d, D %d, Lp %d: %9.4f ms, %.4f us per diagonal%s%s"
+              % (rec["source"], B, D, Lp, ms, rec["us_per_diagonal"],
+                 "; " + rec["plan"] if rec["plan"] else "",
+                 replay.same_text(same)), flush=True)
+        if args.tiles:
+            own = own_plan(VL, Lp, pe)
+            plans = [(build_text(own), own)] + [
+                (build_text(p), p) for p in
+                (VL.tiled_plan(t) for t in args.tiles) if p != own]
+            sweeps += time_builds(torch, VL, kw, names[k], plans, 0.0)
+        del kw
+    if sweeps and not all(r["same"] for r in sweeps):
+        raise SystemExit("a tiled build differs from the plan's")
     return runs
 
 
@@ -255,9 +414,18 @@ def main(argv=None):
     p.add_argument("--lanes", action="store_true",
                    help="time kernel A's builds on LANE_ROWS' batches (a "
                         "card only)")
+    p.add_argument("--giant", action="store_true",
+                   help="replay kernel A's calls past 4,096 rows "
+                        "(giant_batches)")
+    p.add_argument("--tiles", type=tile_sweep, default=[],
+                   help="with --lanes or --giant: also the tiled build at "
+                        "each T (tile threads), a card only")
     args = p.parse_args(argv)
-    if args.lanes and args.device != "cuda":
-        raise SystemExit("--lanes launches kernel A's builds: a card only")
+    if (args.lanes or args.tiles) and args.device != "cuda":
+        raise SystemExit("--lanes and --tiles launch kernel A's builds: a "
+                         "card only")
+    if args.tiles and not (args.lanes or args.giant):
+        raise SystemExit("--tiles goes with --lanes or --giant")
     torch, dev, root = replay.start(args)
     import numpy as np
     from pagan2_tpu_torch import cli as CLI
@@ -272,6 +440,10 @@ def main(argv=None):
             raise SystemExit("a build differs from the plan's")
         return replay.finish(args, torch, dev, root, runs,
                              ("source", "build"))
+    if args.giant:
+        return replay.finish(args, torch, dev, root,
+                             time_giant(args, torch, dev, root, VL),
+                             ("source",))
 
     seqs, tree = family(*((4, 200) if args.small else (16, 1535)))
     calls = [(run, kw) for run, flags in (("main", ()), (
@@ -293,7 +465,7 @@ def main(argv=None):
             [(VL.linear_fill, kw, replay.REPS) for _w, kw in calls]):
         B, D, Lp = kw["ms"].shape
         rec = dict(source=calls[k][0], B=B, D=D, Lp=Lp,
-                   plan=plan_text(VL, Lp), ms=ms,
+                   plan=plan_text(VL, Lp, call_pair_end(kw)), ms=ms,
                    us_per_diagonal=1e3 * ms / D, same=same)
         runs.append(rec)
         print("%-14s B %d, D %d, Lp %d: %9.4f ms, %.4f us per diagonal%s%s"

@@ -66,11 +66,13 @@ def test_linear_batches_draw_chip_smokes_kinds():
 
 @pytest.mark.parametrize("Lp,builds", [
     (32, 4), (128, 4), (512, 4), (1024, 4), (1536, 3), (2048, 3),
-    (3072, 2), (4096, 2), (4128, 1), (100, 1)])
+    (3072, 2), (4096, 2), (4128, 2), (100, 2)])
 def test_lane_plans_list_every_build_once_the_plans_first(Lp, builds):
     """--lanes: kernel A's builds that can take Lp rows, the plan's own
     first, each once, each with enough rows in a block of at most 1024
-    threads of whole warps."""
+    threads of whole warps, or the tiled build at its ordinary and its
+    pair-end build's tiles; in the pair-end build the plan's own comes
+    first."""
     got = blc.lane_plans(tl, Lp)
     plans = [p for _t, p in got]
     assert plans[0] == tl.linear_plan(Lp) and len(plans) == builds
@@ -78,10 +80,62 @@ def test_lane_plans_list_every_build_once_the_plans_first(Lp, builds):
     assert plans.count(tl.linear_plan(Lp)) == 1
     for p in plans:
         assert p["threads"] % 32 == 0 and p["threads"] <= 1024
-        if p["rows"]:
+        assert tl.has_build(p, Lp)
+        if p["diagonals"] == "registers":
             assert p["rows"] * p["threads"] >= Lp and Lp % 32 == 0
         else:
-            assert p["diagonals"] == "global"
+            assert p in (tl.tiled_plan(tl.TILE_THREADS),
+                         tl.tiled_plan(tl.PAIR_END_TILE_THREADS))
+    got = [p for _t, p in blc.lane_plans(tl, Lp, pair_end=True)]
+    assert got[0] == tl.linear_plan(Lp, pair_end=True)
+    assert sorted(map(str, got)) == sorted(map(str, plans))
+
+
+def test_lane_plans_add_the_tile_sweep():
+    """--tiles T,...: each tiled build of the sweep once after the
+    plan's builds, the builds' own tiles not repeated."""
+    sweep = blc.tile_sweep("128,256,512")
+    assert sweep == [128, 256, 512]
+    plans = [p for _t, p in blc.lane_plans(tl, 4128, sweep)]
+    assert plans == [tl.tiled_plan(256), tl.tiled_plan(128),
+                     tl.tiled_plan(512)]
+    plans = [p for _t, p in blc.lane_plans(tl, 4128, sweep, True)]
+    assert plans == [tl.tiled_plan(128), tl.tiled_plan(256),
+                     tl.tiled_plan(512)]
+    plans = [p for _t, p in blc.lane_plans(tl, 2048, sweep)]
+    assert len(plans) == 1 + 3 and plans[0] == tl.linear_plan(2048)
+
+
+def test_bench_linear_calls_giant_runs_and_checks_on_cpu(tmp_path):
+    """--giant at its small size: the gate pair, the mitochondrial-length
+    pair and the global batch, each in its ordinary and its pair-end
+    build, then held bit for bit against the outputs the first run
+    saved; --tiles wants a card."""
+    first = blc.main(["--device", "cpu", "--small", "--giant", "--save",
+                      str(tmp_path)])
+    names = ["gate 600x100", "pair 300", "300 rows"]
+    assert [r["source"] for r in first] == [
+        n + s for n in names for s in ("", " pair-end")]
+    assert all(r["ms"] > 0 and r["same"] is None for r in first)
+    again = blc.main(["--device", "cpu", "--small", "--giant", "--check",
+                      str(tmp_path)])
+    assert all(r["same"] for r in again)
+    with pytest.raises(SystemExit, match="card only"):
+        blc.main(["--device", "cpu", "--giant", "--tiles", "256"])
+
+
+def test_giant_pairs_keep_chip_smokes_gate_pair():
+    """The gate pair is chip_smoke.py's (default_rng(65536), its 1,023
+    bp read at 20,000 with 10% of its sites redrawn); the second pair
+    is 16,569 bp."""
+    (gname, gate, read), (pname, left, right) = blc.giant_pairs()
+    assert (len(gate), len(read)) == (65535, 1023)
+    rng = np.random.default_rng(65536)
+    base = rng.choice(list("ACGT"), size=65535)
+    assert gate == "".join(base)
+    same = np.array(list(read)) == base[20000:21023]
+    assert 0.85 < same.mean() < 0.95
+    assert len(left) == len(right) == 16569 and left != right
 
 
 def test_bench_linear_calls_lanes_needs_a_card():

@@ -54,16 +54,29 @@ def _bits(t):
 
 # kernel A's batches: left sides, whether the right sides are cut short
 # (keeps the plain version quick), whether each job has a band, and the
-# rows a thread its plan must take (0: the global build)
+# build its plan must take (rows a thread of a lane build, or "tiles")
 LINEAR_CASES = {
     "rows1": ([70], False, False, 1),
     "rows1_batch": ([100, 57, 29], False, False, 1),
     "rows2": ([1100, 700], False, False, 2),
-    "rows4": ([3000], True, False, 4),
-    "global": ([4200], True, False, 0),
+    # 3,008 rows: four rows a thread until the tiled build took them
+    "rows4": ([3000], True, False, "tiles"),
+    "global": ([4200], True, False, "tiles"),
     "ragged": ([520, 90, 260], False, False, 2),
     "banded": ([600, 450], False, True, 2),
 }
+
+
+def _build(plan):
+    return plan["rows"] if plan["diagonals"] == "registers" else "tiles"
+
+
+def _tiled(rows):
+    """The plan of a build by its rows a thread (0: the tiled build at
+    its default tile)."""
+    return lambda Lp: dict(rows=rows, threads=tl._block(Lp, rows),
+                           diagonals="registers") if rows else \
+        tl.tiled_plan(tl.TILE_THREADS)
 
 
 def _linear_case(case, dev):
@@ -93,11 +106,11 @@ def _linear_case(case, dev):
 def test_linear_kernel_matches_plain(cuda, case):
     """Kernel A against linear_fill_plain on the whole (B, D, Lp) codes
     array and the corner bits, on a batch that takes each build of its
-    plan (one, two and four rows a thread; the global build past 4096
-    rows), a ragged batch (rows past a short job's L: skipped warps)
+    plan (one and two rows a thread; the tiled build past 2048 rows), a
+    ragged batch (rows past a short job's L: skipped warps)
     and a banded one."""
     args = _linear_case(case, cuda)
-    assert tl.linear_plan(args["ms"].shape[2])["rows"] \
+    assert _build(tl.linear_plan(args["ms"].shape[2])) \
         == LINEAR_CASES[case][3]
     n0 = tl.LAUNCHES
     codes, corner = tl.linear_fill(**args)
@@ -108,41 +121,56 @@ def test_linear_kernel_matches_plain(cuda, case):
     assert torch.equal(_bits(corner), _bits(pk))
 
 
-@pytest.mark.parametrize("rows", [1, 2, 4, 0])
+@pytest.mark.parametrize("rows", [1, 2, 0])
 def test_linear_every_build_matches_plain(cuda, rows):
-    """Each build of kernel A, launched on one ragged banded batch (Lp
-    544) whatever its plan says, against linear_fill_plain."""
+    """Each build of kernel A (0: the tiled build), launched on one
+    ragged banded batch (Lp 544) whatever its plan says, against
+    linear_fill_plain."""
     args = _linear_case("ragged", cuda)
     Lp = args["ms"].shape[2]
-    plan = dict(rows=rows, threads=tl._block(Lp, rows or 1),
-                diagonals="registers" if rows else "global")
-    codes, corner = tl._launch_linear(plan, **args)
+    codes, corner = tl._launch_linear(_tiled(rows)(Lp), **args)
     pc, pk = tl.linear_fill_plain(**args)
     torch.cuda.synchronize()
     assert torch.equal(codes, pc)
     assert torch.equal(_bits(corner), _bits(pk))
 
 
-@pytest.mark.parametrize("rows,threads", [(3, 192), (2, 128), (1, 2048),
-                                          (4, 100)])
-def test_linear_kernel_refuses_plans_it_has_no_build_for(cuda, rows,
-                                                         threads):
-    """The kernel's own launcher (past the wrapper's check) refuses a
-    plan it has no build for: cudaErrorInvalidValue, nothing launched."""
+def _raw_launch(args, codes, corner, rows, threads, tiled, edges=None,
+                flags=None):
+    """viterbi_linear_launch called past the wrapper's check."""
     import ctypes
     from pagan2_tpu_torch import kernels
-    args = _linear_case("ragged", cuda)       # Lp 544
     B, D, Lp = args["ms"].shape
     fn = kernels.load("viterbi_linear").viterbi_linear_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
-    codes = torch.zeros((B, D, Lp), dtype=torch.uint8, device=cuda)
-    corner = torch.zeros((B, 3), device=cuda)
     ins = [args[k].data_ptr() for k in ("ms", "gexti", "ol", "vlox",
                                          "vloy", "vhi", "fscal", "iscal")]
-    err = fn(*ins, codes.data_ptr(), corner.data_ptr(), 0, B, D, Lp, rows,
-             threads, 0, torch.cuda.current_stream().cuda_stream)
+    return fn(*ins, codes.data_ptr(), corner.data_ptr(),
+              0 if edges is None else edges.data_ptr(),
+              0 if flags is None else flags.data_ptr(), B, D, Lp, rows,
+              threads, tiled, 0, torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.parametrize("rows,threads,tiled", [
+    (3, 192, 0), (2, 128, 0), (1, 2048, 0), (4, 100, 0), (0, 1024, 0),
+    (4, 160, 0), (4, 256, 1), (2, 48, 1), (2, 16, 1), (2, 2048, 1)])
+def test_linear_kernel_refuses_plans_it_has_no_build_for(cuda, rows,
+                                                         threads, tiled):
+    """The kernel's own launcher (past the wrapper's check) refuses a
+    plan it has no build for: cudaErrorInvalidValue, nothing launched
+    (rows 0, the global build, and four rows a thread are gone; the
+    tiled build takes two rows a thread in tiles of whole warps up to
+    1024 threads)."""
+    args = _linear_case("ragged", cuda)       # Lp 544
+    B, D, Lp = args["ms"].shape
+    codes = torch.zeros((B, D, Lp), dtype=torch.uint8, device=cuda)
+    corner = torch.zeros((B, 3), device=cuda)
+    edges = torch.zeros((B * 2, D, 4), device=cuda)
+    flags = torch.zeros(1 + B * 2, dtype=torch.int32, device=cuda)
+    err = _raw_launch(args, codes, corner, rows, threads, tiled, edges,
+                      flags)
     torch.cuda.synchronize()
     assert err == 1                  # cudaErrorInvalidValue
     assert not bool(codes.any())
@@ -154,20 +182,18 @@ def _pair_end_batches():
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["reduced", "full"])
-@pytest.mark.parametrize("rows", [1, 2, 4, 0])
+@pytest.mark.parametrize("rows", [1, 2, 0])
 def test_linear_pair_end_build_matches_plain(cuda, which, rows):
-    """Kernel A's pair-end build, each build of its plan forced on one
-    ragged batch of pair-end jobs (break columns 0, 1, mid, R - 2,
-    R - 1 and none; with and without reduced terminal penalties),
-    against linear_fill_plain: codes and corner bit-equal."""
+    """Kernel A's pair-end build, each build of its plan forced (0: the
+    tiled build) on one ragged batch of pair-end jobs (break columns 0,
+    1, mid, R - 2, R - 1 and none; with and without reduced terminal
+    penalties), against linear_fill_plain: codes and corner bit-equal."""
     from pagan2_tpu_torch.tools.bench_linear_calls import batch_args
     _what, inps = _pair_end_batches()[which]
     args = batch_args(tl, inps, [None] * len(inps), cuda)
     assert args["pair_end"]
     Lp = args["ms"].shape[2]
-    plan = dict(rows=rows, threads=tl._block(Lp, rows or 1),
-                diagonals="registers" if rows else "global")
-    codes, corner = tl._launch_linear(plan, **args)
+    codes, corner = tl._launch_linear(_tiled(rows)(Lp), **args)
     pc, pk = tl.linear_fill_plain(**args)
     torch.cuda.synchronize()
     assert torch.equal(codes, pc)
@@ -176,19 +202,132 @@ def test_linear_pair_end_build_matches_plain(cuda, which, rows):
 
 
 def test_linear_pair_end_global_plan_matches_plain(cuda):
-    """Pair-end jobs past 4096 rows: the plan's global build, through
+    """Pair-end jobs past 4096 rows: the plan's tiled build, through
     linear_fill, against linear_fill_plain."""
     from pagan2_tpu_torch.tools.bench_linear_calls import batch_args
     _what, inps = _pair_end_batches()[2]
     args = batch_args(tl, inps, [None] * len(inps), cuda)
-    assert tl.linear_plan(args["ms"].shape[2])["rows"] == 0
-    n0 = tl.LAUNCHES
+    assert tl.linear_plan(args["ms"].shape[2], pair_end=True) == \
+        tl.tiled_plan(tl.PAIR_END_TILE_THREADS)
+    n0, t0 = tl.LAUNCHES, tl.TILE_LAUNCHES
     codes, corner = tl.linear_fill(**args)
     pc, pk = tl.linear_fill_plain(**args)
     torch.cuda.synchronize()
-    assert tl.LAUNCHES == n0 + 1
+    assert tl.LAUNCHES == n0 + 1 and tl.TILE_LAUNCHES == t0 + 1
     assert torch.equal(codes, pc)
     assert torch.equal(_bits(corner), _bits(pk))
+
+
+# kernel A's tiled build: (left, right) sites of each job (right None: a
+# copy of the left side cut by 3 with 10% of its sites redrawn), the
+# band half-width, Lp (None: batch_rows), pair-end break columns (None:
+# the ordinary build)
+TILED_CASES = {
+    "rows_4200": ([(4200, 1000)], None, None, None),
+    "ragged_4100_9000_5000": ([(4100, 300), (9000, 300), (5000, 300)],
+                              None, None, None),
+    "banded_12000x700": ([(12000, 700)], 40, None, None),
+    "square_6000": ([(6000, None)], None, None, None),
+    # 4,416 rows: eight tiles of 512 and one of 320
+    "partial_last_tile": ([(4400, 300)], None, None, None),
+    # 4,501 rows: not a whole number of warps, odd (no vector loads)
+    "odd_rows": ([(4500, 200), (3000, 150)], None, 4501, None),
+    "pair_end_breaks": ([(4300, 200), (5000, 150), (4200, 120)], None,
+                        None, (0, "mid", "R-1")),
+}
+
+
+def _tiled_args(case, dev):
+    from dataclasses import replace
+    pairs, w, Lp, breaks = TILED_CASES[case]
+    rng = np.random.default_rng(100 + list(TILED_CASES).index(case))
+    inps, bands = [], []
+    for q, (n, m) in enumerate(pairs):
+        base = rng.choice(list("ACGT"), size=n)
+        mut = base.copy()
+        idx = rng.random(n) < 0.1
+        mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+        right = "".join(mut[3:]) if m is None else "".join(mut[:m])
+        s = AlignSettings()
+        if breaks is not None:
+            R = len(right) + 1
+            y = {"mid": R // 2, "R-1": R - 1}.get(breaks[q], breaks[q])
+            s = replace(s, pair_end_reads=True, y_read1_length=y)
+        inp = tl._add_scalar_params(prepare_sheared(
+            build_leaf_graph("".join(base), alph.DNA),
+            build_leaf_graph(right, alph.DNA), MODEL, s, np.float32))
+        inps.append(inp)
+        band = None
+        if w is not None:
+            c = np.arange(inp["L"]) * inp["R"] // inp["L"]
+            band = (np.maximum(c - w, 0), np.minimum(c + w, inp["R"] - 1))
+        bands.append(band)
+    Lp = Lp or tl.batch_rows(inps)
+    return tl.linear_batch_args([tl.linear_job_arrays(x, Lp, band=b)
+                                 for x, b in zip(inps, bands)], dev)
+
+
+@pytest.mark.parametrize("case", list(TILED_CASES))
+def test_linear_tiled_build_matches_plain(cuda, case):
+    """Kernel A's tiled build through linear_fill (its plan's build past
+    2048 rows) against linear_fill_plain: codes torch.equal, corners
+    bit-equal."""
+    args = _tiled_args(case, cuda)
+    assert tl.linear_plan(args["ms"].shape[2],
+                          args["pair_end"])["diagonals"] == "tiles"
+    assert args["pair_end"] == (TILED_CASES[case][3] is not None)
+    n0 = tl.TILE_LAUNCHES
+    codes, corner = tl.linear_fill(**args)
+    pc, pk = tl.linear_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert tl.TILE_LAUNCHES == n0 + 1
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
+    assert bool(torch.isfinite(corner).any(dim=1).all())
+
+
+@pytest.mark.parametrize("threads", [32, 64, 96, 128, 160, 256, 512,
+                                     1024])
+def test_linear_every_tile_matches_plain(cuda, threads):
+    """The tiled build at every tile the bench's sweep takes
+    (tools/bench_linear_calls.py --tiles: whole warps up to 1024
+    threads), forced on one ragged batch of pair-end jobs, against
+    linear_fill_plain."""
+    args = _tiled_args("pair_end_breaks", cuda)
+    codes, corner = tl._launch_linear(tl.tiled_plan(threads), **args)
+    pc, pk = tl.linear_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, pc)
+    assert torch.equal(_bits(corner), _bits(pk))
+
+
+def test_linear_tiled_build_repeats_itself(cuda):
+    """The guard against a race in the hand-off: an 8,000 x 8,000 pair
+    (16 tiles of 512 rows, 32 of 256 or 63 of 128, most of them in
+    flight together) launched twice at each of three tiles gives the
+    same codes and corner every time."""
+    rng = np.random.default_rng(8000)
+    base = rng.choice(list("ACGT"), size=8000)
+    mut = base.copy()
+    idx = rng.random(8000) < 0.1
+    mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
+    inp = tl._add_scalar_params(prepare_sheared(
+        build_leaf_graph("".join(base), alph.DNA),
+        build_leaf_graph("".join(mut), alph.DNA), MODEL, AlignSettings(),
+        np.float32))
+    args = tl.linear_batch_args(
+        [tl.linear_job_arrays(inp, tl.batch_rows([inp]))], cuda)
+    ref = None
+    for plan in (tl.tiled_plan(256), tl.tiled_plan(256), tl.tiled_plan(128),
+                 tl.tiled_plan(128), tl.tiled_plan(64), tl.tiled_plan(64)):
+        codes, corner = tl._launch_linear(plan, **args)
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = codes, corner
+            assert bool(torch.isfinite(corner).any())
+        else:
+            assert torch.equal(codes, ref[0])
+            assert torch.equal(_bits(corner), _bits(ref[1]))
 
 
 @pytest.mark.parametrize("windowed", [False, True])
@@ -1098,7 +1237,7 @@ def test_probe_every_build_matches_plain(cuda, tool, variant, rows):
     assert VP.LAUNCHES[key] == n0 + 1
     _same_probe(out, ref, codes=codes)
     others = [dict(rows=r, threads=tl._block(Lp, r), diagonals="registers")
-              for r, _top in tl.LANES if Lp % 32 == 0 and
+              for r, _top in VP.PROBE_LANES if Lp % 32 == 0 and
               tl._block(Lp, r) <= 1024 and r != rows]
     if rows:
         others.append(dict(rows=0, threads=min(1024, tl._block(Lp, 1)),

@@ -111,20 +111,30 @@ from pagan2_tpu_torch.tools.sweep_linear import padded_args
 @pytest.mark.parametrize("Lp,rows,threads", [
     (32, 1, 32), (128, 1, 128), (160, 2, 96), (512, 2, 256),
     (544, 2, 288), (1536, 2, 768),
-    (2048, 2, 1024), (2080, 4, 544), (4064, 4, 1024), (4096, 4, 1024),
-    (4128, 0, 1024), (5024, 0, 1024), (100, 0, 128)])
+    (2048, 2, 1024), (2080, 2, 256), (4064, 2, 256), (4096, 2, 256),
+    (4128, 2, 256), (5024, 2, 256), (100, 2, 256)])
 def test_linear_plan_branches(Lp, rows, threads):
-    """linear_plan: one, two or four consecutive rows a thread in a block
-    of whole warps up to 1024 threads (the lane builds, up to 4096 rows:
-    four rows x 1024 threads), the global build past 4096 rows and on a
-    row count that is not a whole number of warps."""
+    """linear_plan: one or two consecutive rows a thread in a block of
+    whole warps up to 1024 threads (the lane builds, up to 2048 rows:
+    two rows x 1024 threads), the tiled build (tiles of TILE_THREADS x 2
+    rows, PAIR_END_TILE_THREADS x 2 in the pair-end build) past 2048 rows
+    and on a row count that is not a whole number of warps; the lane
+    builds' plan is the same in both builds."""
     p = tl.linear_plan(Lp)
+    pe = tl.linear_plan(Lp, pair_end=True)
     assert (p["rows"], p["threads"]) == (rows, threads)
-    assert p["diagonals"] == ("registers" if rows else "global")
+    lanes = Lp <= tl.LANES[-1][1] and Lp % 32 == 0
+    assert p["diagonals"] == ("registers" if lanes else "tiles")
     assert p["threads"] % 32 == 0 and p["threads"] <= 1024
-    if rows:
+    assert tl.has_build(p, Lp)
+    if lanes:
         assert rows * threads >= Lp > rows * (threads - 32)
         assert rows == next(r for r, top in tl.LANES if Lp <= top)
+        assert pe == p
+    else:
+        assert p == tl.tiled_plan(tl.TILE_THREADS)
+        assert pe == tl.tiled_plan(tl.PAIR_END_TILE_THREADS)
+        assert tl.has_build(pe, Lp)
 
 
 def _skip_batch(kind):
@@ -182,12 +192,27 @@ def test_cells_with_no_source_in_the_matrix_have_code_0(kind):
     dict(rows=2, threads=2048, diagonals="registers"),
     dict(rows=4, threads=48, diagonals="registers"),
     dict(rows=0, threads=64, diagonals="registers"),
-    dict(rows=2, threads=64, diagonals="global")],
+    dict(rows=2, threads=64, diagonals="global"),
+    dict(rows=0, threads=1024, diagonals="global"),
+    dict(rows=4, threads=32, diagonals="registers"),
+    dict(rows=4, threads=256, diagonals="tiles"),
+    dict(rows=2, threads=2048, diagonals="tiles"),
+    dict(rows=2, threads=48, diagonals="tiles"),
+    dict(rows=2, threads=16, diagonals="tiles"),
+    dict(rows=2, threads=256, diagonals="tiles", chunk=32)],
     ids=["rows3", "too_few_threads", "block_past_1024", "part_warp",
-         "global_named_registers", "lanes_named_global"])
+         "global_named_registers", "lanes_named_global",
+         "global_build_gone", "rows4_gone", "tiles_rows4",
+         "tile_past_1024",
+         "tile_part_warp", "tile_below_a_warp", "tiles_with_a_chunk"])
 def test_linear_wrapper_refuses_a_plan_with_no_build(plan):
     """Kernel A's launcher refuses a plan it has no build for before it
-    loads or launches anything (so here, on the CPU, too)."""
+    loads or launches anything (so here, on the CPU, too): the global
+    build and the four rows a thread are gone (the tiled build took
+    their rows), and the tiled build
+    takes two rows a thread and tiles of whole warps up to 1024 threads
+    (its hand-off interval is the kernel's constant, so a plan naming
+    one is refused)."""
     kw = _skip_batch("square")           # Lp 96
     with pytest.raises(ValueError, match="no build"):
         tl._launch_linear(plan, **kw)

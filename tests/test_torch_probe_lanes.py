@@ -221,7 +221,20 @@ def test_the_skip_rule_does_not_hold_without_masks(tool, variant):
 @pytest.mark.parametrize("Lp", [32, 96, 128, 160, 2048, 2080, 4096, 4128,
                                 4224])
 def test_probe_plan_is_kernel_as_plan(Lp):
-    assert VP.probe_plan(Lp) == tl.linear_plan(Lp)
+    """Kernel F takes kernel A's plan where A runs a lane build (up to
+    2048 rows); past that, where A runs its tiled build, F keeps its own
+    builds: four rows a thread up to 4096 rows, then its global build."""
+    a = tl.linear_plan(Lp)
+    p = VP.probe_plan(Lp)
+    if a["diagonals"] == "registers":
+        assert p == a
+    elif Lp <= 4096 and Lp % 32 == 0:
+        assert p == dict(rows=4, threads=tl._block(Lp, 4),
+                         diagonals="registers")
+    else:
+        assert p == dict(rows=0, threads=min(1024, tl._block(Lp, 1)),
+                         diagonals="global")
+    assert VP.has_build(p, Lp)
 
 
 @pytest.mark.parametrize("plan", [
@@ -230,9 +243,10 @@ def test_probe_plan_is_kernel_as_plan(Lp):
     dict(rows=2, threads=2048, diagonals="registers"),
     dict(rows=4, threads=48, diagonals="registers"),
     dict(rows=0, threads=64, diagonals="registers"),
-    dict(rows=2, threads=64, diagonals="global")],
+    dict(rows=2, threads=64, diagonals="global"),
+    dict(rows=2, threads=256, diagonals="tiles")],
     ids=["rows3", "too_few_threads", "block_past_1024", "part_warp",
-         "global_named_registers", "lanes_named_global"])
+         "global_named_registers", "lanes_named_global", "kernel_as_tiles"])
 def test_kernel_f_refuses_a_plan_with_no_build(plan):
     """Kernel F's launcher refuses a plan it has no build for before it
     loads or launches anything (so here, on the CPU, too)."""
