@@ -45,16 +45,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                jobs at 2047 x 2047 and a ragged batch; fan-in, 454-style
                K3/3 graphs, over-cap ancestor pairs and a deep ring
                (40-bp deletion edges); then where their launch plans
-               take their other branches: linear buffers in device
-               memory (4,300 rows), a fan-in ring with no diagonal on
-               chip (6,600 rows) and a right-slot table too large for
+               take their other branches: a fan-in ring with no diagonal
+               on chip (6,600 rows), a right-slot table too large for
                shared memory (7,500 columns of four edge slots each
-               way), each placement of D and E (ring shared, hot,
-               global; table shared, device; linear buffers shared,
-               global) seen;
+               way), and the linear cluster build past 2,048 lanes (a
+               4,300 x 400 pair and a ragged batch, each with the plan's
+               build and with both cluster sizes the plan picks (8 and
+               16 CTAs) forced, two and four lanes a thread), each
+               placement of D and E (ring shared, hot, global; table
+               shared, device; linear lane build, cluster build) seen;
                planes bit-equal, cum within D * eps * max(1, |cum|);
-               posteriors of a small linear and a small fan-in pair
-               against the f64 host oracle
+               the 16,569 bp pair on the cluster build, one timed call
+               each way (no plain version at that size): planes scaled
+               to 1, |log fwd - log bwd| within FullProbPlanes' own
+               fwd/bwd agreement; posteriors of a small
+               linear and a small fan-in pair against the f64 host
+               oracle
   kernel_probe   kernel F (the probe's and the bisect's ablation
                variants of the linear step, on kernel A's lane builds
                and its own four-rows and global builds)
@@ -188,6 +194,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                equal to the same run with the plain versions forced; the
                host phases timed (prep, fill, the codes' copy to the
                host, backtrack, ancestral build, write)
+  fullprob_long_path  a 5,000 bp pair and a copy with 10% of its
+               sites redrawn and 1% indels (tools/bench_fullprob.py's
+               redrawn_pair) through the CLI with --full-probability
+               and with --sample-path --seed 7: the JAX CLI's bytes
+               (sha256, one for each mode), the linear fills on kernels
+               D's and E's cluster build, no plain version (the timing
+               phase holds the recorded linear call's planes against it)
   megabase     bench.py's megabase pair (1,048,575 bp, 1% substitutions,
                np.random.default_rng(0)) through the CLI with default
                flags: both rows intact, 1 banded fill on kernel C, no
@@ -208,7 +221,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                point on the calls of the --full-probability run, planes
                bit-equal (the fan-in calls timed on every call, held on
                the first of each launch plan and (D, Lp)), kernel E with
-               its launch plans and us per diagonal; kernels A and B on
+               its launch plans and us per diagonal; D's and E's cluster
+               build on fullprob_long_path's call (kernel_fullprob timed
+               it against its plain version on the 4,300 x 400 call);
+               kernels A and B on
                every call of the main path
                and of the --full-probability run, with their launch
                plans and us per diagonal, A held bit-equal on every
@@ -417,12 +433,20 @@ def main():
     log("build: %.1f s (%s)" % (time.time() - t0, ", ".join(
         "%s %.1f s" % kv for kv in sorted(kernels.BUILD_SECONDS.items(),
                                           key=lambda kv: -kv[1]))))
+    import re
     for name, out in kernels.BUILD_LOG.items():
         if name == "viterbi_linear_probe":
             continue
+        entry = ""
         for line in out.splitlines():
+            # kernels D's and E's linear builds by <ROWS, cluster>
+            m = re.search(r"linear_kernelILi(\d+)ELb(\d)E", line)
+            if "Compiling entry function" in line:
+                entry = ("linear<%s, %s> " % (m.group(1), "cluster" if
+                                              m.group(2) == "1" else "block")
+                         if m else "")
             if "registers" in line or "spill" in line or "smem" in line:
-                log("ptxas %s: %s" % (name, line.strip()))
+                log("ptxas %s: %s%s" % (name, entry, line.strip()))
     for fn, regs, spill in ptxas_kernels(
             kernels.BUILD_LOG.get("viterbi_linear_probe", "")):
         log("ptxas viterbi_linear_probe %s: %d registers, %d bytes spill "
@@ -695,10 +719,42 @@ def main():
     def fills_err(out, ref):
         return max(max_abs_err(out[0], ref[0]), max_abs_err(out[1], ref[1]))
 
+    # the bound of a call: read by kernel_fullprob's 16,569 bp pair and
+    # by the timing phase
+    def fullprob_bound(kw):
+        """Kernels D and E: per needed cell its match value read (4 B)
+        and M, X, Y written (12 B); per diagonal cum (4 B); per job its
+        scalars, and for the fan-in entry points the slot arrays of its
+        L rows and R columns and the seed rows."""
+        iscal = kw["iscal"].cpu().numpy().astype(np.int64)
+        nbytes = ops = 0.0
+        for b, (L, R) in enumerate(iscal):
+            cells = float(L * R)
+            nbytes += 16 * cells + 4 * (L + R - 1) + 8 * 4 + 2 * 4
+            if "ms2" in kw:
+                ops += FULLPROB_OPS_PER_CELL * cells
+                continue
+            lo = kw["loff" if "loff" in kw else "lfoff"][b, :L]
+            ro = kw["roff" if "roff" in kw else "rfoff"][b, :R]
+            kl = float((lo > 0).sum())       # edge slots in use, all rows
+            kr = float((ro > 0).sum())
+            c0, c1, c2 = FANIN_FP_OPS
+            ops += c0 * cells + c1 * (R * kl + L * kr) + c2 * kl * kr
+            nbytes += 8 * (L * lo.shape[1] + R * ro.shape[1])
+            if "seed" in kw:
+                nbytes += 4 * L * kw["seed"].shape[1]
+        return nbytes, ops
+
     fp_err = {"fwd": 0.0, "bwd": 0.0}
     # kernels D's and E's placements met in kernel_fullprob: ring shared /
-    # hot / global, table shared / device, linear buffers shared / global
+    # hot / global, table shared / device, linear lane build (buffers
+    # shared) / cluster build
     seen = {"D": set(), "E": set()}
+    # the cluster build apart: its max |err| by direction, the cluster
+    # sizes forced, and the 16,569 bp pair's timed calls
+    cl_err = {"fwd": 0.0, "bwd": 0.0}
+    cl_sizes = {"fwd": set(), "bwd": set()}
+    cl_giant = {}
 
     def note_plan(name, kw):
         """Kernel D's or E's plan of one call as text; notes its
@@ -714,8 +770,8 @@ def main():
                 "shared" if p["rtab"] else "device")))
         else:
             p = getattr(FF, direction + "_linear_plan")(kw["ms2"].shape[2])
-            seen[kernel].add("linear buffers " + (
-                "shared" if p["shared"] else "global"))
+            seen[kernel].add("linear cluster build" if p["cluster"]
+                             else "linear buffers shared")
         text = plan_text(FF, name, kw)
         return "; " + text if text else ""
 
@@ -795,18 +851,17 @@ def main():
         fail("kernel_fullprob: the deep-ring pair has ring depth %d"
              % calls[0][3]["G"])
     fullprob_check("fan-in deep ring", calls)
-    # kernels D's and E's other plan branches: the linear buffers in
-    # device memory (past 4096 rows), a fan-in ring with no diagonal on
-    # chip (no 3 diagonals of 6,600 rows fit) and a right-slot table too
-    # large for shared memory: 7,500 columns with four backward- and four
-    # forward-edge slots, one pair for both kernels (before the
-    # cli_rest_path phase came, E took 15,000 columns of two homopolymer
-    # slots on a pair of its own: cut for its time)
+    # kernels D's and E's other plan branches: a fan-in ring with no
+    # diagonal on chip (no 3 diagonals of 6,600 rows fit) and a
+    # right-slot table too large for shared memory: 7,500 columns with
+    # four backward- and four forward-edge slots, one pair for both
+    # kernels (before the cli_rest_path phase came, E took 15,000
+    # columns of two homopolymer slots on a pair of its own: cut for its
+    # time); then the linear cluster build (past 2,048 lanes)
     def seq(n):
         return "".join(rng.choice(list("ACGT"), size=n))
-    fullprob_check("linear 4300 rows", linear_fp_calls(
-        [(build_leaf_graph(seq(4300), alph.DNA),
-          build_leaf_graph(seq(400), alph.DNA))]))
+    cluster_pair = (build_leaf_graph(seq(4300), alph.DNA),
+                    build_leaf_graph(seq(400), alph.DNA))
     fullprob_check("fan-in 6600 rows", fanin_fp_calls(
         [(build_leaf_graph(seq(6600), alph.DNA),
           build_leaf_graph(seq(30), alph.DNA))]))
@@ -817,15 +872,158 @@ def main():
             wide.add_edge(i, i + o, 0.05 * o)
     fullprob_check("fan-in 7500 columns", fanin_fp_calls(
         [(build_leaf_graph(seq(40), alph.DNA), wide)]))
+
+    def cluster_check(what, pairs, timed=False):
+        """The cluster build on one batch: the plan's own through the
+        wrapper, then both sizes the plan picks (FF.CLUSTER_SIZES, 8 and
+        16 CTAs) forced with two and four lanes a thread, each held
+        against the plain version (planes bit-equal, cum within D * eps
+        * max(1, |cum|)).
+        timed: the plan's build and the plain version timed there, with
+        the call's bound (the kernels line's cluster entries)."""
+        for direction, fn, plain_fn, kw in linear_fp_calls(pairs):
+            name = fn.__name__
+            Lp = kw["ms2"].shape[2]
+            cell = 32 if direction == "fwd" else 16
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = plain_fn(**kw)
+            t1.record()
+            forced = [("plan", None)] + [
+                ("%d x %d" % (C, rows), p) for C in FF.CLUSTER_SIZES
+                for rows in (2, 4)
+                for p in [FF.cluster_build(Lp, C, rows, cell)] if p]
+            for text, p in forced:
+                out = fn(**kw) if p is None else \
+                    FF._launch_linear(name, p, **kw)
+                torch.cuda.synchronize()
+                if not same_fills(out, ref) or float(out[0].max()) != 1.0:
+                    fail("kernel_fullprob %s: %s's cluster build (%s) "
+                         "differs from its plain version (planes max |err| "
+                         "%g, cum max |err| %g)"
+                         % (what, name, text, max_abs_err(out[0], ref[0]),
+                            max_abs_err(out[1], ref[1])))
+                cl_err[direction] = max(cl_err[direction],
+                                        fills_err(out, ref))
+                if p is not None:
+                    cl_sizes[direction].add(p["cluster"])
+                del out
+            note_plan(name, kw)
+            log("kernel_fullprob %s: %s B, 3, D, Lp = %s; %s; planes "
+                "bit-equal and cum within tolerance at the plan's build "
+                "and at C x rows %s"
+                % (what, name, (kw["ms2"].shape[0], 3) + tuple(
+                    kw["ms2"].shape[1:]), plan_text(FF, name, kw),
+                   ", ".join(t for t, _p in forced[1:])))
+            if timed:
+                k_ms = cuda_ms(lambda: fn(**kw), 3)
+                nbytes, ops = fullprob_bound(kw)
+                tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+                B_c, D_c, Lp_c = kw["ms2"].shape
+                cl_t[direction] = dict(
+                    ms=k_ms, plain_ms=t0.elapsed_time(t1),
+                    bound_ms=1e3 * max(tb, to),
+                    bound_by="bytes" if tb >= to else "operations",
+                    timed_on="kernel_fullprob's %s call, B, D, Lp = %d, "
+                             "%d, %d" % (what, B_c, D_c, Lp_c),
+                    plan=plan_text(FF, name, kw),
+                    us_per_diagonal=1e3 * k_ms / D_c)
+                log("kernel_fullprob %s: %s kernel %.3f ms (%.4f us per "
+                    "diagonal), plain %.1f ms, bound %.5f ms (%s)"
+                    % (what, name, k_ms, 1e3 * k_ms / D_c,
+                       cl_t[direction]["plain_ms"],
+                       cl_t[direction]["bound_ms"],
+                       cl_t[direction]["bound_by"]))
+    cl_t = {}
+    cluster_check("linear 4300 rows", [cluster_pair], timed=True)
+    crng = np.random.default_rng(4097)
+    cluster_check("linear ragged past 4096 lanes", [
+        (build_leaf_graph("".join(crng.choice(list("ACGT"), n)), alph.DNA),
+         build_leaf_graph("".join(crng.choice(list("ACGT"), m)), alph.DNA))
+        for n, m in ((4500, 300), (4150, 380), (900, 420))])
+    for direction in ("fwd", "bwd"):
+        if cl_sizes[direction] != set(FF.CLUSTER_SIZES):
+            fail("kernel_fullprob: the %s cluster build met sizes %s, not "
+                 "%s" % (direction, sorted(cl_sizes[direction]),
+                         list(FF.CLUSTER_SIZES)))
     want = {"ring shared", "ring hot", "ring global", "table shared",
             "table device", "linear buffers shared",
-            "linear buffers global"}
+            "linear cluster build"}
     for kernel in ("D", "E"):
         if not want <= seen[kernel]:
             fail("kernel_fullprob: kernel %s's plans never chose %s"
                  % (kernel, sorted(want - seen[kernel])))
         log("kernel_fullprob: kernel %s's placements seen: %s"
             % (kernel, ", ".join(sorted(seen[kernel]))))
+
+    # the cluster build at a mitochondrion's length: the 16,569 bp pair
+    # of tools/bench_fullprob.py's giant_calls, one timed call each way
+    # (no plain version at this size: its loop of 33,137 diagonals takes
+    # minutes), planes scaled to 1, and the forward and backward totals
+    # (FullProbPlanes' formulas, read from the corner cells on the card)
+    from pagan2_tpu_torch.tools.bench_fullprob import redrawn_pair
+    ga, gb = redrawn_pair(16569, 16569)
+    g_inp = FP.linear_fullprob_inputs(build_leaf_graph(ga, alph.DNA),
+                                      build_leaf_graph(gb, alph.DNA), model)
+    gkw = FF.linear_batch_args([g_inp], dev)
+    B_g, D_g, Lp_g = gkw["ms2"].shape
+    Lg, Rg = g_inp["L"], g_inp["R"]
+    g_out = {}
+    for direction, fn in (("fwd", FF.fullprob_fwd), ("bwd", FF.fullprob_bwd)):
+        ms = cuda_ms(lambda: fn(**gkw), 2)
+        planes, cum = fn(**gkw)
+        torch.cuda.synchronize()
+        if float(planes.max()) != 1.0 or \
+                not bool(torch.isfinite(cum).all()):
+            fail("kernel_fullprob: the 16,569 bp pair's %s planes are not "
+                 "scaled to 1" % direction)
+        if direction == "fwd":
+            d, i = Lg + Rg - 2, Lg - 1
+            cell = [float(planes[0, k, d, i]) for k in range(3)]
+            g_out["fwd"] = float(np.log(
+                model.non_gap() * g_inp["w_lstop"] * g_inp["w_rstop"]
+                * cell[0] + model.gap_close() * cell[1]
+                + model.gap_close() * cell[2]) + float(cum[0, d]))
+        else:
+            g_out["bwd"] = float(np.log(float(planes[0, 0, 0, 0]))
+                                 + float(cum[0, 0]))
+        nbytes, ops = fullprob_bound(gkw)
+        cl_giant[direction] = dict(
+            ms=ms, us_per_diagonal=1e3 * ms / D_g,
+            plan=plan_text(FF, fn.__name__, gkw),
+            bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                               ops / F32_OPS_PER_S),
+            bound_whole_tensors_ms=1e3 * (4 * B_g * D_g * Lp_g * 4
+                                          + 4 * B_g * D_g)
+            / HBM_BYTES_PER_S)
+        del planes, cum
+        log("kernel_fullprob 16,569 bp pair: %s B, D, Lp = %d, %d, %d; %s: "
+            "%.3f ms (%.4f us per diagonal), bound %.5f ms (cells; %.5f ms "
+            "for the whole tensors), planes scaled to 1"
+            % (fn.__name__, B_g, D_g, Lp_g, cl_giant[direction]["plan"], ms,
+               1e3 * ms / D_g, cl_giant[direction]["bound_ms"],
+               cl_giant[direction]["bound_whole_tensors_ms"]))
+    # Both totals carry their f32 cum, a running sum of D logarithms of
+    # thousands of nats, each addition rounded (the plain versions on
+    # the CPU: 0.0041 at 5,000 bp, 0.078 at 9,000; this pair 0.78 on the
+    # H100), so 1e-3 is out of reach of the arithmetic the kernels share
+    # with the plain versions and the reference. The limit is the
+    # package's own fwd/bwd agreement (FullProbPlanes._finish: the
+    # reference's 1% window plus 4 eps sqrt(D) |log total|).
+    dlog = abs(g_out["fwd"] - g_out["bwd"])
+    dlog_tol = float(np.log(1.01) + 4 * EPS32 * np.sqrt(D_g)
+                     * abs(g_out["fwd"]))
+    cl_giant.update(log_fwd=g_out["fwd"], log_bwd=g_out["bwd"], dlog=dlog,
+                    dlog_tol=dlog_tol)
+    log("kernel_fullprob 16,569 bp pair: log fwd %.6f, log bwd %.6f, "
+        "|log fwd - log bwd| %.3g (limit %.3g: FullProbPlanes' fwd/bwd "
+        "agreement)" % (g_out["fwd"], g_out["bwd"], dlog, dlog_tol))
+    if not dlog <= dlog_tol:
+        fail("kernel_fullprob: the 16,569 bp pair's |log fwd - log bwd| "
+             "%g passes %g" % (dlog, dlog_tol))
+    del gkw
+    torch.cuda.empty_cache()
 
     # posteriors and totals against the f64 host oracle
     from dataclasses import replace as _replace
@@ -1231,10 +1429,14 @@ def main():
         launches hold kernel A's tiled ones apart as "linear_tiles" too
         (counted in "linear" as well). With nh None, fas is the read
         file of a --pileup run; with both None, `extra` holds every
-        input flag."""
+        input flag. Kernels D's and E's cluster launches are held apart
+        as "fp_fwd_cluster" and "fp_bwd_cluster" too (counted in "fp_fwd"
+        and "fp_bwd" as well)."""
         EX.reset_stats()
         zero_counts()
         VL.PAIR_END_LAUNCHES = VL.TILE_LAUNCHES = 0
+        for n in FF.CLUSTER_LAUNCHES:
+            FF.CLUSTER_LAUNCHES[n] = 0
         for k, (m, n) in KERNELS.items():
             setattr(m, n, fills[k])
         captured = [(PIPE, "align_progressive"), (PILE, "pileup_align"),
@@ -1265,6 +1467,8 @@ def main():
         launches = {k: read_count(m, n, "LAUNCHES")
                     for k, (m, n) in KERNELS.items()}
         launches["linear_tiles"] = VL.TILE_LAUNCHES
+        launches["fp_fwd_cluster"] = FF.CLUSTER_LAUNCHES["fullprob_fwd"]
+        launches["fp_bwd_cluster"] = FF.CLUSTER_LAUNCHES["fullprob_bwd"]
         return (time.time() - t, launches,
                 sum(read_count(m, n, "PLAIN_CALLS")
                     for m, n in KERNELS.values()),
@@ -2254,6 +2458,50 @@ def main():
         "FASTA; the plain fill (%.1f ms) gives the tiled build's codes "
         "and corner" % (wall_mp, tiles_plain_ms))
 
+    # ---- fullprob_long_path: a pair past the lane builds ----
+    # tools/bench_fullprob.py's redrawn_pair with indels 0.01: a 5,000 bp
+    # sequence and a copy with 10% of its sites redrawn and 1-3 sites
+    # lost or gained after 1% of them, through the CLI with
+    # --full-probability and with --sample-path --seed 7: its linear
+    # fills take kernels D's and E's cluster build; each .fas the JAX
+    # CLI's bytes (sha256 of python -c "$REFERENCE_FP" on the same files,
+    # on the CPU, f32, every Pallas module in interpret mode; tests/
+    # test_torch_fullprob_long.py holds the port's CPU run to them). The
+    # sampled path differs from the Viterbi path in 16 columns; the
+    # timing phase holds the planes of the --full-probability run's
+    # linear call against the plain versions.
+    LONG_FP_SHA = {
+        "full_probability": ("918197e66244fbb1cc600cb569b52b77"
+                             "e4a3f193e073d91c2a41df2514e4e9b8"),
+        "sample_path": ("79bf57f982345aca93e91cf16bdae4b9"
+                        "47a30fae6aa6bbcb9af685953ab4b150")}
+    from pagan2_tpu_torch.tools.bench_fullprob import redrawn_pair
+    la, lb = redrawn_pair(5000, indels=0.01)
+    fas_lp, nh_lp = write_input(work, "long5000", [("a", la), ("b", lb)],
+                                "(a:0.1,b:0.1);")
+    rec_lp = {k: [] for k in KERNELS}
+    for tag, extra in (("full_probability", ["--full-probability"]),
+                       ("sample_path", ["--sample-path", "--seed", "7"])):
+        out_lp = os.path.join(work, "long_" + tag)
+        wall_lp, c_lp, plain_calls, _s = run_cli(
+            "fullprob_long_path", fas_lp, nh_lp, out_lp,
+            recording(rec_lp) if tag == "full_probability" else real, extra)
+        path_launches["fullprob_long_" + tag] = c_lp
+        got = sha(out_lp + ".fas")
+        log("fullprob_long_path: %s on the 5,000 bp pair in %.1f s: sha256 "
+            "%s the JAX CLI's; launches D=%d (cluster %d) E=%d (cluster %d) "
+            "A=%d; %d plain-version calls"
+            % (" ".join(extra), wall_lp, "equals" if got == LONG_FP_SHA[tag]
+               else "DIFFERS FROM", c_lp["fp_fwd"], c_lp["fp_fwd_cluster"],
+               c_lp["fp_bwd"], c_lp["fp_bwd_cluster"], c_lp["linear"],
+               plain_calls))
+        if got != LONG_FP_SHA[tag] or plain_calls or \
+                c_lp["fp_fwd_cluster"] < 1 or c_lp["fp_bwd_cluster"] < 1:
+            fail("fullprob_long_path %s: sha256 %s (want %s), %d plain-"
+                 "version calls, launches %s (the cluster build wanted)"
+                 % (tag, got, LONG_FP_SHA[tag], plain_calls,
+                    json.dumps(c_lp)))
+
     # ---- megabase: the slice at full width ----
     # bench.py's bench_megabase pair, seeded by default_rng(0) alone
     mega, mtree = megabase()
@@ -2390,30 +2638,6 @@ def main():
         cells = float(kw["sched"][:, 1].sum())
         nbytes = 5 * cells + 8 * kw["sched"].shape[0] + 2 * 8 * 4 + 3 * 4
         return nbytes, LINEAR_OPS_PER_CELL * cells
-
-    def fullprob_bound(kw):
-        """Kernels D and E: per needed cell its match value read (4 B)
-        and M, X, Y written (12 B); per diagonal cum (4 B); per job its
-        scalars, and for the fan-in entry points the slot arrays of its
-        L rows and R columns and the seed rows."""
-        iscal = kw["iscal"].cpu().numpy().astype(np.int64)
-        nbytes = ops = 0.0
-        for b, (L, R) in enumerate(iscal):
-            cells = float(L * R)
-            nbytes += 16 * cells + 4 * (L + R - 1) + 8 * 4 + 2 * 4
-            if "ms2" in kw:
-                ops += FULLPROB_OPS_PER_CELL * cells
-                continue
-            lo = kw["loff" if "loff" in kw else "lfoff"][b, :L]
-            ro = kw["roff" if "roff" in kw else "rfoff"][b, :R]
-            kl = float((lo > 0).sum())       # edge slots in use, all rows
-            kr = float((ro > 0).sum())
-            c0, c1, c2 = FANIN_FP_OPS
-            ops += c0 * cells + c1 * (R * kl + L * kr) + c2 * kl * kr
-            nbytes += 8 * (L * lo.shape[1] + R * ro.shape[1])
-            if "seed" in kw:
-                nbytes += 4 * L * kw["seed"].shape[1]
-        return nbytes, ops
 
     def shape(kw, ms=None, name=None):
         """A recorded call's shape as text (kernels B and E with their
@@ -2597,6 +2821,30 @@ def main():
             % (n, sum(fp_ms[k]) / len(fp_ms[k]), len(rec_fp[k]), len(held),
                fp_t[k][0], fp_t[k][1], fp_t[k][2], fp_t[k][3], fp_t[k][4]))
 
+    # kernels D's and E's cluster build on fullprob_long_path's
+    # --full-probability call (the 5,000 bp pair): held against its plain
+    # version on the same inputs (planes bit-equal, cum within D * eps *
+    # max(1, |cum|); the plain version takes about 10 s a direction
+    # here) and timed, for the kernels line's cluster entries;
+    # kernel_fullprob held both sizes the plan picks and timed the
+    # 4,300 x 400 call and the 16,569 bp pair
+    cl_path = {}
+    for direction in ("fwd", "bwd"):
+        k = "fp_" + direction
+        m, n = KERNELS[k]
+        kw = rec_lp[k][0]
+        cl_path[direction] = time_kernel(
+            [kw], getattr(m, n), getattr(m, n + "_plain"), fullprob_bound,
+            cum_close, 3)
+        cl_err[direction] = max(cl_err[direction], cl_path[direction][4])
+        log("timing %s's cluster build on fullprob_long_path's call (B, D, "
+            "Lp = %s; %s): %.3f ms (%.4f us per diagonal), plain %.1f ms, "
+            "planes bit-equal, cum max |err| %g"
+            % (n, tuple(kw["ms2"].shape), plan_text(FF, n, kw),
+               cl_path[direction][0],
+               1e3 * cl_path[direction][0] / kw["ms2"].shape[1],
+               cl_path[direction][1], cl_path[direction][4]))
+
     # kernels A, B and C on run (a)'s calls of placement_path: every call
     # timed on the kernel; the first call of each build held bit-equal
     # to the plain version, timed with it and given its bound (the plain
@@ -2684,7 +2932,8 @@ def main():
         by_ops = sum(fp_t[k][6] for k in keys)
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": sum(counts_fp[k] for k in keys),
+                 "launches": sum(counts_fp[k] for k in keys)
+                 - counts_fp["fp_%s_cluster" % direction],
                  "max_abs_err": max([fp_err[direction]]
                                     + [fp_t[k][4] for k in keys]),
                  "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
@@ -2693,7 +2942,13 @@ def main():
                  "linear_ms": fp_t[keys[0]][0],
                  "fanin_ms": fp_t[keys[1]][0],
                  "calls_held": n,
-                 "launches_by_path": by_path(*keys)}
+                 "builds": "the lane builds and the fan-in builds; the "
+                           "linear cluster build's launches are under "
+                           "%s_cluster" % name,
+                 "launches_by_path": {
+                     path: sum(c.get(k, 0) for k in keys)
+                     - c.get("fp_%s_cluster" % direction, 0)
+                     for path, c in path_launches.items()}}
         entry["linear_plans"] = [plan_text(FF, keys[0].replace(
             "fp_", "fullprob_"), kw) for kw in rec_fp[keys[0]]]
         entry["linear_us_per_diagonal"] = [
@@ -2921,6 +3176,33 @@ def main():
             log("trace: the profiler recorded no device time for the %s "
                 "(busy share not measured)" % what)
 
+    def cluster_entry(direction, source, replaces):
+        """The kernels-line entry of D's or E's linear cluster build:
+        held against its plain version and timed with it on
+        fullprob_long_path's call (the timing phase); held at both sizes
+        the plan picks and timed on the 4,300 x 400 call in
+        kernel_fullprob; timed on the 16,569 bp pair."""
+        t = cl_path[direction]
+        kw = rec_lp["fp_" + direction][0]
+        name = "fullprob_" + direction
+        return {
+            "name": name + "_cluster", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": path_launches["fullprob_long_full_probability"][
+                "fp_%s_cluster" % direction],
+            "max_abs_err": cl_err[direction],
+            "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+            "bound_by": t[3], "library_ms": None,
+            "timed_on": "fullprob_long_path's --full-probability call, B, "
+                        "D, Lp = %d, %d, %d" % tuple(kw["ms2"].shape),
+            "plan": plan_text(FF, name, kw),
+            "us_per_diagonal": 1e3 * t[0] / kw["ms2"].shape[1],
+            "cluster_sizes_held": sorted(cl_sizes[direction]),
+            "call_4300x400": cl_t[direction],
+            "pair_16569": cl_giant[direction],
+            "pair_16569_log_fwd_minus_log_bwd": cl_giant["dlog"],
+            "launches_by_path": by_path("fp_%s_cluster" % direction)}
+
     kernels_line = {"kernels": [
         {"name": "viterbi_linear", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_linear.cu",
@@ -2990,7 +3272,11 @@ def main():
         kernel_entry("fullprob_bwd",
                      "pagan2_tpu_torch/csrc/fullprob_bwd.cu",
                      "pagan2_tpu/align/fullprob_pallas.py:108", "bwd"),
-    ]}
+    ] + [cluster_entry(d, src, rep) for d, src, rep in (
+        ("fwd", "pagan2_tpu_torch/csrc/fullprob_fwd.cu",
+         "pagan2_tpu/align/fullprob_pallas.py:45"),
+        ("bwd", "pagan2_tpu_torch/csrc/fullprob_bwd.cu",
+         "pagan2_tpu/align/fullprob_pallas.py:108"))]}
     # kernels G and H: the band-sharded fills, which replace the JAX
     # package's shard_map scans (no Pallas kernel there)
     for name, k, kind, replaces, extra in (

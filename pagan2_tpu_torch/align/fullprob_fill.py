@@ -44,12 +44,26 @@ from .viterbi_linear import _block, batch_rows, shear_table
 LAUNCHES = {"fullprob_fwd": 0, "fullprob_bwd": 0,
             "fullprob_fwd_fanin": 0, "fullprob_bwd_fanin": 0}
 PLAIN_CALLS = dict(LAUNCHES)
+# the linear entry points' launches of their cluster build (counted in
+# LAUNCHES as well)
+CLUSTER_LAUNCHES = {"fullprob_fwd": 0, "fullprob_bwd": 0}
 
 # kernels D's and E's launch plans: the fewest ring diagonals worth
 # keeping on chip in a split ring (the two newest make almost every
 # read), and the largest fan-in with a templated build
 MIN_HOT = 3
 TEMPLATE_K = 4
+
+# kernels D's and E's linear cluster build (csrc/fullprob_fwd.cu and
+# fullprob_bwd.cu, item 6): the first width it takes from the lane
+# builds, the largest cluster the H100 schedules portably and the
+# largest with the non-portable opt-in: the two cluster sizes a plan
+# picks (the kernels take any size from 2 to 16;
+# tools/bench_fullprob.py --giant --clusters forces the others)
+CLUSTER_FROM = 2049
+CLUSTER_PORTABLE = 8
+CLUSTER_MAX = 16
+CLUSTER_SIZES = (CLUSTER_PORTABLE, CLUSTER_MAX)
 
 # exp() argument clip of the fan-in backward seed (the reference's
 # log(f32 max) - 2, rounded to f32)
@@ -203,48 +217,75 @@ def _check_fanin(msp, loff, lw, roff, rw, consts, iscal, G, seed=None):
     return B, D, Lp, Rr, KL, KR
 
 
-def _linear_lanes(Lp: int, one: int):
-    """Lanes a thread and threads of kernel D's or E's linear entry point
-    on Lp lanes: 1 up to `one` lanes, 2 up to 2048, 4 up to 4096, in
-    blocks of at most 1024 threads, each lane's raw M, X, Y in registers
-    from one step to the next; past that 0, the build for any count in
-    a block of up to 1024 threads, which keeps them in a global buffer."""
-    rows = next((r for r, top in ((1, one), (2, 2048), (4, 4096))
-                 if Lp <= top), 0)
-    threads = _block(Lp, rows) if rows else min(1024, _block(Lp, 1))
-    return rows, threads
+def cluster_build(Lp: int, C: int, rows: int, cell: int):
+    """Kernel D's or E's cluster build of C CTAs of `rows` lanes a
+    thread on Lp lanes (`cell`: shared bytes a lane, D 32, E 16): the
+    lanes split evenly, each CTA's threads whole warps; None where a
+    CTA would pass 1024 threads."""
+    threads = _block(-(-Lp // C), rows)
+    if threads > 1024:
+        return None
+    return dict(rows=rows, threads=threads, cluster=C,
+                smem=cell * (rows * threads + 1))
+
+
+def _linear_plan(Lp: int, one: int, cell: int) -> dict:
+    """How kernel D's or E's linear entry point is launched on Lp lanes
+    (`one`: the widest lane build of one lane a thread; `cell`: shared
+    bytes a lane of the two diagonals' rows, D 32, E 16):
+
+    - up to CLUSTER_FROM - 1 (2,048) lanes a lane build: one block a
+      pair of whole warps, one lane a thread up to `one` lanes, else
+      two, each lane's raw M, X, Y in registers; cluster 0;
+    - past that the cluster build: one thread block cluster of
+      `cluster` CTAs a pair (grid cluster B), the lanes split into
+      `cluster` ranges of `threads` x `rows` lanes: 8 CTAs (the largest
+      portable cluster) of two lanes a thread up to 16,384 lanes, then
+      16 (the non-portable size, which the kernel asks the card to
+      schedule and refuses where it cannot) of two lanes up to 32,768
+      and of four up to 65,536. Past 65,536 lanes no build holds the
+      lanes in registers: ValueError (the planes of such a pair, about
+      56 L^2 bytes with both fills and the match values, pass any
+      card's memory anyway);
+    - smem: the rows of the two newest diagonals, `cell` bytes a lane of
+      the block or CTA and one more (the slot of the neighbour's lane
+      in a cluster).
+
+    On the H100 (tools/bench_fullprob.py --lanes, --giant --clusters;
+    PERF.md) the cluster build beat the lane builds at 2,016 lanes
+    (2-5%) and four lanes a thread on one block at 2,112 to 4,032 lanes
+    (7-40%), and lost at 1,536 (11-14%); two lanes a thread beat four
+    but for D at 16 CTAs (by 1.5%), and 8 CTAs came within 3-5% of 16
+    where both hold two lanes a thread."""
+    if Lp < CLUSTER_FROM:
+        rows = 1 if Lp <= one else 2
+        return dict(rows=rows, threads=_block(Lp, rows), cluster=0,
+                    smem=cell * (Lp + 1))
+    C = CLUSTER_PORTABLE if Lp <= CLUSTER_PORTABLE * 2048 else CLUSTER_MAX
+    plan = cluster_build(Lp, C, 2 if Lp <= C * 2048 else 4, cell)
+    if plan is None:
+        raise ValueError("kernels D and E take at most %d lanes (%d x 1024 "
+                         "threads x 4 lanes), not %d"
+                         % (CLUSTER_MAX * 4096, CLUSTER_MAX, Lp))
+    return plan
 
 
 def bwd_linear_plan(Lp: int) -> dict:
-    """How kernel E's linear entry point is launched on Lp lanes:
-
-    - rows, threads: lanes a thread and the block (_linear_lanes, one
-      lane up to 512 lanes);
-    - shared, smem: the X and q rows of two diagonals (16 (Lp + 1)
-      bytes) in shared memory, or (rows 0) in a global buffer."""
-    rows, threads = _linear_lanes(Lp, 512)
-    shared = rows > 0
-    return dict(rows=rows, threads=threads, shared=shared,
-                smem=16 * (Lp + 1) if shared else 0)
+    """How kernel E's linear entry point is launched on Lp lanes
+    (_linear_plan: one lane a thread up to 512 lanes; shared memory
+    holds the X and q rows of two diagonals, 16 bytes a lane)."""
+    return _linear_plan(Lp, 512, 16)
 
 
 def fwd_linear_plan(Lp: int) -> dict:
-    """How kernel D's linear entry point is launched on Lp lanes:
-
-    - rows, threads: lanes a thread and the block (_linear_lanes), one
-      lane only up to 128 lanes, unlike E. On the H100 (tools/
-      bench_fullprob.py --lanes) D's step took 9-12% longer with two
-      lanes a thread than with one at 128 lanes, but 9% less at 256, 3-7%
-      less at 512 (two calls) and 18-42% less at 544 and 1,024; two beat
-      four by 7% at 2,016 lanes, and four beat the build for any count
-      1.6x at 2,112;
-    - shared, smem: the raw (M, X, Y) rows of the two newest diagonals
-      (16 bytes a lane: 32 (Lp + 1) bytes) in shared memory, or (rows 0)
-      three generations of them in a global buffer."""
-    rows, threads = _linear_lanes(Lp, 128)
-    shared = rows > 0
-    return dict(rows=rows, threads=threads, shared=shared,
-                smem=32 * (Lp + 1) if shared else 0)
+    """How kernel D's linear entry point is launched on Lp lanes
+    (_linear_plan; shared memory holds the raw (M, X, Y) rows of the two
+    newest diagonals, 32 bytes a lane). One lane a thread only up to 128
+    lanes, unlike E: on the H100 (tools/bench_fullprob.py --lanes) D's
+    step took 9-12% longer with two lanes a thread than with one at 128
+    lanes, but 9% less at 256, 3-7% less at 512 (two calls) and 18-42%
+    less at 544 and 1,024, and two beat four by 7% at 2,016 lanes."""
+    return _linear_plan(Lp, 128, 32)
 
 
 def _fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int,
@@ -322,29 +363,45 @@ def fwd_fanin_plan(Lp: int, G: int, KL: int, KR: int, Rr: int) -> dict:
     return _fanin_plan(Lp, G, KL, KR, Rr, 16)
 
 
-def _launch_linear(name, plan, scratch, ms2, consts, iscal):
+def _launch_linear(name, plan, ms2, consts, iscal):
     """One launch of kernel D's or E's linear entry point (`name`) as
-    `plan` (fwd_linear_plan, bwd_linear_plan) says; `scratch`: the shape
-    of a pair's global row buffer where the plan keeps none on chip."""
+    `plan` (fwd_linear_plan, bwd_linear_plan) says. A cluster build is
+    launched only where the card can schedule one such cluster (the
+    kernel asks cudaOccupancyMaxActiveClusters first); any refusal
+    raises."""
     B, D, Lp = ms2.shape
     fn = getattr(kernels.load(name), name + "_linear_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     planes = torch.empty((B, 3, D, Lp), dtype=torch.float32,
                          device=ms2.device)
     cum = torch.empty((B, D), dtype=torch.float32, device=ms2.device)
-    gbuf = None if plan["shared"] else torch.empty(
-        (B,) + scratch, dtype=torch.float32, device=ms2.device)
     with torch.cuda.device(ms2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ms2.data_ptr(), consts.data_ptr(), iscal.data_ptr(),
-                 planes.data_ptr(), cum.data_ptr(),
-                 0 if gbuf is None else gbuf.data_ptr(),
-                 B, D, Lp, plan["rows"], int(plan["shared"]),
-                 plan["threads"], plan["smem"], stream)
-    kernels.check(err, name)
+                 planes.data_ptr(), cum.data_ptr(), B, D, Lp, plan["rows"],
+                 plan["cluster"], plan["threads"], plan["smem"], stream)
+    kernels.check(err, name if not plan["cluster"] else
+                  "%s (cluster of %d CTAs x %d threads x %d lanes)"
+                  % (name, plan["cluster"], plan["threads"], plan["rows"]))
+    if plan["cluster"]:
+        CLUSTER_LAUNCHES[name] += 1
     return planes, cum
+
+
+def linear_clusters(name: str, plan: dict) -> int:
+    """How many clusters of `plan`'s cluster build of kernel D
+    ("fullprob_fwd") or E ("fullprob_bwd") the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0: it cannot schedule one). Raises
+    on a refused query."""
+    fn = getattr(kernels.load(name), name + "_linear_clusters")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    n = fn(plan["rows"], plan["cluster"], plan["threads"], plan["smem"])
+    if n < 0:
+        kernels.check(-n, name + " (cluster query)")
+    return n
 
 
 def fullprob_fwd(ms2, consts, iscal):
@@ -353,17 +410,17 @@ def fullprob_fwd(ms2, consts, iscal):
     (planes (B, 3, D, Lp), cum (B, D)).
 
     On a CUDA tensor it launches kernel D as fwd_linear_plan(Lp) says:
-    one block a pair of the plan's threads, each owning `rows` lanes,
-    the row buffers in shared memory or (past 4096 lanes) in a global
-    scratch (B, 3, Lp + 1, 4). The kernel refuses a plan it has no build
-    for, and the wrapper raises on any launch error."""
+    one block a pair (a lane build) or, past CLUSTER_FROM - 1 lanes, one
+    thread block cluster a pair, each thread owning `rows` lanes in
+    registers and the rows of the two newest diagonals in shared memory.
+    The kernel refuses a plan it has no build for or a cluster the card
+    cannot schedule, and the wrapper raises on any launch error."""
     _check_linear(ms2, consts, iscal)
     if ms2.device.type == "cpu":
         PLAIN_CALLS["fullprob_fwd"] += 1
         return fullprob_fwd_plain(ms2, consts, iscal)
-    Lp = ms2.shape[2]
-    out = _launch_linear("fullprob_fwd", fwd_linear_plan(Lp),
-                         (3, Lp + 1, 4), ms2, consts, iscal)
+    out = _launch_linear("fullprob_fwd", fwd_linear_plan(ms2.shape[2]), ms2,
+                         consts, iscal)
     LAUNCHES["fullprob_fwd"] += 1
     return out
 
@@ -374,17 +431,17 @@ def fullprob_bwd(ms2, consts, iscal):
     Returns (planes (B, 3, D, Lp), cum (B, D)).
 
     On a CUDA tensor it launches kernel E as bwd_linear_plan(Lp) says:
-    one block a pair of the plan's threads, each owning `rows` lanes,
-    the row buffers in shared memory or (past 4096 lanes) in a global
-    scratch (B, 6, Lp + 1). The kernel refuses a plan it has no build
-    for, and the wrapper raises on any launch error."""
+    one block a pair (a lane build) or, past CLUSTER_FROM - 1 lanes, one
+    thread block cluster a pair, each thread owning `rows` lanes in
+    registers and the X and q rows of two diagonals in shared memory.
+    The kernel refuses a plan it has no build for or a cluster the card
+    cannot schedule, and the wrapper raises on any launch error."""
     _check_linear(ms2, consts, iscal)
     if ms2.device.type == "cpu":
         PLAIN_CALLS["fullprob_bwd"] += 1
         return fullprob_bwd_plain(ms2, consts, iscal)
-    Lp = ms2.shape[2]
-    out = _launch_linear("fullprob_bwd", bwd_linear_plan(Lp), (6, Lp + 1),
-                         ms2, consts, iscal)
+    out = _launch_linear("fullprob_bwd", bwd_linear_plan(ms2.shape[2]), ms2,
+                         consts, iscal)
     LAUNCHES["fullprob_bwd"] += 1
     return out
 

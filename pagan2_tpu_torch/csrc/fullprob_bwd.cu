@@ -28,10 +28,10 @@
 // equal the plain versions' (align/fullprob_fill.py) bit for bit.
 //
 // What bounds it on an H100: the serial chain of D = L + R - 1
-// diagonals of one job, one block per job. Bytes (16 per cell) and
-// operations are hundreds of times below the card's rates, so a step
-// costs its barrier, its reduction and its instruction issue. The
-// design, per step d:
+// diagonals of one job, one block (or cluster, item 6) per job. Bytes
+// (16 per cell) and operations are hundreds of times below the card's
+// rates, so a step costs its barrier, its reduction and its
+// instruction issue. The design, per step d:
 //  1. One block barrier. Each warp reduces the maximum of its raw cells
 //     with shuffles and writes it to a row of warp maxima (two rows,
 //     taken in turn by the parity of d); then the one __syncthreads. At
@@ -39,10 +39,10 @@
 //     thread holds s, 1/s and cum of diagonal d with no second barrier,
 //     scales its own lanes of d from registers and writes the planes.
 //  2. Raw values in the ring, scales applied on read. X and Y of d
-//     enter the ring (fan-in) or the row buffer (linear) raw before the
-//     barrier. A reader multiplies a value of diagonal e by 1/s of e,
-//     e-1, ..., d+1 in turn: the plain version's own sequence of
-//     multiplies, once at its rescale and then once a push. q = M/s * ms
+//     enter the ring (fan-in) or the rows in shared memory (linear) raw
+//     before the barrier. A reader multiplies a value of diagonal e by
+//     1/s of e, e-1, ..., d+1 in turn: the plain version's own sequence
+//     of multiplies, once at its rescale and then once a push. q = M/s * ms
 //     needs the scale of its own diagonal between two multiplies, so its
 //     owner writes it one step late, in the finish of diagonal d+1 at
 //     step d: no T read of step d reaches diagonal d+1 (ot = oL + oR >= 2
@@ -65,16 +65,36 @@
 //     earlier still) and the seeds of d-1 after it, so that the loads are
 //     in flight across the computation and the barrier.
 //  5. Compile-time fan-in (KL, KR up to 4 x 4, or 0 x 0: runtime K) and
-//     lanes a thread (ROWS: linear 1, 2 or 4, fan-in 2, or 4 up to K
-//     2 x 2; raw values in registers; 0: any count, raw values kept in
-//     a global buffer (linear) or the ring slot of d (fan-in)). The
-//     slot-0 sources are read
-//     without a branch; other slots behind one. Planes are written with
-//     streaming stores: nothing here reads them again.
-// The launch plan (template, lanes a thread, threads, ring placement,
-// right-slot table, shared bytes) is align/fullprob_fill.py::
+//     lanes a thread (ROWS: linear lane builds 1 or 2, cluster build 2
+//     or 4, fan-in 2, or 4 up to K 2 x 2; raw values in registers;
+//     fan-in 0: any count, raw values kept in the ring slot of d). The
+//     slot-0 sources are read without a branch; other slots behind one.
+//     Planes are written with streaming stores: nothing here reads them
+//     again.
+//  6. Linear past the lane builds (bwd_linear_plan's "cluster" build):
+//     one thread block cluster of C CTAs a job (2 to 8, 16 with the
+//     non-portable opt-in), the lanes split into C ranges of threads x
+//     ROWS (2 or 4), each lane in registers as in the lane builds; one
+//     cluster barrier a diagonal (release/acquire at cluster scope)
+//     instead of the block's. Warp 0 of each CTA gathers its warps'
+//     maxima (named barrier 1) and its lanes l < C store the CTA's
+//     maximum into the maxima row of CTA l, so every CTA reduces all C
+//     maxima itself (max is exact: s bit for bit the one-block s). X and
+//     q of lane i read lane i+1, so the owner of a CTA's FIRST
+//     lane stores what the CTA before reads there, into that CTA's slot
+//     LC: its raw X of d at step d, and its q of d+1 when it writes it,
+//     a step late, in the finish at step d; the reader takes q of d+1 at
+//     step d-1, after the barrier of step d. Parity rows are enough: a
+//     CTA writes step d-2's rows only after every CTA has passed the
+//     barrier of step d-1, after its reads of step d-1. A CTA whose lanes
+//     lie outside the matrix computes zeros and still arrives at every
+//     barrier; CTA 0 writes cum. With two lanes a thread the planes of
+//     d+1 are stored between the barrier's arrive and its wait.
+// The launch plan (template, lanes a thread, threads, cluster, ring
+// placement, right-slot table, shared bytes) is align/fullprob_fill.py::
 // bwd_fanin_plan and ::bwd_linear_plan; the kernel only picks the build
-// the plan names and refuses a plan it has none for.
+// the plan names and refuses a plan it has none for (and a cluster the
+// card cannot schedule: launch_cluster asks first).
 //
 // Ring-slot safety (fan-in). Diagonal e sits in global slot e % (G+1)
 // and hot slot e % H. Step d writes X, Y of d (slot of d) and q of d+1
@@ -93,30 +113,38 @@
 namespace {
 
 // ---------------------------------------------------------------- linear
-// ROWS: lanes a thread, raw M, X, Y in registers (0: any count, raw Y
-// and M in rows 4 and 5 of the global buffer). SHARED: the X and q row
-// buffers in shared memory, else in gbuf.
-template <int ROWS, bool SHARED>
+// ROWS: lanes a thread (lane builds 1 or 2; cluster build 2 or 4),
+// raw M, X, Y in registers; the X and q rows of two diagonals (parity of
+// d) in shared memory, lane k of the CTA at k. Slot LC (one past the
+// CTA's lanes) stays 0 in a lane build and in the cluster's last CTA,
+// else holds the first lane of the CTA after it, handed over (item 6).
+// CL: the cluster build (grid C B along x, cluster C x 1 x 1: job
+// blockIdx.x / C, CTA rank blockIdx.x % C owning lanes rank * nt * ROWS
+// on); else one block a job (grid B).
+template <int ROWS, bool CL>
 __global__ void __launch_bounds__(1024) fullprob_bwd_linear_kernel(
     const float* __restrict__ ms2,     // (B, D, Lp), row d = diagonal d
     const float* __restrict__ consts,  // (B, 8): .. [5] corner seed
     const int* __restrict__ iscal,     // (B, 2): L R
     float* __restrict__ planes,        // (B, 3, D, Lp): M X Y
     float* __restrict__ cum,           // (B, D)
-    float* gbuf,                       // (B, 6, Lp + 1) when not SHARED
     int D, int Lp) {
-  constexpr int RR = ROWS > 0 ? ROWS : 1;
+  // maxima of a diagonal, a row a parity: 32 warps' a block, or C CTAs'
+  // a cluster (and wloc, the CTA's warp maxima of the step)
+  constexpr int WS = CL ? CLUSTER_MAX : 32;
   extern __shared__ float smem[];
-  __shared__ float wmax[64];
-  const int b = blockIdx.x;
+  __shared__ float wmax[2 * WS];
+  __shared__ float wloc[CL ? 32 : 1];
+  const int C = CL ? cluster_ctas() : 1;
+  const int b = blockIdx.x / C, rank = blockIdx.x % C;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nw = (nt + 31) >> 5;
-  const int nrows = ROWS > 0 ? ROWS : (Lp + nt - 1) / nt;
-  const int LS = Lp + 1;   // lane Lp stays 0: lane Lp - 1 reads it
-  // [X of parity 0, 1][q of parity 0, 1][LS]; ROWS == 0: raw Y, raw M
-  float* buf = SHARED ? smem : gbuf + (size_t)b * 6 * LS;
-  float* xb = buf;
-  float* qb = buf + 2 * LS;
+  const int LC = CL ? nt * ROWS : Lp;   // the CTA's lanes
+  const int base = rank * LC;           // its first lane
+  const int LS = LC + 1;
+  // [X of parity 0, 1][q of parity 0, 1][LS]
+  float* xb = smem;
+  float* qb = smem + 2 * LS;
   const float ext = consts[b * 8 + 0];
   const float gcgo = consts[b * 8 + 1];
   const float nggo = consts[b * 8 + 2];
@@ -132,77 +160,102 @@ __global__ void __launch_bounds__(1024) fullprob_bwd_linear_kernel(
   float* pY = planes + ((size_t)b * 3 + 2) * D * Lp;
   float* cb = cum + (size_t)b * D;
 
-  for (int q = tid; q < (ROWS > 0 ? 4 : 6) * LS; q += nt) buf[q] = 0.0f;
+  for (int q = tid; q < 4 * LS; q += nt) smem[q] = 0.0f;
   // raw M, X of diagonal d+1; Y of d+1, scaled in the finish; the
   // match values of d+1 (for the finish) and of d (loaded a step early)
-  float Mr[RR], Xr[RR], Yr[RR], msn[RR], msn2[RR];
+  float Mr[ROWS], Xr[ROWS], Yr[ROWS], msn[ROWS], msn2[ROWS];
 #pragma unroll
-  for (int r = 0; r < RR; ++r) {
-    const int i = tid + r * nt;
+  for (int r = 0; r < ROWS; ++r) {
+    const int i = base + tid + r * nt;
     Mr[r] = Xr[r] = Yr[r] = msn[r] = 0.0f;
-    msn2[r] = ROWS > 0 && i < Lp ? __ldg(msb + (size_t)(D - 1) * Lp + i)
-                                 : 0.0f;
+    msn2[r] = i < Lp ? __ldg(msb + (size_t)(D - 1) * Lp + i) : 0.0f;
   }
   float cumv = 0.0f;
   float inv1 = 1.0f;   // 1/s of diagonal d+1
-  __syncthreads();
+  // the cluster: every CTA's copy of the maxima rows (this lane's CTA
+  // for lanes l < C) and the CTA before this one's X and q rows, for
+  // the hand-over
+  float* wrem = wmax;
+  float* prev = nullptr;
+  if constexpr (CL) {
+    wrem = peer(wmax, (tid & 31) < C ? (tid & 31) : 0);
+    if (rank > 0) prev = peer(smem, rank - 1);
+    // every CTA has started and cleared its rows before any peer stores
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
 
-  // scale the lanes of diagonal e = d+1 (raw maxima in wmax row pe),
-  // write its planes, cum and (with q) its q row
+  // scale the lanes of diagonal e = d+1 (raw maxima in wmax row pe) into
+  // Ps, Qs, Ss, write (with q) its q row; store writes them to the
+  // planes, and cum. DEFER: the cluster build of two lanes a thread
+  // stores them while the barrier of step d completes (with four, the
+  // registers they hold past the step spilled)
+  constexpr bool DEFER = CL && ROWS == 2;
+  float Ps[ROWS], Qs[ROWS], Ss[ROWS];
   auto finish = [&](int e, int pe, bool with_q) {
-    float s = row_max(wmax + 32 * pe, nw);
+    float s = CL ? cluster_row_max(wmax + WS * pe, C)
+                 : row_max(wmax + WS * pe, nw);
     if (!(s > 0.0f)) s = 1.0f;
     inv1 = 1.0f / s;
     cumv = cumv + logf(s);
 #pragma unroll
-    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
-      const int i = tid + r * nt;
+    for (int r = 0; r < ROWS; ++r) {
+      const int k = tid + r * nt;
+      const int i = base + k;
       if (i >= Lp) continue;
-      float M, X, Y, ms;
-      if constexpr (ROWS > 0) {
-        M = Mr[r]; X = Xr[r]; Y = Yr[r]; ms = msn[r];
-      } else {
-        X = xb[(e & 1) * LS + i];
-        Y = buf[4 * LS + i];
-        M = buf[5 * LS + i];
-        ms = with_q ? __ldg(msb + (size_t)e * Lp + i) : 0.0f;
+      const float Ms = Mr[r] * inv1, Xs = Xr[r] * inv1, Ys = Yr[r] * inv1;
+      Ps[r] = Ms;
+      Qs[r] = Xs;
+      Ss[r] = Ys;
+      if (with_q) {
+        const float q = Ms * msn[r];
+        qb[(e & 1) * LS + k] = q;
+        // the CTA's first lane is the previous CTA's lane LC
+        if (CL && k == 0 && prev != nullptr)
+          prev[2 * LS + (e & 1) * LS + LC] = q;
       }
-      const float Ms = M * inv1, Xs = X * inv1, Ys = Y * inv1;
-      __stcs(pM + (size_t)e * Lp + i, Ms);
-      __stcs(pX + (size_t)e * Lp + i, Xs);
-      __stcs(pY + (size_t)e * Lp + i, Ys);
-      if (with_q) qb[(e & 1) * LS + i] = Ms * ms;
-      if constexpr (ROWS > 0) Yr[r] = Ys;
+      Yr[r] = Ys;
     }
-    if (tid == 0) cb[e] = cumv;
+  };
+  auto store = [&](int e) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = base + tid + r * nt;
+      if (i >= Lp) continue;
+      __stcs(pM + (size_t)e * Lp + i, Ps[r]);
+      __stcs(pX + (size_t)e * Lp + i, Qs[r]);
+      __stcs(pY + (size_t)e * Lp + i, Ss[r]);
+    }
+    if (tid == 0 && rank == 0) cb[e] = cumv;
   };
 
   for (int d = D - 1; d >= 0; --d) {
     const int par = d & 1;
-    if (d + 1 < D) finish(d + 1, par ^ 1, true);
+    if (d + 1 < D) {
+      finish(d + 1, par ^ 1, true);
+      if constexpr (!DEFER) store(d + 1);
+    }
     const float* xn_row = xb + (par ^ 1) * LS;   // raw X of d+1
     const float* q_row = qb + par * LS;          // q of d+2
-    if constexpr (ROWS > 0) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int i = tid + r * nt;
-        msn[r] = msn2[r];
-        msn2[r] = i < Lp && d > 0
-                      ? __ldg(msb + (size_t)(d - 1) * Lp + i) : 0.0f;
-      }
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = base + tid + r * nt;
+      msn[r] = msn2[r];
+      msn2[r] = i < Lp && d > 0
+                    ? __ldg(msb + (size_t)(d - 1) * Lp + i) : 0.0f;
     }
     float lmax = 0.0f;
 #pragma unroll
-    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
-      const int i = tid + r * nt;
+    for (int r = 0; r < ROWS; ++r) {
+      const int k = tid + r * nt;
+      const int i = base + k;
       const int j = d - i;
       float M = 0.0f, X = 0.0f, Y = 0.0f;
       if (j >= 0 && j < R && i < L) {
-        const float xn = xn_row[i + 1] * inv1;
-        const float T = q_row[i + 1] * inv1;
-        float yn;
-        if constexpr (ROWS > 0) yn = Yr[r];
-        else yn = buf[4 * LS + i] * inv1;
+        const float xn = xn_row[k + 1] * inv1;
+        const float T = q_row[k + 1] * inv1;
+        const float yn = Yr[r];
         const float ex = ext * xn, ey = ext * yn;
         const float gx = gcgo * xn, gy = gcgo * yn;
         const float gt = gcng * T;
@@ -213,21 +266,26 @@ __global__ void __launch_bounds__(1024) fullprob_bwd_linear_kernel(
         if (d == cornerd && i == L - 1) M = M + seed;
       }
       if (i < Lp) {
-        xb[par * LS + i] = X;
-        if constexpr (ROWS == 0) {
-          buf[4 * LS + i] = Y;
-          buf[5 * LS + i] = M;
-        }
+        xb[par * LS + k] = X;
+        if (CL && k == 0 && prev != nullptr) prev[par * LS + LC] = X;
       }
-      if constexpr (ROWS > 0) {
-        Mr[r] = M; Xr[r] = X; Yr[r] = Y;
-      }
+      Mr[r] = M; Xr[r] = X; Yr[r] = Y;
       lmax = fmaxf(lmax, fmaxf(fmaxf(M, X), Y));
     }
-    warp_max(lmax, wmax + 32 * par);
-    __syncthreads();
+    if constexpr (CL) {
+      cta_max_to_cluster(lmax, wloc, wrem + WS * par, rank, C);
+      cluster_arrive();
+      if (DEFER && d + 1 < D) store(d + 1);   // no peer reads the planes
+      cluster_wait();
+    } else {
+      warp_max(lmax, wmax + WS * par);
+      __syncthreads();
+    }
   }
+  // diagonal 0; the barrier of step 0 was the last: no peer stores into
+  // this CTA after it, so it may exit
   finish(0, 0, false);
+  store(0);
 }
 
 // ---------------------------------------------------------------- fan-in
@@ -554,47 +612,70 @@ struct FaninBuilds {
 }  // namespace
 
 // The linear plan, as fullprob_fill.py::bwd_linear_plan computes it:
-// rows: lanes a thread (1, 2 or 4; 0: any count, raw values in gbuf);
-// use_shared: the row buffers in shared memory (smem bytes), else gbuf.
+// rows: lanes a thread; cluster: 0 for a lane build (one block a job,
+// rows 1 or 2, rows x threads >= Lp), else the CTAs of the job's
+// cluster (2 to 16, rows 2 or 4, cluster x rows x threads >= Lp);
+// smem: the X and q rows of two diagonals, 16 bytes a lane of the block
+// or CTA and one more.
 extern "C" int fullprob_bwd_linear_launch(
     const void* ms2, const void* consts, const void* iscal, void* planes,
-    void* cum, void* gbuf, int B, int D, int Lp, int rows, int use_shared,
-    int threads, int smem, void* stream) {
+    void* cum, int B, int D, int Lp, int rows, int cluster, int threads,
+    int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (threads < 32 || threads > 1024 || threads % 32 ||
-      (rows > 0 && (long)rows * threads < Lp))
+  const long lanes = (long)rows * threads * (cluster ? cluster : 1);
+  if (threads < 32 || threads > 1024 || threads % 32 || lanes < Lp ||
+      B < 1 ||
+      (size_t)smem < (size_t)4 * ((cluster ? rows * threads : Lp) + 1) *
+                         sizeof(float))
     return (int)cudaErrorInvalidValue;
-  const size_t need = (size_t)4 * (Lp + 1) * sizeof(float);
-  if (use_shared && (size_t)smem < need) return (int)cudaErrorInvalidValue;
-  if (!use_shared && gbuf == nullptr) return (int)cudaErrorInvalidValue;
   const float* m = (const float*)ms2;
   const float* c = (const float*)consts;
   const int* is = (const int*)iscal;
   float* p = (float*)planes;
   float* cu = (float*)cum;
-  float* g = (float*)gbuf;
-  if (!use_shared) {
-    if (rows != 0) return (int)cudaErrorInvalidValue;
-    fullprob_bwd_linear_kernel<0, false><<<B, threads, 0, st>>>(
-        m, c, is, p, cu, g, D, Lp);
-    return (int)cudaGetLastError();
-  }
   cudaError_t err;
+  if (cluster) {
+    switch (rows) {
+      case 2:
+        return launch_cluster(fullprob_bwd_linear_kernel<2, true>, cluster,
+                              B, threads, (size_t)smem, st, m, c, is, p, cu,
+                              D, Lp);
+      case 4:
+        return launch_cluster(fullprob_bwd_linear_kernel<4, true>, cluster,
+                              B, threads, (size_t)smem, st, m, c, is, p, cu,
+                              D, Lp);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (rows) {
 #define BWD_LIN(n)                                                          \
   case n:                                                                   \
-    err = allow_smem(fullprob_bwd_linear_kernel<n, true>, (size_t)smem);    \
+    err = allow_smem(fullprob_bwd_linear_kernel<n, false>, (size_t)smem);   \
     if (err != cudaSuccess) return (int)err;                                \
-    fullprob_bwd_linear_kernel<n, true><<<B, threads, smem, st>>>(          \
-        m, c, is, p, cu, g, D, Lp);                                         \
+    fullprob_bwd_linear_kernel<n, false><<<B, threads, smem, st>>>(         \
+        m, c, is, p, cu, D, Lp);                                            \
     return (int)cudaGetLastError();
     BWD_LIN(1)
     BWD_LIN(2)
-    BWD_LIN(4)
 #undef BWD_LIN
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// How many clusters of the cluster build (rows 2 or 4) of `cluster`
+// CTAs of `threads` threads and smem bytes the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the error of the query.
+extern "C" int fullprob_bwd_linear_clusters(int rows, int cluster,
+                                            int threads, int smem) {
+  if (rows == 2)
+    return cluster_fit(fullprob_bwd_linear_kernel<2, true>, cluster,
+                       threads, (size_t)smem);
+  if (rows == 4)
+    return cluster_fit(fullprob_bwd_linear_kernel<4, true>, cluster,
+                       threads, (size_t)smem);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // The fan-in plan, as fullprob_fill.py::bwd_fanin_plan computes it:

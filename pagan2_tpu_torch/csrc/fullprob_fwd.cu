@@ -26,10 +26,11 @@
 // equal the plain versions' (align/fullprob_fill.py) bit for bit.
 //
 // What bounds it on an H100: the serial chain of D = L + R - 1
-// diagonals of one job, one block per job. Bytes (16 per cell) and
-// operations are hundreds of times below the card's rates, so a step
-// costs its barrier, its reduction and its instruction issue. The
-// design (kernel E's, csrc/fullprob_bwd.cu, run forward), per step d:
+// diagonals of one job, one block (or cluster, item 6) per job. Bytes
+// (16 per cell) and operations are hundreds of times below the card's
+// rates, so a step costs its barrier, its reduction and its
+// instruction issue. The design (kernel E's, csrc/fullprob_bwd.cu, run
+// forward), per step d:
 //  1. One block barrier. Each warp reduces the maximum of its raw cells
 //     with shuffles and writes it to a row of warp maxima (two rows,
 //     taken in turn by the parity of d); then the one __syncthreads. At
@@ -54,8 +55,8 @@
 //     d-1 are read once, used for X at step d and kept in registers for
 //     M at step d+1, so shared memory holds only the rows of the two
 //     newest diagonals, taken in turn by parity, M, X and Y of a lane in
-//     one 16-byte slot (32 (Lp + 1) bytes). ms2 of d+1 is loaded during
-//     step d.
+//     one 16-byte slot (32 (lanes + 1) bytes, lanes of the block or of
+//     the CTA). ms2 of d+1 is loaded during step d.
 //  4. Fan-in: the newest diagonals on chip. The ring holds raw M, X, Y
 //     of a lane in one 16-byte slot (one load and one address a source,
 //     one store a cell). It is in
@@ -71,15 +72,37 @@
 //     ring (else it is read from device memory through the same
 //     pointer). msp of d+1 is loaded during step d.
 //  5. Compile-time fan-in (KL, KR up to 4 x 4, or 0 x 0: runtime K) and
-//     lanes a thread (ROWS: linear 1, 2 or 4, fan-in 2, or 4 up to K
-//     2 x 2; raw values in registers; 0: any count, raw values read back
-//     from the buffer (linear, three generations in device memory) or
-//     the ring slot of d (fan-in)). The slot-0 sources are read without
-//     a branch; other slots behind one.
-// The launch plan (template, lanes a thread, threads, ring placement,
-// right-slot table, shared bytes) is align/fullprob_fill.py::
+//     lanes a thread (ROWS: linear lane builds 1 or 2, cluster build 2
+//     or 4, fan-in 2, or 4 up to K 2 x 2; raw values in registers;
+//     fan-in 0: any count, raw values read back from the ring slot of
+//     d). The slot-0 sources are read without a branch; other slots
+//     behind one.
+//  6. Linear past the lane builds (fwd_linear_plan's "cluster" build):
+//     one thread block cluster of C CTAs a job (2 to 8, 16 with the
+//     non-portable opt-in; neighbouring SMs), the lanes split into C
+//     ranges of threads x ROWS (2 or 4), each lane in registers as in
+//     the lane builds. The block barrier becomes one cluster barrier a
+//     diagonal (release/acquire at cluster scope). Before it, each warp
+//     reduces its maximum with shuffles, warp 0 of the CTA gathers them
+//     (named barrier 1) and its lanes l < C store the CTA's maximum
+//     into the maxima row of CTA l (distributed shared memory), so every
+//     CTA holds all C maxima of d and reduces them itself at step d+1:
+//     max is exact, so s is the one-block s bit for bit (C remote stores
+//     a CTA and diagonal: on the H100 a store a warp and CTA took 7%
+//     (D) and 12% (E) longer at 16 CTAs of 544 threads, and the same
+//     within 7% at 8 CTAs of 320 to 384). The owner of a CTA's last lane
+//     also stores its raw (M, X, Y) of d into slot 0 (lane -1) of the
+//     next CTA's row of d's parity. Parity rows are enough: a CTA writes
+//     step d+2's rows only after every CTA has passed the barrier of
+//     step d+1, after its reads of step d+1. A CTA whose lanes lie
+//     outside the matrix on a diagonal computes zeros and still arrives
+//     at every barrier; CTA 0 writes cum. With two lanes a thread the
+//     planes of d-1 are stored between the barrier's arrive and its wait.
+// The launch plan (template, lanes a thread, threads, cluster, ring
+// placement, right-slot table, shared bytes) is align/fullprob_fill.py::
 // fwd_fanin_plan and ::fwd_linear_plan; the kernel only picks the build
-// the plan names and refuses a plan it has none for.
+// the plan names and refuses a plan it has none for (and a cluster the
+// card cannot schedule: launch_cluster asks first).
 //
 // Ring-slot safety (fan-in). Diagonal e sits in global slot e % (G+1)
 // and hot slot e % H. Step d writes M, X, Y of d (the slot of d) and
@@ -98,28 +121,37 @@
 namespace {
 
 // ---------------------------------------------------------------- linear
-// ROWS: lanes a thread; raw M, X, Y of d-1 at lane i and of d-2 at lane
-// i-1 in registers, the rows of two generations (parity of d) in shared
-// memory. 0: any count, three generations of rows in gbuf. A row holds
-// (M, X, Y, 0) of lane i at i + 1; its slot 0 (lane -1) stays 0.
-template <int ROWS>
+// ROWS: lanes a thread (lane builds 1 or 2; cluster build 2 or 4);
+// raw M, X, Y of d-1 at lane i and of d-2 at lane i-1 in registers, the
+// rows of two generations (parity of d) in shared memory. A row holds
+// (M, X, Y, 0) of the CTA's lane k at k + 1; its slot 0 holds lane -1
+// (0) in a lane build and in the cluster's first CTA, else the last
+// lane of the CTA before it, handed over (item 6). CL: the cluster
+// build (grid C B along x, cluster C x 1 x 1: job blockIdx.x / C, CTA
+// rank blockIdx.x % C owning lanes rank * nt * ROWS on); else one block
+// a job (grid B).
+template <int ROWS, bool CL>
 __global__ void __launch_bounds__(1024) fullprob_fwd_linear_kernel(
     const float* __restrict__ ms2,     // (B, D, Lp), row d = diagonal d
     const float* __restrict__ consts,  // (B, 8)
     const int* __restrict__ iscal,     // (B, 2): L R
     float* __restrict__ planes,        // (B, 3, D, Lp): M X Y
     float* __restrict__ cum,           // (B, D)
-    float4* gbuf,                      // (B, 3, Lp + 1) when ROWS == 0
     int D, int Lp) {
-  constexpr int RR = ROWS > 0 ? ROWS : 1;
+  // maxima of a diagonal, a row a parity: 32 warps' a block, or C CTAs'
+  // a cluster (and wloc, the CTA's warp maxima of the step)
+  constexpr int WS = CL ? CLUSTER_MAX : 32;
   extern __shared__ float4 rows4[];
-  __shared__ float wmax[64];
-  const int b = blockIdx.x;
+  __shared__ float wmax[2 * WS];
+  __shared__ float wloc[CL ? 32 : 1];
+  const int C = CL ? cluster_ctas() : 1;
+  const int b = blockIdx.x / C, rank = blockIdx.x % C;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nw = (nt + 31) >> 5;
-  const int nrows = ROWS > 0 ? ROWS : (Lp + nt - 1) / nt;
-  const int LS = Lp + 1;   // a generation's row
-  float4* buf = ROWS > 0 ? rows4 : gbuf + (size_t)b * 3 * LS;
+  const int LC = CL ? nt * ROWS : Lp;   // the CTA's lanes
+  const int base = rank * LC;           // its first lane
+  const int LS = LC + 1;                // a generation's row
+  float4* buf = rows4;
   const float ext = consts[b * 8 + 0];
   const float gcgo = consts[b * 8 + 1];
   const float nggo = consts[b * 8 + 2];
@@ -134,89 +166,99 @@ __global__ void __launch_bounds__(1024) fullprob_fwd_linear_kernel(
   float* cb = cum + (size_t)b * D;
 
   // generation 0 is diagonal 0: raw M(0, 0) = 1, all else 0
-  for (int q = tid; q < (ROWS > 0 ? 2 : 3) * LS; q += nt)
-    buf[q] = make_float4(q == 1 ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q = tid; q < 2 * LS; q += nt)
+    buf[q] = make_float4(q == 1 && base == 0 ? 1.0f : 0.0f, 0.0f, 0.0f,
+                         0.0f);
   // raw M, X, Y of d-1 at lane i; raw M, X, Y of d-2 at lane i-1; ms2 of
   // d, loaded a step early
-  float Mr[RR], Xr[RR], Yr[RR], pm[RR], px[RR], py[RR], msn[RR];
+  float Mr[ROWS], Xr[ROWS], Yr[ROWS], pm[ROWS], px[ROWS], py[ROWS],
+      msn[ROWS];
 #pragma unroll
-  for (int r = 0; r < RR; ++r) {
-    const int i = tid + r * nt;
+  for (int r = 0; r < ROWS; ++r) {
+    const int i = base + tid + r * nt;
     Mr[r] = Xr[r] = Yr[r] = pm[r] = px[r] = py[r] = 0.0f;
-    msn[r] = ROWS > 0 && i < Lp ? __ldg(msb + Lp + i) : 0.0f;
+    msn[r] = i < Lp ? __ldg(msb + Lp + i) : 0.0f;
   }
-  if (ROWS > 0 && tid == 0) Mr[0] = 1.0f;
+  if (base == 0 && tid == 0) Mr[0] = 1.0f;
   float cumv = 0.0f;
   float inv1 = 1.0f, inv2 = 1.0f;   // 1/s of diagonals d-1, d-2
-  warp_max(tid == 0 ? 1.0f : 0.0f, wmax);
-  __syncthreads();
+  // the cluster: every CTA's copy of the maxima rows (this lane's CTA
+  // for lanes l < C) and the next CTA's rows, for the hand-over
+  float* wrem = wmax;
+  float4* next = nullptr;
+  if constexpr (CL) {
+    wrem = peer(wmax, (tid & 31) < C ? (tid & 31) : 0);
+    if (rank + 1 < C) next = peer(buf, rank + 1);
+    // diagonal 0's maximum is 1 (lane 0)
+    for (int q = tid; q < 2 * WS; q += nt) wmax[q] = q == 0 ? 1.0f : 0.0f;
+    // every CTA has started and set its rows before any peer stores
+    cluster_sync();
+  } else {
+    warp_max(tid == 0 ? 1.0f : 0.0f, wmax);
+    __syncthreads();
+  }
 
-  // scale the lanes of diagonal e (raw maxima in wmax row e & 1; ROWS ==
-  // 0: raw values in generation `raw`), write its planes and cum
-  auto finish = [&](int e, const float4* raw) {
-    float s = row_max(wmax + 32 * (e & 1), nw);
+  // scale the lanes of diagonal e (raw maxima in wmax row e & 1) into
+  // Ps, Qs, Ss; store writes them to the planes, and cum. DEFER: the
+  // cluster build of two lanes a thread stores them while its barrier of
+  // the next step completes (with four, the 12 registers they hold past
+  // the step spilled)
+  constexpr bool DEFER = CL && ROWS == 2;
+  float Ps[ROWS], Qs[ROWS], Ss[ROWS];
+  auto scale = [&](int e) {
+    float s = CL ? cluster_row_max(wmax + WS * (e & 1), C)
+                 : row_max(wmax + WS * (e & 1), nw);
     if (!(s > 0.0f)) s = 1.0f;
     const float inv = 1.0f / s;
     inv2 = inv1;
     inv1 = inv;
     cumv = cumv + logf(s);
 #pragma unroll
-    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
-      const int i = tid + r * nt;
-      if (i >= Lp) continue;
-      float M, X, Y;
-      if constexpr (ROWS > 0) {
-        M = Mr[r]; X = Xr[r]; Y = Yr[r];
-      } else {
-        const float4 v = raw[i + 1];
-        M = v.x; X = v.y; Y = v.z;
-      }
-      __stcs(pM + (size_t)e * Lp + i, M * inv);
-      __stcs(pX + (size_t)e * Lp + i, X * inv);
-      __stcs(pY + (size_t)e * Lp + i, Y * inv);
+    for (int r = 0; r < ROWS; ++r) {
+      Ps[r] = Mr[r] * inv;
+      Qs[r] = Xr[r] * inv;
+      Ss[r] = Yr[r] * inv;
     }
-    if (tid == 0) cb[e] = cumv;
+  };
+  auto store = [&](int e) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = base + tid + r * nt;
+      if (i >= Lp) continue;
+      __stcs(pM + (size_t)e * Lp + i, Ps[r]);
+      __stcs(pX + (size_t)e * Lp + i, Qs[r]);
+      __stcs(pY + (size_t)e * Lp + i, Ss[r]);
+    }
+    if (tid == 0 && rank == 0) cb[e] = cumv;
   };
 
-  int gn1 = 0, gn2 = 2;   // ROWS == 0: generations of d-1 and d-2
   for (int d = 1; d < D; ++d) {
-    const int gn0 = 3 - gn1 - gn2;
-    const float4* nb = buf + (ROWS > 0 ? ((d - 1) & 1) : gn1) * LS;  // d-1
-    const float4* b2 = buf + gn2 * LS;                                 // d-2
-    float4* wb = buf + (ROWS > 0 ? (d & 1) : gn0) * LS;                // d
-    finish(d - 1, nb);
-    float ms[RR];
-    if constexpr (ROWS > 0) {
+    const float4* nb = buf + ((d - 1) & 1) * LS;   // d-1
+    float4* wb = buf + (d & 1) * LS;               // d
+    scale(d - 1);
+    if constexpr (!DEFER) store(d - 1);
+    float ms[ROWS];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int i = tid + r * nt;
-        ms[r] = msn[r];
-        msn[r] = i < Lp && d + 1 < D
-                     ? __ldg(msb + (size_t)(d + 1) * Lp + i) : 0.0f;
-      }
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = base + tid + r * nt;
+      ms[r] = msn[r];
+      msn[r] = i < Lp && d + 1 < D
+                   ? __ldg(msb + (size_t)(d + 1) * Lp + i) : 0.0f;
     }
     float lmax = 0.0f;
 #pragma unroll
-    for (int r = 0; r < (ROWS > 0 ? ROWS : nrows); ++r) {
-      const int i = tid + r * nt;
+    for (int r = 0; r < ROWS; ++r) {
+      const int k = tid + r * nt;
+      const int i = base + k;
       const int j = d - i;
       float M = 0.0f, X = 0.0f, Y = 0.0f;
       if (j >= 0 && j < R && i < L) {
         // raw M, X, Y of d-1 at lane i-1
-        const float4 n4 = nb[i];
+        const float4 n4 = nb[k];
         const float nm = n4.x, nx = n4.y, ny = n4.z;
-        float om, ox, oy, qm, qx, qy, msd;
-        if constexpr (ROWS > 0) {
-          om = Mr[r]; ox = Xr[r]; oy = Yr[r];
-          qm = pm[r]; qx = px[r]; qy = py[r];
-          msd = ms[r];
-          pm[r] = nm; px[r] = nx; py[r] = ny;
-        } else {
-          const float4 o4 = nb[i + 1], q4 = b2[i];
-          om = o4.x; ox = o4.y; oy = o4.z;
-          qm = q4.x; qx = q4.y; qy = q4.z;
-          msd = __ldg(msb + (size_t)d * Lp + i);
-        }
+        const float om = Mr[r], ox = Xr[r], oy = Yr[r];
+        const float qm = pm[r], qx = px[r], qy = py[r];
+        pm[r] = nm; px[r] = nx; py[r] = ny;
         if (i > 0) {
           const float a = ext * (nx * inv1);
           const float c = gcgo * (ny * inv1);
@@ -236,21 +278,32 @@ __global__ void __launch_bounds__(1024) fullprob_fwd_linear_kernel(
           const float a = ng2 * m2;
           const float c = gcng * x2;
           const float e = gcng * y2;
-          M = msd * ((a + c) + e);
+          M = ms[r] * ((a + c) + e);
         }
       }
-      if (i < Lp) wb[i + 1] = make_float4(M, X, Y, 0.0f);
-      if constexpr (ROWS > 0) {
-        Mr[r] = M; Xr[r] = X; Yr[r] = Y;
+      if (i < Lp) {
+        const float4 v = make_float4(M, X, Y, 0.0f);
+        wb[k + 1] = v;
+        // the CTA's last lane is the next CTA's lane -1
+        if (CL && k == LC - 1 && next != nullptr) next[(d & 1) * LS] = v;
       }
+      Mr[r] = M; Xr[r] = X; Yr[r] = Y;
       lmax = fmaxf(lmax, fmaxf(fmaxf(M, X), Y));
     }
-    warp_max(lmax, wmax + 32 * (d & 1));
-    __syncthreads();
-    gn2 = gn1;
-    gn1 = gn0;
+    if constexpr (CL) {
+      cta_max_to_cluster(lmax, wloc, wrem + WS * (d & 1), rank, C);
+      cluster_arrive();
+      if constexpr (DEFER) store(d - 1);   // no peer reads the planes
+      cluster_wait();
+    } else {
+      warp_max(lmax, wmax + WS * (d & 1));
+      __syncthreads();
+    }
   }
-  finish(D - 1, buf + (ROWS > 0 ? ((D - 1) & 1) : gn1) * LS);
+  // diagonal D-1; the barrier of step D-1 was the last: no peer stores
+  // into this CTA after it, so it may exit
+  scale(D - 1);
+  store(D - 1);
 }
 
 // ---------------------------------------------------------------- fan-in
@@ -555,47 +608,70 @@ struct FaninBuilds {
 }  // namespace
 
 // The linear plan, as fullprob_fill.py::fwd_linear_plan computes it:
-// rows: lanes a thread (1, 2 or 4, with use_shared: the rows of two
-// diagonals, 16 bytes a lane, in smem bytes of shared memory; 0: any
-// count, three generations of rows in gbuf).
+// rows: lanes a thread; cluster: 0 for a lane build (one block a job,
+// rows 1 or 2, rows x threads >= Lp), else the CTAs of the job's
+// cluster (2 to 16, rows 2 or 4, cluster x rows x threads >= Lp);
+// smem: the rows of two diagonals, 16 bytes a lane of the block or CTA
+// and one more.
 extern "C" int fullprob_fwd_linear_launch(
     const void* ms2, const void* consts, const void* iscal, void* planes,
-    void* cum, void* gbuf, int B, int D, int Lp, int rows, int use_shared,
-    int threads, int smem, void* stream) {
+    void* cum, int B, int D, int Lp, int rows, int cluster, int threads,
+    int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (threads < 32 || threads > 1024 || threads % 32 ||
-      (rows > 0 && (long)rows * threads < Lp) || D < 2)
+  const long lanes = (long)rows * threads * (cluster ? cluster : 1);
+  if (threads < 32 || threads > 1024 || threads % 32 || lanes < Lp ||
+      D < 2 || B < 1 ||
+      (size_t)smem < (size_t)2 * ((cluster ? rows * threads : Lp) + 1) *
+                         sizeof(float4))
     return (int)cudaErrorInvalidValue;
   const float* m = (const float*)ms2;
   const float* c = (const float*)consts;
   const int* is = (const int*)iscal;
   float* p = (float*)planes;
   float* cu = (float*)cum;
-  float4* g = (float4*)gbuf;
-  if (!use_shared) {
-    if (rows != 0 || gbuf == nullptr) return (int)cudaErrorInvalidValue;
-    fullprob_fwd_linear_kernel<0><<<B, threads, 0, st>>>(m, c, is, p, cu, g,
-                                                         D, Lp);
-    return (int)cudaGetLastError();
-  }
-  if ((size_t)smem < (size_t)2 * (Lp + 1) * sizeof(float4))
-    return (int)cudaErrorInvalidValue;
   cudaError_t err;
+  if (cluster) {
+    switch (rows) {
+      case 2:
+        return launch_cluster(fullprob_fwd_linear_kernel<2, true>, cluster,
+                              B, threads, (size_t)smem, st, m, c, is, p, cu,
+                              D, Lp);
+      case 4:
+        return launch_cluster(fullprob_fwd_linear_kernel<4, true>, cluster,
+                              B, threads, (size_t)smem, st, m, c, is, p, cu,
+                              D, Lp);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (rows) {
 #define FWD_LIN(n)                                                          \
   case n:                                                                   \
-    err = allow_smem(fullprob_fwd_linear_kernel<n>, (size_t)smem);          \
+    err = allow_smem(fullprob_fwd_linear_kernel<n, false>, (size_t)smem);   \
     if (err != cudaSuccess) return (int)err;                                \
-    fullprob_fwd_linear_kernel<n><<<B, threads, smem, st>>>(m, c, is, p,    \
-                                                            cu, g, D, Lp);  \
+    fullprob_fwd_linear_kernel<n, false><<<B, threads, smem, st>>>(         \
+        m, c, is, p, cu, D, Lp);                                            \
     return (int)cudaGetLastError();
     FWD_LIN(1)
     FWD_LIN(2)
-    FWD_LIN(4)
 #undef FWD_LIN
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// How many clusters of the cluster build (rows 2 or 4) of `cluster`
+// CTAs of `threads` threads and smem bytes the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the error of the query.
+extern "C" int fullprob_fwd_linear_clusters(int rows, int cluster,
+                                            int threads, int smem) {
+  if (rows == 2)
+    return cluster_fit(fullprob_fwd_linear_kernel<2, true>, cluster,
+                       threads, (size_t)smem);
+  if (rows == 4)
+    return cluster_fit(fullprob_fwd_linear_kernel<4, true>, cluster,
+                       threads, (size_t)smem);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // The fan-in plan, as fullprob_fill.py::fwd_fanin_plan computes it:

@@ -55,38 +55,51 @@ def test_bench_fullprob_times_the_wide_and_454_fanin_shapes(saved):
 
 
 def _call(Lp, K=None):
-    """Tensors shaped as one of kernel D's calls (values unused)."""
-    if K is None:
-        return "fullprob_fwd", dict(ms2=torch.zeros(1, 8, Lp))
+    """Tensors shaped as one of kernel D's calls (K "E": kernel E's
+    linear call; values unused)."""
+    if K is None or K == "E":
+        return ("fullprob_fwd" if K is None else "fullprob_bwd",
+                dict(ms2=torch.zeros(1, 8, Lp)))
     return "fullprob_fwd_fanin", dict(
         loff=torch.zeros(1, Lp, K, dtype=torch.int32),
         roff=torch.zeros(1, 200, K, dtype=torch.int32), G=26)
 
 
 @pytest.mark.parametrize("Lp,K,builds", [
-    (512, None, 4), (544, None, 4), (1024, None, 4), (1536, None, 3),
-    (2016, None, 3), (2112, None, 2),
+    (512, None, 6), (544, None, 6), (1024, None, 6), (1536, None, 5),
+    (2016, None, 5), (2112, None, 4), (4112, None, 4), (8112, None, 4),
+    (2112, "E", 4), (5008, "E", 4),
     (1536, 2, 4), (2016, 2, 2), (2016, 1, 2), (2112, 2, 1), (2048, 3, 1),
     (768, 3, 3)])
 def test_lane_plans_list_every_build_once_the_plans_first(Lp, K, builds):
-    """--lanes: kernel D's lane builds that can take a call, the plan's
-    own first, each once, each with enough lanes and a block its build
-    takes (linear up to 1,024 threads; fan-in two lanes up to 768, 384
-    past a templated K 2 x 2, four up to 512 and only up to K 2 x 2,
-    any count runtime K only)."""
+    """--lanes: kernel D's (and E's linear) builds that can take a call,
+    the plan's own first, each once, each with enough lanes and a block
+    its build takes (linear: 1 and 2 lanes a thread on one block of up
+    to 1,024 threads, and the cluster build at each size the plan picks
+    (8 and 16) with 2 and 4 lanes a thread; fan-in two lanes up to 768, 384
+    past a templated K 2 x 2, four up to 512 and only up to K 2 x 2, any
+    count runtime K only)."""
     name, kw = _call(Lp, K)
     got = bench_fullprob.lane_plans(ff, name, kw)
     plans = [p for _t, p in got]
     own = ff.fwd_linear_plan(Lp) if K is None else \
+        ff.bwd_linear_plan(Lp) if K == "E" else \
         ff.fwd_fanin_plan(Lp, 26, K, K, 200)
     assert plans[0] == own and len(plans) == builds
     assert len({t for t, _p in got}) == builds
     for p in plans:
         rows = p["rows"] or -(-Lp // p["threads"])
-        assert rows * p["threads"] >= Lp and p["threads"] % 32 == 0
-        assert p["threads"] <= 1024
-        if K is None:
-            assert p["shared"] == (p["rows"] > 0)
+        assert rows * p["threads"] * max(1, p.get("cluster", 1)) >= Lp
+        assert p["threads"] % 32 == 0 and p["threads"] <= 1024
+        if K is None or K == "E":
+            cell = 32 if K is None else 16
+            if p["cluster"]:
+                assert p["cluster"] in ff.CLUSTER_SIZES
+                assert p["rows"] in (2, 4)
+                assert p["smem"] == cell * (p["rows"] * p["threads"] + 1)
+            else:
+                assert p["rows"] in (1, 2)
+                assert p["smem"] == cell * (Lp + 1)
             continue
         assert (p["KL"], p["KR"]) in ((0, 0), (K, K))
         assert p["placement"] == own["placement"]
@@ -96,3 +109,33 @@ def test_lane_plans_list_every_build_once_the_plans_first(Lp, K, builds):
             assert p["threads"] <= (768 if K <= 2 or not p["KL"] else 384)
         else:
             assert p["KL"] == 0
+
+
+def test_bench_fullprob_giant_on_cpu(tmp_path):
+    """--giant --small: both linear entry points on giant_calls' three
+    batches at CPU sizes (the 5,000 bp pair cut to 200, the ragged batch
+    of three pairs), then held bit for bit against the saved digests;
+    --clusters is refused off a card and without --giant."""
+    first = bench_fullprob.main(["--device", "cpu", "--small", "--giant",
+                                 "--save", str(tmp_path)])
+    assert [(r["source"], r["entry"], r["B"]) for r in first] == [
+        ("pair 300", "fullprob_fwd", 1), ("pair 300", "fullprob_bwd", 1),
+        ("pair 200", "fullprob_fwd", 1), ("pair 200", "fullprob_bwd", 1),
+        ("ragged batch", "fullprob_fwd", 3),
+        ("ragged batch", "fullprob_bwd", 3)]
+    assert all(r["plan"] and r["ms"] > 0 for r in first)
+    again = bench_fullprob.main(["--device", "cpu", "--small", "--giant",
+                                 "--check", str(tmp_path)])
+    assert all(r["same"] for r in again)
+    for argv in (["--device", "cpu", "--giant", "--clusters", "2x2"],
+                 ["--clusters", "2x2"]):
+        with pytest.raises(SystemExit):
+            bench_fullprob.main(argv)
+    assert bench_fullprob.cluster_sweep("2x2,16x4") == [(2, 2), (16, 4)]
+
+
+def test_redrawn_pair_is_seeded():
+    a, b = bench_fullprob.redrawn_pair(5000)
+    assert len(a) == len(b) == 5000 and (a, b) == \
+        bench_fullprob.redrawn_pair(5000)
+    assert 0.05 < sum(x != y for x, y in zip(a, b)) / 5000 < 0.1

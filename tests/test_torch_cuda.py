@@ -728,7 +728,7 @@ def _same_fills(out, ref):
 @pytest.mark.parametrize("sizes", [[70], [300, 257, 129], [4200]])
 def test_fullprob_linear_kernels_match_plain(cuda, sizes):
     """Kernels D and E, linear entry points: one pair, a ragged batch,
-    and a left side past 4096 lanes (row buffers in global scratch)."""
+    and a left side past 4096 lanes (the cluster build)."""
     rng = np.random.default_rng(len(sizes))
     pairs = [_related(rng, n) for n in sizes]
     if sizes == [4200]:
@@ -736,7 +736,7 @@ def test_fullprob_linear_kernels_match_plain(cuda, sizes):
                                                 alph.DNA))]
     inps = [fp.linear_fullprob_inputs(*p, MODEL) for p in pairs]
     args = ff.linear_batch_args(inps, cuda)
-    assert (not ff.fwd_linear_plan(args["ms2"].shape[2])["shared"]) \
+    assert (ff.fwd_linear_plan(args["ms2"].shape[2])["cluster"] > 0) \
         == (sizes == [4200])
     n0 = dict(ff.LAUNCHES)
     fwd = ff.fullprob_fwd(**args)
@@ -747,6 +747,25 @@ def test_fullprob_linear_kernels_match_plain(cuda, sizes):
     _same_fills(fwd, ff.fullprob_fwd_plain(**args))
     _same_fills(bwd, ff.fullprob_bwd_plain(**args))
     assert float(fwd[0].max()) == 1.0 and float(bwd[0].max()) == 1.0
+
+
+def test_fullprob_linear_kernels_past_65535_pairs(cuda):
+    """Kernels D and E, linear lane build, on one launch of 65,537
+    pairs (the batch lies along grid x; the executor's smallest
+    full-probability bucket, 32 x 32, takes up to 65,536 pairs): seven
+    pairs of different lengths in turn, planes bit-equal to the plain
+    version, so pair 65,536 is its own."""
+    rng = np.random.default_rng(65537)
+    inps = [fp.linear_fullprob_inputs(*_related(rng, n), MODEL)
+            for n in (12, 15, 17, 20, 22, 25, 27)]
+    one = ff.linear_batch_args(inps, cuda)
+    pick = torch.arange(65537, device=cuda) % len(inps)
+    args = {k: v[pick].contiguous() for k, v in one.items()}
+    for entry in ("fullprob_fwd", "fullprob_bwd"):
+        out = getattr(ff, entry)(**args)
+        torch.cuda.synchronize()
+        _same_fills(out, getattr(ff, entry + "_plain")(**args))
+        assert torch.equal(_bits(out[0][65536]), _bits(out[0][65536 % 7]))
 
 
 @pytest.mark.parametrize("case", ["homopolymer", "ancestors", "wide"])
@@ -826,9 +845,11 @@ def _bwd_shape_case(case, rng):
         kw = ff.linear_batch_args([fp.linear_fullprob_inputs(*p, MODEL)
                                    for p in pairs], "cuda")
         want = {"linear_rows1": dict(rows=1), "linear_rows2": dict(rows=2),
-                "linear_rows4": dict(rows=4),
-                "linear_global": dict(rows=0, shared=False),
-                "linear_ragged": dict(rows=2, shared=True)}[case]
+                # past 2,048 lanes: the cluster build
+                "linear_rows4": dict(rows=2, cluster=8),
+                # past 4,096 lanes: the cluster build
+                "linear_global": dict(rows=2, cluster=8),
+                "linear_ragged": dict(rows=2, cluster=0)}[case]
         return "linear", kw, want
     G = None
     if case.startswith("k"):                     # "k<KL>x<KR>"
@@ -893,11 +914,12 @@ BWD_SHAPES = (["linear_rows1", "linear_rows2", "linear_rows4",
 def test_fullprob_bwd_shape_classes(cuda, case):
     """Kernel E against its plain version on each shape class of its
     launch plans: every templated fan-in and the runtime-K build, each
-    ring placement (shared, a hot split, global), one, two and four
-    lanes a thread (fan-in two, and four up to K 2 x 2) and the build
-    for any count, the right-slot table in shared and in device memory,
-    ragged batches, seed depth 3, a deep ring and offsets past G; planes
-    bit-equal, cum within D * eps * max(1, |cum|)."""
+    ring placement (shared, a hot split, global), one and two lanes a
+    thread (fan-in two, and four up to K 2 x 2), the linear cluster
+    build (two cases) and the fan-in build for any count, the right-slot
+    table in shared and in device memory, ragged batches, seed depth 3,
+    a deep ring and offsets past G; planes bit-equal, cum within D *
+    eps * max(1, |cum|)."""
     rng = np.random.default_rng(sum(map(ord, case)))
     kind, kw, want = _bwd_shape_case(case, rng)
     if kind == "linear":
@@ -925,16 +947,15 @@ def test_fullprob_bwd_shape_classes(cuda, case):
     ("fanin", dict(rows=4, threads=384, KL=0, KR=0)),
     ("fanin", dict(KL=5, KR=5)),
     ("fanin", dict(threads=1024)), ("fanin", dict(rows=0)),
-    ("linear", dict(rows=3)), ("linear", dict(shared=False))])
+    ("linear", dict(rows=3)), ("linear", dict(cluster=1))])
 def test_fullprob_bwd_takes_only_plans_it_has_built(cuda, monkeypatch,
                                                     entry, change):
     """Kernel E refuses a plan it has no build for (three lanes a
     thread; four lanes with runtime K; a fan-in past 4 x 4 as a
     template; 1024 threads of two lanes
     at K 2 x 2; the build for any lane count with a templated fan-in;
-    linear buffers in device memory with lanes in registers): the
-    wrapper raises and counts no launch, and the next launch is not
-    disturbed."""
+    a linear cluster of one CTA): the wrapper raises and counts no
+    launch, and the next launch is not disturbed."""
     rng = np.random.default_rng(3)
     if entry == "fanin":
         _f, kw = ff.fanin_batch_args([fp.fanin_fullprob_inputs(
@@ -985,9 +1006,11 @@ def _fwd_shape_case(case, rng):
         kw = ff.linear_batch_args([fp.linear_fullprob_inputs(*p, MODEL)
                                    for p in pairs], "cuda")
         want = {"linear_rows1": dict(rows=1), "linear_rows2": dict(rows=2),
-                "linear_rows4": dict(rows=4),
-                "linear_global": dict(rows=0, shared=False),
-                "linear_ragged": dict(rows=2, shared=True)}[case]
+                # past 2,048 lanes: the cluster build
+                "linear_rows4": dict(rows=2, cluster=8),
+                # past 4,096 lanes: the cluster build
+                "linear_global": dict(rows=2, cluster=8),
+                "linear_ragged": dict(rows=2, cluster=0)}[case]
         return "linear", kw, want
     G = None
     if case.startswith("k"):                     # "k<KL>x<KR>"
@@ -1056,12 +1079,13 @@ FWD_SHAPES = (["linear_rows1", "linear_rows2", "linear_rows4",
 def test_fullprob_fwd_shape_classes(cuda, case):
     """Kernel D against its plain version on each shape class of its
     launch plans: every templated backward-edge fan-in and the runtime-K
-    build, each ring placement (shared, a hot split, global), one, two
-    and four lanes a thread (fan-in two, and four up to K 2 x 2) and the
-    build for any count, each of them with the ring whole and split, the
-    right-slot table in shared and in device memory, linear buffers
-    shared and global, ragged batches, a deep ring, G = 1 and offsets
-    past G; planes bit-equal, cum within D * eps * max(1, |cum|)."""
+    build, each ring placement (shared, a hot split, global), one and
+    two lanes a thread (fan-in two, and four up to K 2 x 2) and the
+    fan-in build for any count, each of them with the ring whole and
+    split, the right-slot table in shared and in device memory, the
+    linear lane builds and the cluster build (two cases), ragged
+    batches, a deep ring, G = 1 and offsets past G; planes bit-equal,
+    cum within D * eps * max(1, |cum|)."""
     rng = np.random.default_rng(sum(map(ord, case)))
     kind, kw, want = _fwd_shape_case(case, rng)
     if kind == "linear":
@@ -1089,15 +1113,15 @@ def test_fullprob_fwd_shape_classes(cuda, case):
     ("fanin", dict(rows=4, threads=384, KL=0, KR=0)),
     ("fanin", dict(KL=5, KR=5)),
     ("fanin", dict(threads=1024)), ("fanin", dict(rows=0)),
-    ("linear", dict(rows=3)), ("linear", dict(shared=False))])
+    ("linear", dict(rows=3)), ("linear", dict(cluster=1))])
 def test_fullprob_fwd_takes_only_plans_it_has_built(cuda, monkeypatch,
                                                     entry, change):
     """Kernel D refuses a plan it has no build for (three lanes a
     thread; four lanes with runtime K; a fan-in past 4 x 4 as a
     template; 1024 threads of two lanes at K 2 x 2; the build for any
-    lane count with a templated fan-in; linear buffers in device memory
-    with lanes in registers): the wrapper raises and counts no launch,
-    and the next launch is not disturbed."""
+    lane count with a templated fan-in; a linear cluster of one CTA):
+    the wrapper raises and counts no launch, and the next launch is not
+    disturbed."""
     rng = np.random.default_rng(3)
     if entry == "fanin":
         kw, _b = ff.fanin_batch_args([fp.fanin_fullprob_inputs(
@@ -1120,6 +1144,103 @@ def test_fullprob_fwd_takes_only_plans_it_has_built(cuda, monkeypatch,
     out = fn(**kw)
     torch.cuda.synchronize()
     assert ff.LAUNCHES[name] == n0 + 1
+    assert float(out[0].max()) == 1.0
+
+
+def _cluster_batch(rng, sizes):
+    """Kernels D's and E's linear arguments on the card for pairs of
+    (left, right) random sites."""
+    pairs = [(build_leaf_graph("".join(rng.choice(list("ACGT"), n)),
+                               alph.DNA),
+              build_leaf_graph("".join(rng.choice(list("ACGT"), m)),
+                               alph.DNA)) for n, m in sizes]
+    return ff.linear_batch_args([fp.linear_fullprob_inputs(*p, MODEL)
+                                 for p in pairs], "cuda")
+
+
+# the batches of the cluster build: chip_smoke.py's 4,300 x 400 pair and
+# a ragged batch past 4,096 lanes
+CLUSTER_BATCHES = {"4300x400": [(4300, 400)],
+                   "ragged": [(4500, 300), (4150, 380), (900, 420)]}
+
+
+@pytest.mark.parametrize("batch", sorted(CLUSTER_BATCHES))
+@pytest.mark.parametrize("entry", ["fullprob_fwd", "fullprob_bwd"])
+def test_fullprob_linear_cluster_every_size(cuda, entry, batch):
+    """Kernel D's or E's cluster build forced at both sizes its plan
+    picks (CLUSTER_SIZES) with two and four lanes a thread, on one batch:
+    planes bit-equal to the plain version, cum within D * eps * max(1,
+    |cum|); the plan's own build launched through the wrapper counts a
+    cluster launch."""
+    kw = _cluster_batch(np.random.default_rng(len(batch)),
+                        CLUSTER_BATCHES[batch])
+    Lp = kw["ms2"].shape[2]
+    cell = 32 if entry == "fullprob_fwd" else 16
+    ref = getattr(ff, entry + "_plain")(**kw)
+    n0 = ff.CLUSTER_LAUNCHES[entry]
+    _same_fills(getattr(ff, entry)(**kw), ref)
+    assert ff.CLUSTER_LAUNCHES[entry] == n0 + 1
+    sizes = 0
+    for C in ff.CLUSTER_SIZES:
+        for rows in (2, 4):
+            plan = ff.cluster_build(Lp, C, rows, cell)
+            if plan is None:
+                continue
+            assert ff.linear_clusters(entry, plan) >= 1
+            out = ff._launch_linear(entry, plan, **kw)
+            torch.cuda.synchronize()
+            _same_fills(out, ref)
+            sizes += 1
+    assert sizes == 2 * len(ff.CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("entry", ["fullprob_fwd", "fullprob_bwd"])
+def test_fullprob_linear_cluster_repeats(cuda, entry):
+    """The race guard: the plan's cluster build (16 CTAs of four lanes
+    a thread, and the 5,000 bp plan) launched five times on one batch
+    gives the same bits every time."""
+    kw = _cluster_batch(np.random.default_rng(17), [(5000, 4600)])
+    Lp = kw["ms2"].shape[2]
+    cell = 32 if entry == "fullprob_fwd" else 16
+    for plan in ((ff.fwd_linear_plan if cell == 32 else
+                  ff.bwd_linear_plan)(Lp), ff.cluster_build(Lp, 16, 4,
+                                                            cell)):
+        first = ff._launch_linear(entry, plan, **kw)
+        for _ in range(4):
+            again = ff._launch_linear(entry, plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(again[0]), _bits(first[0]))
+            assert torch.equal(_bits(again[1]), _bits(first[1]))
+
+
+@pytest.mark.parametrize("entry", ["fullprob_fwd", "fullprob_bwd"])
+def test_fullprob_linear_cluster_refused(cuda, monkeypatch, entry):
+    """A cluster the card cannot schedule or take is refused, never
+    launched: 32 CTAs (past any cluster), a CTA past the shared memory a
+    block may take (its rows and its static maxima), and (where the card
+    reports it cannot hold one) 16 CTAs of 1,024 threads each with all
+    the shared memory a block may take;
+    the wrapper raises and counts no launch, and the next launch runs."""
+    kw = _cluster_batch(np.random.default_rng(5), [(4300, 200)])
+    Lp = kw["ms2"].shape[2]
+    plan = (ff.fwd_linear_plan if entry == "fullprob_fwd" else
+            ff.bwd_linear_plan)(Lp)
+    # the largest CTA: its rows beside its static rows of maxima
+    big = dict(rows=4, threads=1024, cluster=16,
+               smem=ff.SHARED_BYTES - 1024)
+    bad = [dict(plan, cluster=32), dict(plan, smem=ff.SHARED_BYTES)]
+    if ff.linear_clusters(entry, big) == 0:
+        bad.append(big)
+    for refused in bad:
+        with monkeypatch.context() as m:
+            m.setattr(ff, entry[9:] + "_linear_plan",
+                      lambda Lp, p=refused: p)
+            n0 = ff.LAUNCHES[entry], ff.CLUSTER_LAUNCHES[entry]
+            with pytest.raises(RuntimeError, match=entry + ".* launch"):
+                getattr(ff, entry)(**kw)
+            assert (ff.LAUNCHES[entry], ff.CLUSTER_LAUNCHES[entry]) == n0
+    out = getattr(ff, entry)(**kw)
+    torch.cuda.synchronize()
     assert float(out[0].max()) == 1.0
 
 

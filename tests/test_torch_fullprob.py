@@ -587,17 +587,22 @@ def test_bwd_fanin_plan_limits(K):
 
 
 @pytest.mark.parametrize("Lp, want", [
-    (32, (1, 32, True)), (512, (1, 512, True)), (513, (2, 288, True)),
-    (1536, (2, 768, True)), (2048, (2, 1024, True)),
-    (4096, (4, 1024, True)), (4097, (0, 1024, False)),
-    (20000, (0, 1024, False))])
+    (32, (1, 32, 0)), (512, (1, 512, 0)), (513, (2, 288, 0)),
+    (1536, (2, 768, 0)), (2048, (2, 1024, 0)),
+    (4096, (2, 256, 8)), (4097, (2, 288, 8)),
+    (20000, (2, 640, 16)), (40000, (4, 640, 16))])
 def test_bwd_linear_plan(Lp, want):
+    """Kernel E's linear plan: one lane a thread up to 512 lanes, two up
+    to 2048 (a lane build, cluster 0); past that the cluster build
+    (test_torch_fullprob_cluster.py): 8 CTAs of two lanes a thread, 16
+    past 16,384 lanes, four lanes a thread past 32,768; the X and q rows
+    of two diagonals, 16 bytes a lane of the block or CTA and one more,
+    in shared memory."""
     p = ff.bwd_linear_plan(Lp)
-    assert (p["rows"], p["threads"], p["shared"]) == want
-    assert p["smem"] == (16 * (Lp + 1) if p["shared"] else 0)
-    assert p["smem"] <= ff.SHARED_BYTES
-    if p["rows"]:
-        assert p["threads"] * p["rows"] >= Lp
+    assert (p["rows"], p["threads"], p["cluster"]) == want
+    lanes = p["rows"] * p["threads"] if p["cluster"] else Lp
+    assert p["smem"] == 16 * (lanes + 1) <= ff.SHARED_BYTES
+    assert p["threads"] * p["rows"] * max(1, p["cluster"]) >= Lp
 
 
 # ----------------------------------------------------------------------
@@ -637,19 +642,20 @@ def test_fwd_fanin_plan_limits(K):
 
 
 @pytest.mark.parametrize("Lp, want", [
-    (32, (1, 32, True)), (512, (2, 256, True)), (513, (2, 288, True)),
-    (1536, (2, 768, True)), (2048, (2, 1024, True)),
-    (4096, (4, 1024, True)), (4097, (0, 1024, False)),
-    (20000, (0, 1024, False)), (128, (1, 128, True)),
-    (129, (2, 96, True))])
+    (32, (1, 32, 0)), (512, (2, 256, 0)), (513, (2, 288, 0)),
+    (1536, (2, 768, 0)), (2048, (2, 1024, 0)),
+    (4096, (2, 256, 8)), (4097, (2, 288, 8)),
+    (20000, (2, 640, 16)), (128, (1, 128, 0)),
+    (129, (2, 96, 0)), (16576, (2, 544, 16)), (40000, (4, 640, 16))])
 def test_fwd_linear_plan(Lp, want):
     """Kernel D's linear plan: one lane a thread up to 128 lanes (E's up
-    to 512), two up to 2048, four up to 4096; the raw (M, X, Y, 0) rows
-    of two diagonals (32 (Lp + 1) bytes) in shared memory, or three
-    generations in a global buffer for the build for any count."""
+    to 512), two up to 2048 (a lane build, cluster 0); past that the
+    cluster build: 8 CTAs of two lanes a thread, 16 past 16,384 lanes,
+    four lanes a thread past 32,768; the raw (M, X, Y, 0) rows of two
+    diagonals, 32 bytes a lane of the block or CTA and one more, in
+    shared memory."""
     p = ff.fwd_linear_plan(Lp)
-    assert (p["rows"], p["threads"], p["shared"]) == want
-    assert p["smem"] == (32 * (Lp + 1) if p["shared"] else 0)
-    assert p["smem"] <= ff.SHARED_BYTES
-    if p["rows"]:
-        assert p["threads"] * p["rows"] >= Lp
+    assert (p["rows"], p["threads"], p["cluster"]) == want
+    lanes = p["rows"] * p["threads"] if p["cluster"] else Lp
+    assert p["smem"] == 32 * (lanes + 1) <= ff.SHARED_BYTES
+    assert p["threads"] * p["rows"] * max(1, p["cluster"]) >= Lp
