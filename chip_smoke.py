@@ -48,7 +48,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                take their other branches: a fan-in ring with no diagonal
                on chip (6,600 rows), a right-slot table too large for
                shared memory (7,500 columns of four edge slots each
-               way), and the linear cluster build past 2,048 lanes (a
+               way), these plain versions four processes side by side,
+               and the linear cluster build past 2,048 lanes (a
                4,300 x 400 pair and a ragged batch, each with the plan's
                build and with both cluster sizes the plan picks (8 and
                16 CTAs) forced, two and four lanes a thread), each
@@ -117,10 +118,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                amplicon_reads: 40 x 384 reads, default_rng(3)) through the
                CLI with --pileup --homopolymer --output-consensus: 40
                placed, a 496-bp consensus, out.fas and out_consensus.fas
-               the JAX CLI's bytes (sha256), kernel B launched, no plain
-               version; then 160 reads of the same generator, timed by
-               host phase (read_alignment_scores, _extract, ancestral
-               build, fan-in prep, kernel B calls)
+               the JAX CLI's bytes (sha256), kernel B launched on its
+               group build (fan-ins past 4 x 4), no plain version; then
+               the same reads with --pileup --454 (pileup454_path): out.fas
+               the JAX CLI's bytes, B's group build launched; then 160
+               reads of the same generator, timed by host phase
+               (read_alignment_scores, _extract, ancestral build, fan-in
+               prep, kernel B calls)
   pairend_path the 40 reads as pair-end FASTQ reads (a 60-120 bp insert
                cut out of each) with --pileup --pair-end, default and
                --no-anchors: the JAX CLI's bytes, each other's bytes,
@@ -212,7 +216,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                version
   timing       each kernel and its plain version on every call its path
                gave it: bit-equal, ms per launch (CUDA events) and the
-               lower bound (kernel C: bit-equal on the long_family calls;
+               lower bound; the plain versions of the held calls run
+               first, four processes side by side, then the kernels
+               alone (kernel C: bit-equal on the long_family calls;
                kernel, plain version and bound on the megabase call cut
                to its first 16,384 diagonals; kernel A's tiled build on
                mito_path's call, bit-equal, with its plain time and
@@ -233,13 +239,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                before the pair-end build existed; kernels A, B and C on
                every call of placement_path's run (a), the first call of
                each build not held above bit-equal to the plain version,
-               with its plain time and bound; kernels G and H on one
-               launch of a fill of their shardband_path pairs, a shard
-               past the first in mid-fill, on its tile range, bit-equal
-               to the plain version, with the plan and the bound)
+               with its plain time and bound; kernel B's group build on
+               every call of pileup_path and of pileup454_path, the first
+               pileup_path call and its call of the largest K x G held
+               bit-equal, with plan, plain time, bound, us per diagonal;
+               kernels G and H on one launch of a fill of their
+               shardband_path pairs, a shard past the first in mid-fill,
+               on its tile range, bit-equal to the plain version, with
+               the plan and the bound)
   trace        the main path, the --full-probability path and the pileup
                path once more under torch.profiler: the device's busy
-               share and time by kernel
+               share, time by kernel, kernel B's device time
 
 Prints a {"kernels": [...]} line, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}.
@@ -331,12 +341,13 @@ def fanin_launch(kw):
     """Kernel B's launch plan for one call's arguments, as text."""
     from pagan2_tpu_torch.align import viterbi_fanin as VF
     KL, KR = kw["loff"].shape[2], kw["roff"].shape[2]
-    p = VF.launch_plan(kw["W"], kw["G"], KL, KR, kw["table"].shape[1])
+    p = VF.call_plan(kw)
     return ("K %d/%d (%s), ring %s (%d of %d diagonals on chip), %d "
-            "threads x %d rows" % (KL, KR, "templated" if p["KL"]
-                                   else "runtime K", p["placement"],
-                                   p["hot"], kw["G"] + 1, p["threads"],
-                                   p["rows"]))
+            "threads x %d rows" % (
+                KL, KR, "templated" if p["KL"] else
+                "group build, %d lanes a group, tables %s"
+                % (p["group"], p["tables"]), p["placement"], p["hot"],
+                kw["G"] + 1, p["threads"], p["rows"]))
 
 
 def ptxas_kernels(report):
@@ -378,6 +389,65 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def plain_call(module, name, path):
+    """In a process of hold_plain's pool: the plain version `name` of
+    `module` on the call saved at path, run on the card and timed with
+    CUDA events; its outputs are saved to path + ".out". Returns the
+    ms."""
+    import importlib
+    import torch
+    fn = getattr(importlib.import_module(module), name)
+    kw = {k: v.cuda() if isinstance(v, torch.Tensor) else v
+          for k, v in torch.load(path, weights_only=False).items()}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn(**kw)
+    t1.record()
+    torch.cuda.synchronize()
+    torch.save([t.cpu() for t in out], path + ".out")
+    return t0.elapsed_time(t1)
+
+
+# The plain versions that hold the kernels run side by side, each in a
+# process of its own on the card (hold_plain): they are bound by the
+# host's Python (the card waits on each small launch), so HOLD_WORKERS
+# of them run nearly as fast together as one alone. Each call's plain ms
+# is its own process's, taken while the others ran. No kernel is timed
+# while they run.
+HOLD_WORKERS = 4
+
+
+def hold_plain(jobs, folder=os.path.join(HERE, "build", "chip_smoke",
+                                         "holds"), workers=HOLD_WORKERS):
+    """{(plain version's name, id(call)): (the file of its outputs, its
+    ms)} for jobs [(plain version, call)]: each call saved under folder
+    and run by plain_call in a pool of `workers` spawned processes on
+    the card, all of them ended on return."""
+    import multiprocessing
+    import torch
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for n, (_fn, kw) in enumerate(jobs):
+        paths.append(os.path.join(folder, "call%d.pt" % n))
+        torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in kw.items()}, paths[-1])
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        ms = pool.starmap(plain_call, [(fn.__module__, fn.__name__, path)
+                                       for (fn, _kw), path
+                                       in zip(jobs, paths)], 1)
+        pool.close()
+    finally:
+        pool.terminate()
+        pool.join()
+    for path in paths:
+        os.remove(path)
+    return {(fn.__name__, id(kw)): (path + ".out", m)
+            for (fn, kw), path, m in zip(jobs, paths, ms)}
 
 
 def main():
@@ -775,27 +845,44 @@ def main():
         text = plan_text(FF, name, kw)
         return "; " + text if text else ""
 
+    fp_checks = []
+
     def fullprob_check(what, calls):
-        """calls: [(direction, wrapper, plain version, kwargs)]."""
-        for direction, fn, plain_fn, kw in calls:
-            out = fn(**kw)
-            ref = plain_fn(**kw)
-            torch.cuda.synchronize()
-            if not same_fills(out, ref):
-                fail("kernel_fullprob %s: %s differs from its plain version "
-                     "(planes max |err| %g, cum max |err| %g)"
-                     % (what, fn.__name__, max_abs_err(out[0], ref[0]),
-                        max_abs_err(out[1], ref[1])))
-            if float(out[0].max()) != 1.0 or \
-                    not bool(torch.isfinite(out[1]).all()):
-                fail("kernel_fullprob %s: %s planes are not scaled to 1"
-                     % (what, fn.__name__))
-            fp_err[direction] = max(fp_err[direction], fills_err(out, ref))
-            log("kernel_fullprob %s: %s B, 3, D, Lp = %s%s: planes "
-                "bit-equal, cum max |err| %g%s"
-                % (what, fn.__name__, tuple(out[0].shape),
-                   ", G %d" % kw["G"] if "G" in kw else "",
-                   max_abs_err(out[1], ref[1]), note_plan(fn.__name__, kw)))
+        """calls: [(direction, wrapper, plain version, kwargs)], held by
+        fullprob_checks_run."""
+        fp_checks.append((what, calls))
+
+    def fullprob_checks_run():
+        """Each call of fullprob_check's against its plain version, the
+        plain versions run first side by side (hold_plain)."""
+        plains = hold_plain([(plain_fn, kw) for _what, calls in fp_checks
+                             for _d, _fn, plain_fn, kw in calls])
+        for what, calls in fp_checks:
+            for direction, fn, plain_fn, kw in calls:
+                fullprob_hold(what, direction, fn, kw,
+                              plains[plain_fn.__name__, id(kw)][0])
+        fp_checks.clear()
+
+    def fullprob_hold(what, direction, fn, kw, path):
+        out = fn(**kw)
+        ref = [v.to(dev) for v in torch.load(path)]
+        os.remove(path)
+        torch.cuda.synchronize()
+        if not same_fills(out, ref):
+            fail("kernel_fullprob %s: %s differs from its plain version "
+                 "(planes max |err| %g, cum max |err| %g)"
+                 % (what, fn.__name__, max_abs_err(out[0], ref[0]),
+                    max_abs_err(out[1], ref[1])))
+        if float(out[0].max()) != 1.0 or \
+                not bool(torch.isfinite(out[1]).all()):
+            fail("kernel_fullprob %s: %s planes are not scaled to 1"
+                 % (what, fn.__name__))
+        fp_err[direction] = max(fp_err[direction], fills_err(out, ref))
+        log("kernel_fullprob %s: %s B, 3, D, Lp = %s%s: planes "
+            "bit-equal, cum max |err| %g%s"
+            % (what, fn.__name__, tuple(out[0].shape),
+               ", G %d" % kw["G"] if "G" in kw else "",
+               max_abs_err(out[1], ref[1]), note_plan(fn.__name__, kw)))
 
     def linear_fp_calls(pairs):
         kw = FF.linear_batch_args(
@@ -872,6 +959,7 @@ def main():
             wide.add_edge(i, i + o, 0.05 * o)
     fullprob_check("fan-in 7500 columns", fanin_fp_calls(
         [(build_leaf_graph(seq(40), alph.DNA), wide)]))
+    fullprob_checks_run()
 
     def cluster_check(what, pairs, timed=False):
         """The cluster build on one batch: the plan's own through the
@@ -1427,14 +1515,16 @@ def main():
         count set to 0 just before it; returns (wall s, launches per
         kernel, plain-version calls, EXEC_STATS) read just after; the
         launches hold kernel A's tiled ones apart as "linear_tiles" too
-        (counted in "linear" as well). With nh None, fas is the read
-        file of a --pileup run; with both None, `extra` holds every
-        input flag. Kernels D's and E's cluster launches are held apart
-        as "fp_fwd_cluster" and "fp_bwd_cluster" too (counted in "fp_fwd"
-        and "fp_bwd" as well)."""
+        (counted in "linear" as well), and kernel B's group build's as
+        "fanin_groups" (counted in "fanin" as well). With nh None, fas
+        is the read file of a --pileup run; with both None, `extra`
+        holds every input flag. Kernels D's and E's cluster launches are
+        held apart as "fp_fwd_cluster" and "fp_bwd_cluster" too (counted
+        in "fp_fwd" and "fp_bwd" as well)."""
         EX.reset_stats()
         zero_counts()
         VL.PAIR_END_LAUNCHES = VL.TILE_LAUNCHES = 0
+        VF.GROUP_LAUNCHES = 0
         for n in FF.CLUSTER_LAUNCHES:
             FF.CLUSTER_LAUNCHES[n] = 0
         for k, (m, n) in KERNELS.items():
@@ -1467,6 +1557,7 @@ def main():
         launches = {k: read_count(m, n, "LAUNCHES")
                     for k, (m, n) in KERNELS.items()}
         launches["linear_tiles"] = VL.TILE_LAUNCHES
+        launches["fanin_groups"] = VF.GROUP_LAUNCHES
         launches["fp_fwd_cluster"] = FF.CLUSTER_LAUNCHES["fullprob_fwd"]
         launches["fp_bwd_cluster"] = FF.CLUSTER_LAUNCHES["fullprob_bwd"]
         return (time.time() - t, launches,
@@ -1694,6 +1785,7 @@ def main():
     # pagan2_tpu_torch/tools/reads.py as below:
     #   python -c "$REFERENCE" --pileup --homopolymer --output-consensus \
     #       -q reads40.fas -o ref                  (41 rows, 0 discarded)
+    #   python -c "$REFERENCE" --pileup --454 -q reads40.fas -o ref
     #   python -c "$REFERENCE" --pileup --pair-end [--no-anchors] \
     #       -q reads40.fastq -o ref                (40 rows, 0 discarded)
     #   python -c "$REFERENCE" --pileup --pair-end --full-probability \
@@ -1702,6 +1794,8 @@ def main():
                     "f8623b86b93beec2bd1f65d00a1876ea")
     PILEUP40_CONSENSUS = ("9d6ddc86c2b7fc9cd261567a7dc181ef"
                           "da4d4ba92ba926ea5c481663d06c3b6e")
+    PILEUP40_454_FAS = ("48421de8822028e306951d38137bc24e"
+                        "95e69bcec13e947ae8f2eb4bc7250a35")
     PAIREND40_FAS = ("075d770b8790b9fba9ba98a359aa67bf"
                      "083e1e8133957b2e512132bf4a320c71")
     PAIREND8_FP_FAS = ("dd3ad3fdfe2ad01f4aac26440eb6dba6"
@@ -1730,8 +1824,9 @@ def main():
     reads40 = amplicon_reads(40, 384, 420)
     fas40 = write_reads(os.path.join(work, "reads40.fas"), reads40)
     out_pile = os.path.join(work, "pileup40")
+    rec_pile = {k: [] for k in KERNELS}
     wall, counts_pile, plain_calls, stats = run_cli(
-        "pileup_path", fas40, None, out_pile, real,
+        "pileup_path", fas40, None, out_pile, recording(rec_pile),
         ["--homopolymer", "--output-consensus"])
     pres = last_result[0]
     placed = len(reads40) - len(pres.discarded)
@@ -1745,11 +1840,29 @@ def main():
     if sha(out_pile + ".fas") != PILEUP40_FAS or \
             sha(out_pile + "_consensus.fas") != PILEUP40_CONSENSUS:
         fail("pileup_path: the output differs from the JAX CLI's")
-    if counts_pile["fanin"] < 1 or plain_calls:
+    if counts_pile["fanin_groups"] < 1 or plain_calls:
         fail("pileup_path: launches %s, %d plain-version calls"
              % (counts_pile, plain_calls))
-    log("pileup_path: out.fas and out_consensus.fas are the JAX CLI's bytes")
+    log("pileup_path: out.fas and out_consensus.fas are the JAX CLI's "
+        "bytes; %d of %d kernel-B launches on its group build"
+        % (counts_pile["fanin_groups"], counts_pile["fanin"]))
     path_launches["pileup_path"] = counts_pile
+
+    # the same reads with --pileup --454: most fills past the templates
+    out454 = os.path.join(work, "pileup454")
+    rec_454 = {k: [] for k in KERNELS}
+    wall, counts454, plain_calls, stats = run_cli(
+        "pileup454_path", fas40, None, out454, recording(rec_454), ["--454"])
+    log("pileup454_path: 40 x 384 reads --454 in %.1f s; %s; %d of them "
+        "on B's group build" % (wall, route_text(counts454, stats),
+                                counts454["fanin_groups"]))
+    if sha(out454 + ".fas") != PILEUP40_454_FAS:
+        fail("pileup454_path: the output differs from the JAX CLI's")
+    if counts454["fanin_groups"] < 1 or plain_calls:
+        fail("pileup454_path: launches %s, %d plain-version calls"
+             % (counts454, plain_calls))
+    log("pileup454_path: out.fas is the JAX CLI's bytes")
+    path_launches["pileup454_path"] = counts454
 
     # the scale point: 160 reads of the same generator, timed by phase
     host = {}
@@ -2671,20 +2784,125 @@ def main():
             B, D, kw["W"], kw["G"], fanin_launch(kw),
             "" if ms is None else ", %.3f us per diagonal" % (1e3 * ms / D))
 
-    def time_kernel(calls, real, plain, bound, same, reps):
+    # kernel B on the main path's calls and on the full-width calls of
+    # the --full-probability run: every call timed; the first call of
+    # each build (templated fan-in, ring placement, rows a thread) held
+    # bit-equal to its plain version, timed with it and given its bound
+    # (the others repeat a build at another width or batch: 5 of the
+    # main path's 7 calls held, 1 of the --full-probability run's 3;
+    # every call was held until the mesh, multiprocess and shardband
+    # phases came, ~40 s of plain versions on a fast host)
+    def first_of_build(calls):
+        seen, first = set(), []
+        for kw in calls:
+            p = VF.call_plan(kw)
+            key = (p["KL"], p["KR"], p["placement"], p["rows"])
+            if key not in seen:
+                seen.add(key)
+                first.append(kw)
+        return first
+
+    def first_of_shape(calls):
+        """The calls that open a launch plan and a (D, Lp) shape: the
+        others repeat one of them on other jobs."""
+        seen, first = set(), []
+        for kw in calls:
+            key = (fanin_plan_text(FF, kw), tuple(kw["msp"].shape[1:]))
+            if key not in seen:
+                seen.add(key)
+                first.append(kw)
+        return first
+
+    def build_of(name, kw):
+        if name == "linear":
+            p = VL.linear_plan(kw["ms"].shape[2], call_pair_end(kw))
+            return "tiled build" if p["diagonals"] == "tiles" else \
+                "%d rows a thread" % p["rows"]
+        if name == "banded":
+            return VB.banded_plan(kw["ms"].shape[1])["build"]
+        p = VF.call_plan(kw)
+        return "%s, ring %s" % (p["build"], p["placement"])
+
+    def build_key(name, kw):
+        """The build a call launches, as kernel B's holds above count
+        builds (A: rows a thread; C: its build)."""
+        if name == "fanin":
+            p = VF.call_plan(kw)
+            return (p["KL"], p["KR"], p["placement"], p["rows"])
+        return build_of(name, kw)
+
+    fan_held = first_of_build(recorded["fanin"])
+    fan_fp_held = first_of_build(rec_fp["fanin"])
+    # kernel B's group build (fan-ins past 4 x 4) on pileup_path's
+    # calls: the first and the one of the largest K x G held
+    pile = rec_pile["fanin"]
+    if any(VF.call_plan(kw)["build"] != "groups" for kw in pile):
+        fail("timing: a pileup_path call is not on B's group build")
+    big = max(range(len(pile)), key=lambda n: pile[n]["loff"].shape[2]
+              * pile[n]["roff"].shape[2] * pile[n]["G"])
+    pile_held = [pile[0]] + ([pile[big]] if big else [])
+    # the linear calls of the --full-probability run held on every call;
+    # the fan-in calls (the run's three repeat one plan and (D, Lp) on 4,
+    # 2 and 1 jobs) held on the first of each plan and (D, Lp) and timed
+    # on every call. kernel_fullprob holds every plan of D and E; the
+    # kernels line's ms, plain_ms and bound_ms are means over the held
+    # calls, its us per diagonal over every call.
+    fp_held = {k: first_of_shape(rec_fp[k]) if k.endswith("_fanin")
+               else rec_fp[k] for k in FP_KEYS}
+    # builds already held bit-equal on the main, --full-probability and
+    # long paths: placement's calls hold only the others
+    held_keys = {
+        "linear": {build_key("linear", kw) for kw in
+                   recorded["linear"] + rec_fp["linear"]},
+        "fanin": {build_key("fanin", kw) for kw in fan_held + fan_fp_held},
+        "banded": {build_key("banded", kw) for kw in
+                   rec_long["banded"] + rec_mega["banded"]}}
+    place_held = {}
+    for name in ("linear", "fanin", "banded"):
+        first = {}
+        for kw in rec_place[name]:
+            if build_key(name, kw) not in held_keys[name]:
+                first.setdefault(build_key(name, kw), kw)
+        place_held[name] = list(first.values())
+    # kernel C on the megabase call cut to its first NPRE diagonals (the
+    # fill is causal, so the prefix is the same work at the same width;
+    # the corner moves to the prefix's last in-window cell)
+    mkw = rec_mega["banded"][0]
+    NPRE = 16384
+    pre = {"fscal": mkw["fscal"], "sched": mkw["sched"][:NPRE],
+           "ms": mkw["ms"][:NPRE], "iscal": mkw["iscal"].clone()}
+    pre["iscal"][4] = NPRE
+    pre["iscal"][5] = pre["sched"][-1, 1] - 1
+    holds = ([(plain["linear"], kw)
+              for kw in recorded["linear"] + rec_fp["linear"]
+              + place_held["linear"]]
+             + [(plain["fanin"], kw) for kw in fan_held + fan_fp_held
+                + pile_held + place_held["fanin"]]
+             + [(plain[k], kw) for k in FP_KEYS for kw in fp_held[k]]
+             + [(plain[k], rec_lp[k][0]) for k in ("fp_fwd", "fp_bwd")]
+             + [(plain["banded"], kw) for kw in rec_long["banded"] + [pre]
+                + place_held["banded"]])
+    # their plain versions first, side by side; the kernels are launched
+    # and timed after the last of them ended
+    t = time.time()
+    plains = hold_plain(holds)
+    log("timing: the plain versions of the %d held calls in %.1f s, %d "
+        "processes" % (len(holds), time.time() - t, HOLD_WORKERS))
+
+    def time_kernel(calls, real, bound, same, reps):
         """Per-launch means over a path's recorded calls: kernel ms,
         plain ms, bound ms and what bounds it, then the error, the
         bound's two times and each call's kernel ms. Every call is held
-        bit-equal to the plain version and gives the plain mean."""
+        bit-equal to the plain version (its outputs and ms from
+        hold_plain) and gives the plain mean."""
         k_ms = p_ms = b_ms = err = by_bytes = by_ops = 0.0
         per_call = []
         for n, kw in enumerate(calls):
-            # the plain version timed on the call it is compared on
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            ref = plain(**kw)
-            t1.record()
+            path, p = plains[real.__name__ + "_plain", id(kw)]
+            dev = next(v for v in kw.values()
+                       if isinstance(v, torch.Tensor)).device
+            ref = [v.to(dev) for v in torch.load(path)]
+            os.remove(path)
             out = real(**kw)
             torch.cuda.synchronize()
             if not (torch.equal(out[0], ref[0]) and same(out[1], ref[1])):
@@ -2692,7 +2910,6 @@ def main():
                      "plain version" % (n, real.__name__))
             err = max(err, max_abs_err(out[1], ref[1]))
             del out, ref
-            p = t0.elapsed_time(t1)
             p_ms += p
             k = cuda_ms(lambda: real(**kw), reps)
             per_call.append(k)
@@ -2709,42 +2926,23 @@ def main():
                 "bytes" if by_bytes >= by_ops else "operations", err,
                 by_bytes, by_ops, per_call)
 
-    lin_t = time_kernel(recorded["linear"], VL.linear_fill,
-                        VL.linear_fill_plain, linear_bound, same_floats, 5)
+    lin_t = time_kernel(recorded["linear"], VL.linear_fill, linear_bound,
+                        same_floats, 5)
     log("timing linear_fill: kernel A's ordinary build on the main path's "
         "call takes %.3f ms a launch (1.614 ms before the pair-end build "
         "existed, on an NVIDIA H100 80GB HBM3 at 700.00 W)" % lin_t[0])
-    # kernel B on the main path's calls and on the full-width calls of
-    # the --full-probability run: every call timed; the first call of
-    # each build (templated fan-in, ring placement, rows a thread) held
-    # bit-equal to its plain version, timed with it and given its bound
-    # (the others repeat a build at another width or batch: 5 of the
-    # main path's 7 calls held, 1 of the --full-probability run's 3;
-    # every call was held until the mesh, multiprocess and shardband
-    # phases came, ~40 s of plain versions on a fast host)
-    def first_of_build(calls):
-        seen, first = set(), []
-        for kw in calls:
-            p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
-                               kw["roff"].shape[2], kw["table"].shape[1])
-            key = (p["KL"], p["KR"], p["placement"], p["rows"])
-            if key not in seen:
-                seen.add(key)
-                first.append(kw)
-        return first
-    fan_t = time_kernel(first_of_build(recorded["fanin"]), VF.fanin_fill,
-                        VF.fanin_fill_plain, fanin_bound, same_floats, 3)
+    fan_t = time_kernel(fan_held, VF.fanin_fill, fanin_bound, same_floats,
+                        3)
     fan_ms = [cuda_ms(lambda kw=kw: VF.fanin_fill(**kw), 3)
               for kw in recorded["fanin"]]
-    fan_fp_t = time_kernel(first_of_build(rec_fp["fanin"]), VF.fanin_fill,
-                           VF.fanin_fill_plain, fanin_bound, same_floats, 3)
+    fan_fp_t = time_kernel(fan_fp_held, VF.fanin_fill, fanin_bound,
+                           same_floats, 3)
     fan_fp_ms = [cuda_ms(lambda kw=kw: VF.fanin_fill(**kw), 3)
                  for kw in rec_fp["fanin"]]
     # kernel A also on the call of the --full-probability run, held
     # bit-equal to its plain version
-    lin_fp_t = time_kernel(rec_fp["linear"], VL.linear_fill,
-                           VL.linear_fill_plain, linear_bound, same_floats,
-                           5)
+    lin_fp_t = time_kernel(rec_fp["linear"], VL.linear_fill, linear_bound,
+                           same_floats, 5)
     log("timing linear_fill: the %d call(s) of the fullprob_path run take "
         "%.3f ms a launch, bit-equal" % (len(rec_fp["linear"]),
                                          lin_fp_t[0]))
@@ -2778,6 +2976,27 @@ def main():
         "bound %.5f ms (%s), bit-equal"
         % (sum(fan_ms) / len(fan_ms), len(fan_ms), len(fan_t[7]),
            fan_t[0], fan_t[1], fan_t[2], fan_t[3]))
+    # kernel B's group build on pileup_path's calls: every call timed;
+    # the two held timed with their plain versions and given their
+    # bound; pileup454_path's calls of the group build timed
+    grp_t = time_kernel(pile_held, VF.fanin_fill, fanin_bound, same_floats,
+                        3)
+    grp_ms = [cuda_ms(lambda kw=kw: VF.fanin_fill(**kw), 3) for kw in pile]
+    grp_us = 1e3 * sum(grp_ms) / sum(kw["ilo"].shape[1] for kw in pile)
+    g454 = [kw for kw in rec_454["fanin"]
+            if VF.call_plan(kw)["build"] == "groups"]
+    g454_ms = [cuda_ms(lambda kw=kw: VF.fanin_fill(**kw), 3) for kw in g454]
+    g454_us = 1e3 * sum(g454_ms) / max(1, sum(kw["ilo"].shape[1]
+                                                for kw in g454))
+    log("timing fanin_fill's group build: pileup_path's %d calls %.3f ms "
+        "a launch (%.4f us per diagonal), calls 0 and %d held bit-equal "
+        "(kernel %.3f ms, plain %.1f ms, bound %.5f ms, %s); "
+        "pileup454_path's %d group-build calls %.3f ms a launch (%.4f us "
+        "per diagonal)" % (len(pile), sum(grp_ms) / len(pile), grp_us, big,
+                           grp_t[0], grp_t[1], grp_t[2], grp_t[3],
+                           len(g454), sum(g454_ms) / max(1, len(g454)),
+                           g454_us))
+
     # kernels D and E on the calls the --full-probability run made:
     # each entry point timed on its own calls (planes bit-equal, cum
     # within D * eps * max(1, |cum|)); a kernel's line takes the mean
@@ -2786,32 +3005,11 @@ def main():
         return float((a - b).abs().max()) <= \
             a.shape[1] * EPS32 * max(1.0, float(b.abs().max()))
 
-    def first_of_shape(calls):
-        """The calls that open a launch plan and a (D, Lp) shape: the
-        others repeat one of them on other jobs."""
-        seen, first = set(), []
-        for kw in calls:
-            key = (fanin_plan_text(FF, kw), tuple(kw["msp"].shape[1:]))
-            if key not in seen:
-                seen.add(key)
-                first.append(kw)
-        return first
-
-    # the linear calls held on every call; the fan-in calls (the run's
-    # three repeat one plan and (D, Lp) on 4, 2 and 1 jobs) held on the
-    # first of each plan and (D, Lp) and timed on every call: with
-    # all three held (12 s a plain call) the script took 972.0 s on a
-    # fast host, and hosts run the plain versions up to 1.43x slower,
-    # past the 1,200 s limit. kernel_fullprob holds every plan of D and
-    # E; the kernels line's ms, plain_ms and bound_ms are means over the
-    # held calls, its us per diagonal over every call.
     fp_t, fp_ms = {}, {}
     for k in FP_KEYS:
         m, n = KERNELS[k]
-        held = first_of_shape(rec_fp[k]) if k.endswith("_fanin") \
-            else rec_fp[k]
-        fp_t[k] = time_kernel(held, getattr(m, n),
-                              getattr(m, n + "_plain"), fullprob_bound,
+        held = fp_held[k]
+        fp_t[k] = time_kernel(held, getattr(m, n), fullprob_bound,
                               cum_close, 3)
         fp_ms[k] = [cuda_ms(lambda kw=kw: getattr(m, n)(**kw), 3)
                     for kw in rec_fp[k]]
@@ -2833,9 +3031,8 @@ def main():
         k = "fp_" + direction
         m, n = KERNELS[k]
         kw = rec_lp[k][0]
-        cl_path[direction] = time_kernel(
-            [kw], getattr(m, n), getattr(m, n + "_plain"), fullprob_bound,
-            cum_close, 3)
+        cl_path[direction] = time_kernel([kw], getattr(m, n), fullprob_bound,
+                                         cum_close, 3)
         cl_err[direction] = max(cl_err[direction], cl_path[direction][4])
         log("timing %s's cluster build on fullprob_long_path's call (B, D, "
             "Lp = %s; %s): %.3f ms (%.4f us per diagonal), plain %.1f ms, "
@@ -2846,61 +3043,24 @@ def main():
                cl_path[direction][1], cl_path[direction][4]))
 
     # kernels A, B and C on run (a)'s calls of placement_path: every call
-    # timed on the kernel; the first call of each build held bit-equal
-    # to the plain version, timed with it and given its bound (the plain
-    # versions take 3-7 s a call at this width, and run (a) makes
-    # hundreds of calls)
-    def build_of(name, kw):
-        if name == "linear":
-            p = VL.linear_plan(kw["ms"].shape[2], call_pair_end(kw))
-            return "tiled build" if p["diagonals"] == "tiles" else \
-                "%d rows a thread" % p["rows"]
-        if name == "banded":
-            return VB.banded_plan(kw["ms"].shape[1])["build"]
-        p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
-                           kw["roff"].shape[2], kw["table"].shape[1])
-        return "%s, ring %s" % ("templated" if p["KL"] else "runtime K",
-                                p["placement"])
-
-    def build_key(name, kw):
-        """The build a call launches, as kernel B's holds above count
-        builds (A: rows a thread; C: its build)."""
-        if name == "fanin":
-            p = VF.launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
-                               kw["roff"].shape[2], kw["table"].shape[1])
-            return (p["KL"], p["KR"], p["placement"], p["rows"])
-        return build_of(name, kw)
-
-    # builds already held bit-equal above: placement's calls hold only
-    # the others (holding again the builds that the main,
-    # --full-probability and long paths hold took ~27 s of plain
-    # versions on a fast host)
-    held_keys = {
-        "linear": {build_key("linear", kw) for kw in
-                   recorded["linear"] + rec_fp["linear"]},
-        "fanin": {build_key("fanin", kw) for kw in
-                  first_of_build(recorded["fanin"])
-                  + first_of_build(rec_fp["fanin"])},
-        "banded": {build_key("banded", kw) for kw in
-                   rec_long["banded"] + rec_mega["banded"]}}
+    # timed on the kernel; the first call of each build not held above
+    # held bit-equal to the plain version, timed with it and given its
+    # bound (the plain versions take 3-7 s a call at this width, and run
+    # (a) makes hundreds of calls)
     place_t = {}
     for name, bound in (("linear", linear_bound), ("fanin", fanin_bound),
                         ("banded", banded_bound)):
         calls = rec_place[name]
         if not calls:
             continue
-        first = {}
-        for kw in calls:
-            if build_key(name, kw) not in held_keys[name]:
-                first.setdefault(build_key(name, kw), kw)
+        first = place_held[name]
         ms = [cuda_ms(lambda kw=kw: real[name](**kw), 1) for kw in calls]
         place_t[name] = {
             "calls": len(calls), "ms_all_calls": sum(ms) / len(calls),
             "builds": sorted({build_of(name, kw) for kw in calls}),
             "builds_held_here": len(first)}
         if first:
-            held = time_kernel(list(first.values()), real[name],
-                               plain[name], bound, same_floats, 3)
+            held = time_kernel(first, real[name], bound, same_floats, 3)
             place_t[name].update(ms=held[0], plain_ms=held[1],
                                  bound_ms=held[2], bound_by=held[3],
                                  max_abs_err=held[4])
@@ -2968,21 +3128,14 @@ def main():
     # takes kernel, plain and bound on that prefix. The whole megabase
     # call is timed on the kernel alone (its plain version would take
     # about half an hour).
-    long_t = time_kernel(rec_long["banded"], VB.banded_fill,
-                         VB.banded_fill_plain, banded_bound, same_floats, 3)
+    long_t = time_kernel(rec_long["banded"], VB.banded_fill, banded_bound,
+                         same_floats, 3)
     ban_err = max(ban_err, long_t[4])
     log("timing banded: on the %d long_family calls kernel %.3f ms/launch, "
         "plain %.1f ms, bound %.5f ms (%s), bit-equal"
         % (len(rec_long["banded"]), long_t[0], long_t[1], long_t[2],
            long_t[3]))
-    mkw = rec_mega["banded"][0]
-    NPRE = 16384
-    pre = {"fscal": mkw["fscal"], "sched": mkw["sched"][:NPRE],
-           "ms": mkw["ms"][:NPRE], "iscal": mkw["iscal"].clone()}
-    pre["iscal"][4] = NPRE
-    pre["iscal"][5] = pre["sched"][-1, 1] - 1
-    ban_t = time_kernel([pre], VB.banded_fill, VB.banded_fill_plain,
-                        banded_bound, same_floats, 5)
+    ban_t = time_kernel([pre], VB.banded_fill, banded_bound, same_floats, 5)
     ban_err = max(ban_err, ban_t[4])
     log("timing banded: on the megabase call's first %d diagonals kernel "
         "%.3f ms (%.3f us per diagonal), plain %.1f ms, bound %.5f ms "
@@ -3172,6 +3325,12 @@ def main():
             for e in sorted(events, key=dev_us, reverse=True)[:8]:
                 log("trace:   %10.3f ms  %6d calls  %s"
                     % (dev_us(e) / 1e3, e.count, e.key[:90]))
+            fan = [e for e in events if "viterbi_fanin" in e.key]
+            log("trace: %s kernel B %.3f ms of device time over %d "
+                "launches (group build %.3f ms)"
+                % (what, sum(dev_us(e) for e in fan) / 1e3,
+                   sum(e.count for e in fan),
+                   sum(dev_us(e) for e in fan if "groups" in e.key) / 1e3))
         else:
             log("trace: the profiler recorded no device time for the %s "
                 "(busy share not measured)" % what)
@@ -3252,8 +3411,29 @@ def main():
          "bound_by": fan_t[3], "library_ms": None,
          "calls_held": len(fan_t[7]), "ms_every_call": fan_ms,
          "fullprob_calls_ms": fan_fp_ms, "k454_16x2047_ms": fan_454_ms[0],
-         "launches_by_path": by_path("fanin"),
+         "builds": "the templated builds (K up to 4 x 4); the group "
+                   "build's launches are under viterbi_fanin_groups",
+         "launches_by_path": {path: c.get("fanin", 0)
+                              - c.get("fanin_groups", 0)
+                              for path, c in path_launches.items()},
          "placement_path": place_t.get("fanin")},
+        {"name": "viterbi_fanin_groups", "route": "cuda",
+         "source": "pagan2_tpu_torch/csrc/viterbi_fanin.cu",
+         "replaces": "pagan2_tpu/align/viterbi_pallas_fanin.py:140",
+         "scan_core": "pagan2_tpu/align/viterbi_fanin.py:368",
+         "launches": path_launches["pileup_path"]["fanin_groups"],
+         "max_abs_err": grp_t[4], "ms": grp_t[0], "plain_ms": grp_t[1],
+         "bound_ms": grp_t[2], "bound_by": grp_t[3], "library_ms": None,
+         "timed_on": "pileup_path's calls 0 and %d (the first; the "
+                     "largest K x G)" % big,
+         "plans": [fanin_launch(kw) for kw in (pile[0], pile[big])],
+         "us_per_diagonal": [1e3 * ms / kw["ilo"].shape[1] for ms, kw in
+                             zip(grp_t[7], (pile[0], pile[big]))],
+         "pileup_path_ms_every_call": grp_ms,
+         "pileup_path_us_per_diagonal": grp_us,
+         "pileup454_path_ms_every_call": g454_ms,
+         "pileup454_path_us_per_diagonal": g454_us,
+         "launches_by_path": by_path("fanin_groups")},
         {"name": "viterbi_banded", "route": "cuda",
          "source": "pagan2_tpu_torch/csrc/viterbi_banded.cu",
          "replaces": "pagan2_tpu/align/viterbi_pallas_banded.py:79",

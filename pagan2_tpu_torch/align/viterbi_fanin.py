@@ -52,11 +52,16 @@ K_CAP_R = 4
 _P_NONE = 255
 
 LAUNCHES = 0          # kernel B launches (one per fanin_fill on CUDA)
+GROUP_LAUNCHES = 0    # of them, launches of the group build
 PLAIN_CALLS = 0       # fanin_fill_plain calls made by fanin_fill
 
 # kernel B is templated on the fan-in (KL, KR) up to this; a larger
-# fan-in launches its runtime-K instantiation
+# fan-in launches its group build
 TEMPLATE_K = 4
+# the group build's largest group (lanes a window position) and the
+# largest fan-in it takes on either side
+GROUP_MAX = 8
+GROUP_K_MAX = 1024
 # the fewest diagonals kept in shared memory when the whole ring does
 # not fit: d itself, d - 1 (offset-1 gaps) and d - 2 (offset-2 matches)
 MIN_HOT = 3
@@ -306,25 +311,51 @@ def _check_args(args: dict, G: int, W: int):
     return B, D, Lr, Rr, KL, KR, nf
 
 
-def launch_plan(W: int, G: int, KL: int, KR: int, nf: int) -> dict:
-    """How kernel B is launched for a window of W rows, ring depth G,
-    fan-in KL x KR and an nf x nf match table:
+def group_size(W: int) -> int:
+    """Lanes a group in kernel B's group build for a window of W rows:
+    the most (up to GROUP_MAX, a power of two) that keep one group a
+    window position in a block of 1,024 threads, at least 1."""
+    S = 1
+    while S < GROUP_MAX and 2 * S * W <= 1024:
+        S *= 2
+    return S
 
-    - KL, KR: the templated instantiation (the fan-in itself up to
-      TEMPLATE_K on both sides, else 0, 0: the runtime-K one);
+
+def launch_plan(W: int, G: int, KL: int, KR: int, nf: int, Lr: int,
+                Rr: int, group: int | None = None) -> dict:
+    """How kernel B is launched for a window of W rows, ring depth G,
+    fan-in KL x KR, an nf x nf match table and Lr x Rr input rows and
+    columns:
+
+    - build: "templated" up to TEMPLATE_K on both sides (KL, KR: the
+      instantiation), else "groups" (KL = KR = 0), the group build;
     - placement and hot: "shared" keeps all G + 1 ring diagonals in
       shared memory (hot = G + 1); "hot" keeps the newest hot >= MIN_HOT
       there and every diagonal also in a global ring; "global" keeps
       none on chip (hot = 0);
-    - threads: a block of ceil(W / rows) threads rounded up to a warp,
-      rows = the window positions per thread: 1 up to W = 512, else at
-      least 2, and at most 1024 threads (512 for a templated fan-in
-      past 2 x 2, whose staged edge words need the registers);
-    - ahead: how many cells ahead a thread stages its inputs (2 in a
-      block of at most 256 threads, else 1; the kernel has each of
-      these built for its block sizes only, and refuses another plan);
-    - smem: dynamic shared bytes (hot ring, table, window-start ring),
-      at most SHARED_BYTES."""
+    - templated: threads, a block of ceil(W / rows) threads rounded up
+      to a warp, rows = the window positions per thread: 1 up to W =
+      512, else at least 2, and at most 1024 threads (512 for a
+      templated fan-in past 2 x 2, whose staged edge words need the
+      registers); ahead, how many cells ahead a thread stages its inputs
+      (2 in a block of at most 256 threads, else 1; the kernel has each
+      of these built for its block sizes only, and refuses another plan);
+    - groups: group, the lanes of a window position (`group`, or
+      group_size(W)); rows, the window positions a group takes a
+      diagonal (at most 1,024 threads); threads, ceil(W / rows) groups
+      rounded up to a warp; tables, where the rows', columns' and live
+      slots' words live: "shared" where the 16 (Lr + Rr + Lr KL + Rr KR)
+      bytes fit beside the ring, else "global" (a scratch read through
+      the L1);
+    - smem: dynamic shared bytes (hot ring, table, window-start ring,
+      and the group build's tables when "shared"), at most SHARED_BYTES.
+
+    The group size: on an NVIDIA H100 80GB HBM3 (700.00 W),
+    tools/bench_fanin.py --groups 1,2,4,8,16,32 timed the 39 --pileup
+    --homopolymer calls (W 32-96) at 3.06, 1.58, 1.20, 1.18, 1.60 and
+    2.75 us a diagonal, and the 36 --454 calls past the templates at
+    1.73, 1.07, 0.97, 1.01, 1.56 and 2.70. So a group takes GROUP_MAX
+    = 8 lanes, fewer where W x 8 passes 1,024 threads (PERF.md)."""
     GR = G + 1
     fixed = 4 * (nf * nf + GR)
     if fixed > SHARED_BYTES:
@@ -334,18 +365,40 @@ def launch_plan(W: int, G: int, KL: int, KR: int, nf: int) -> dict:
     if hot < min(GR, MIN_HOT):
         hot = 0
     placement = "shared" if hot == GR else "hot" if hot else "global"
+    ring = fixed + 12 * W * hot
     if KL <= TEMPLATE_K and KR <= TEMPLATE_K:
-        kl, kr = KL, KR
-    else:
-        kl = kr = 0
-    max_threads = 1024 if kl <= 2 and kr <= 2 else 512
-    # one window position a thread up to 512 rows, at least two beyond
-    # (on the H100 the W 640-1024 calls ran faster with two than one)
-    rows = 1 if W <= 512 else max(2, -(-W // max_threads))
-    threads = -(-W // (rows * 32)) * 32
-    return dict(KL=kl, KR=kr, placement=placement, hot=hot,
-                threads=threads, rows=rows, ahead=2 if threads <= 256 else 1,
-                smem=fixed + 12 * W * hot)
+        max_threads = 1024 if KL <= 2 and KR <= 2 else 512
+        # one window position a thread up to 512 rows, at least two
+        # beyond (on the H100 the W 640-1024 calls ran faster with two
+        # than one)
+        rows = 1 if W <= 512 else max(2, -(-W // max_threads))
+        threads = -(-W // (rows * 32)) * 32
+        return dict(build="templated", KL=KL, KR=KR, placement=placement,
+                    hot=hot, threads=threads, rows=rows,
+                    ahead=2 if threads <= 256 else 1, group=0,
+                    tables=None, smem=ring)
+    if max(KL, KR) > GROUP_K_MAX:
+        raise ValueError("kernel B: a fan-in of %d x %d is past the group "
+                         "build's %d" % (KL, KR, GROUP_K_MAX))
+    S = group or group_size(W)
+    if S < 1 or S > 32 or S & (S - 1):
+        raise ValueError("kernel B: a group of %d lanes is not a power of "
+                         "two up to 32" % S)
+    rows = -(-W // (1024 // S))
+    threads = -(-(-(-W // rows) * S) // 32) * 32
+    at = -(-ring // 16) * 16
+    tab = 16 * (Lr + Rr + Lr * KL + Rr * KR)
+    tables = "shared" if at + tab <= SHARED_BYTES else "global"
+    return dict(build="groups", KL=0, KR=0, placement=placement, hot=hot,
+                threads=threads, rows=rows, ahead=0, group=S, tables=tables,
+                smem=at + tab if tables == "shared" else ring)
+
+
+def call_plan(kw: dict, group: int | None = None) -> dict:
+    """launch_plan of one call's fanin_fill arguments."""
+    return launch_plan(kw["W"], kw["G"], kw["loff"].shape[2],
+                       kw["roff"].shape[2], kw["table"].shape[1],
+                       kw["lstate"].shape[1], kw["rstate"].shape[1], group)
 
 
 def fanin_fill(lstate, rstate, table, loff, llw, lopen, gexti, bup, blo,
@@ -356,43 +409,57 @@ def fanin_fill(lstate, rstate, table, loff, llw, lopen, gexti, bup, blo,
     at [b, d, t], and snaps (B, 3, G, W) f32: M, X, Y of diagonal
     L + R - 2 - g at [b, :, g]).
 
-    On a CUDA tensor it launches kernel B as launch_plan(W, G, KL, KR,
-    nf) says: the (KL, KR) instantiation up to 4 x 4, else the runtime-K
-    one; the ring in shared memory, its newest diagonals there and all
-    of it in a global scratch (B, 3, G + 1, W), or all of it there; a
-    block of the plan's threads, each staging its inputs the plan's
-    `ahead` cells ahead. The kernel refuses a plan it has no build for,
-    and the wrapper raises on any launch error."""
-    global LAUNCHES, PLAIN_CALLS
+    On a CUDA tensor it launches kernel B as launch_plan says: the
+    (KL, KR) instantiation up to 4 x 4, else the group build; the ring
+    in shared memory, its newest diagonals there and all of it in a
+    global scratch (B, 3, G + 1, W), or all of it there. The kernel
+    refuses a plan it has no build for, and the wrapper raises on any
+    launch error."""
+    global PLAIN_CALLS
     args = dict(lstate=lstate, rstate=rstate, table=table, loff=loff,
                 llw=llw, lopen=lopen, gexti=gexti, bup=bup, blo=blo,
                 roff=roff, rlw=rlw, ropen=ropen, gextj=gextj, ilo=ilo,
                 fscal=fscal, iscal=iscal)
-    B, D, Lr, Rr, KL, KR, nf = _check_args(args, G, W)
-    dev = ilo.device
-    if dev.type == "cpu":
+    _check_args(args, G, W)
+    if ilo.device.type == "cpu":
         PLAIN_CALLS += 1
         return fanin_fill_plain(G=G, W=W, **args)
+    return launch_fanin(call_plan(dict(args, G=G, W=W)), G=G, W=W, **args)
+
+
+def launch_fanin(plan: dict, G: int, W: int, **args):
+    """Launch kernel B on CUDA tensors (fanin_batch_args' layout) with
+    `plan` (a launch_plan); fanin_fill's outputs."""
+    global LAUNCHES, GROUP_LAUNCHES
+    B, D, Lr, Rr, KL, KR, nf = _check_args(args, G, W)
+    dev = args["ilo"].device
+    if dev.type != "cuda":
+        raise ValueError("kernel B launches on CUDA tensors only")
     lib = kernels.load("viterbi_fanin")
     fn = lib.viterbi_fanin_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 15 + \
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 18 + \
         [ctypes.c_void_p]
-    plan = launch_plan(W, G, KL, KR, nf)
     bp = torch.empty((B, D, W), dtype=torch.int32, device=dev)
     snap = torch.empty((B, 3, G, W), dtype=torch.float32, device=dev)
     gring = None if plan["placement"] == "shared" else torch.empty(
         (B, 3, G + 1, W), dtype=torch.float32, device=dev)
+    # the group build's tables, 16-byte entries, when not in shared memory
+    tabs = None if plan["tables"] != "global" else torch.empty(
+        (B, Lr + Rr + Lr * KL + Rr * KR, 4), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*[args[n].data_ptr() for n, _, _ in _ARG_SPEC],
                  bp.data_ptr(), snap.data_ptr(),
                  0 if gring is None else gring.data_ptr(),
+                 0 if tabs is None else tabs.data_ptr(),
                  B, D, W, G, Lr, Rr, KL, KR, nf, plan["hot"], plan["KL"],
-                 plan["KR"], plan["threads"], plan["ahead"], plan["smem"],
-                 stream)
+                 plan["KR"], plan["threads"], plan["ahead"], plan["group"],
+                 plan["rows"], int(plan["tables"] == "shared"),
+                 plan["smem"], stream)
     kernels.check(err, "viterbi_fanin")
     LAUNCHES += 1
+    GROUP_LAUNCHES += plan["build"] == "groups"
     return bp, snap
 
 

@@ -58,8 +58,7 @@
 //     slot 0 and few have more, so the sources of slot 0 and of the
 //     pair (0, 0) are read without a branch, all in flight together,
 //     and each other slot costs a warp one untaken branch. A fan-in
-//     past 4 runs the runtime-K instantiation (KL = KR = 0 below),
-//     which reads its edge words through the L1 inside the step.
+//     past 4 runs the group build (note 5).
 //  4. Hot diagonals on chip. When the whole ring (12 (G+1) W bytes)
 //     does not fit in the 227 KB of shared memory, the newest H >= 3
 //     diagonals stay there (offset-1 gaps read d-1, offset-2 matches
@@ -67,8 +66,54 @@
 //     only the older sources (offset >= H) and the corner snapshot
 //     read. Only a window wider than ~6,000 rows keeps no diagonal on
 //     chip.
-// The launch plan (template, H, threads, cells staged ahead, shared
-// bytes) is a function of (W, G, KL, KR, nf) in the wrapper,
+//  5. The group build, for a fan-in past 4 x 4 on either side (every
+//     --pileup --homopolymer fill: K up to 13 x 12, rings of 20-26
+//     diagonals, W 32-96). The first runtime-K step walked all KL slots
+//     for X, all KR for Y and all KL x KR slot pairs for M, one after
+//     another, each pair reading its edge words again through the L1
+//     and branching on an empty slot: ~13 us a diagonal. In a pileup
+//     most rows and columns have one live slot (offset in 1..G) and a
+//     few have ten, so a cell has 3 to ~130 candidate sources. The
+//     group build
+//     - gives each window position a group of S lanes of one warp (S a
+//       power of two up to 32; the block is ceil(W / rows) groups);
+//     - stages, at the job's start, each row's and column's words (band,
+//       state, gap extension, live-slot count) and its LIVE slots only
+//       (offset, slot index k, log-weight, open penalty: 16 bytes) in
+//       shared memory beside the ring or, where they do not fit, in a
+//       global scratch read through the L1 (the plan says which);
+//     - deals a cell's nl X and nr Y slots, then its nl x nr M slot
+//       pairs, over the group's lanes (a pair's index split into its
+//       slots by a multiply-high with the column's reciprocal, exact at
+//       these sizes), a lane's pairs two at a time so that the reads
+//       of both are in flight together; each lane keeps its own best
+//       value and code per state;
+//     - combines the lanes' (value, code) pairs with a shuffle
+//       butterfly that keeps the larger value and, on equal values,
+//       the lower code.
+//     That is the reference's strict first-wins scan: its candidate
+//     order is the order of the codes (X and Y 3k + move, M
+//     (kl KR + kr) 3 + move); a lane meets its candidates in rising
+//     code order and updates on strictly greater values only; no
+//     candidate is NaN (no input is +inf, so no sum is inf - inf); a
+//     skipped slot (empty, or offset past G) gives the reference only
+//     -inf candidates, which never win; and a value travels with its
+//     code, so of two equal values (+0 and -0 too) the lower code's
+//     bits survive. A lane that meets nothing above -inf keeps NONE,
+//     and a cell whose best is -inf gets NONE as before. Each
+//     candidate keeps the reference's f32 add order. The ring, the
+//     window-start ring, one barrier a diagonal, the code layout and
+//     the corner snapshot are the templated builds'.
+//     On the H100 (tools/bench_fanin.py --groups on the pileup calls,
+//     PERF.md) 8 lanes a group were fastest at W 32-96 (4 close, 16 and
+//     32 slower: more warps at the barrier, more shuffle rounds). Of
+//     variants timed on the same calls, one list of X, Y and M sources
+//     a lane was slower than the M pairs dealt apart, two in flight;
+//     three or four in flight, or the next cell's words staged across
+//     the barrier, were slower again.
+// The launch plan (build, H, threads, cells staged ahead or lanes a
+// group and rows a group, where the group build's tables live, shared
+// bytes) is a function of (W, G, KL, KR, nf, Lr, Rr) in the wrapper,
 // viterbi_fanin.py::launch_plan, and is only checked here; a window of
 // one warp synchronises with __syncwarp.
 #include <cuda_runtime.h>
@@ -97,6 +142,7 @@ struct FaninArgs {
   uint32_t* bp;         // (B, D, W)
   float* snap;          // (B, 3, G, W)
   float* gring;         // (B, 3, G+1, W) when H < G+1
+  int4* tabs;           // group build: its tables when not in shared
   int D, W, G, Lr, Rr, KL, KR, nf;
   int H;                // diagonals kept in shared memory (G+1: all)
 };
@@ -108,14 +154,12 @@ constexpr uint32_t BXY_NONE = 255u;
 // the band test fails.
 template <int KLT, int KRT>
 struct Cell {
-  static constexpr int NL = KLT > 0 ? KLT : 1;
-  static constexpr int NR = KRT > 0 ? KRT : 1;
   int i, j, bup, blo, ls, rs;
   float gxi, gjx;
-  int loff[NL];
-  float llw[NL], lopen[NL];
-  int roff[NR];
-  float rlw[NR], ropen[NR];
+  int loff[KLT];
+  float llw[KLT], lopen[KLT];
+  int roff[KRT];
+  float rlw[KRT], ropen[KRT];
 };
 
 // one job's input rows (pointers offset to the job)
@@ -141,26 +185,22 @@ __device__ __forceinline__ void load_cell(Cell<KLT, KRT>& c, const Job& jb,
     c.rs = __ldg(jb.rstate + j);
     c.gxi = __ldg(jb.gexti + i);
     c.gjx = __ldg(jb.gextj + j);
-    if constexpr (KLT > 0) {
 #pragma unroll
-      for (int k = 0; k < KLT; ++k) {
-        c.loff[k] = __ldg(jb.loff + i * KLT + k);
-        c.llw[k] = __ldg(jb.llw + i * KLT + k);
-        c.lopen[k] = __ldg(jb.lopen + i * KLT + k);
-      }
+    for (int k = 0; k < KLT; ++k) {
+      c.loff[k] = __ldg(jb.loff + i * KLT + k);
+      c.llw[k] = __ldg(jb.llw + i * KLT + k);
+      c.lopen[k] = __ldg(jb.lopen + i * KLT + k);
     }
-    if constexpr (KRT > 0) {
 #pragma unroll
-      for (int k = 0; k < KRT; ++k) {
-        c.roff[k] = __ldg(jb.roff + j * KRT + k);
-        c.rlw[k] = __ldg(jb.rlw + j * KRT + k);
-        c.ropen[k] = __ldg(jb.ropen + j * KRT + k);
-      }
+    for (int k = 0; k < KRT; ++k) {
+      c.roff[k] = __ldg(jb.roff + j * KRT + k);
+      c.rlw[k] = __ldg(jb.rlw + j * KRT + k);
+      c.ropen[k] = __ldg(jb.ropen + j * KRT + k);
     }
   }
 }
 
-// KLT, KRT: the fan-in, or 0 for the runtime-K instantiation. ALLSH:
+// KLT, KRT: the fan-in (1..4 each). ALLSH:
 // the whole ring in shared memory (H == G + 1). MAXT: the largest block
 // it is launched with (sets the register budget). PF: how many cells
 // ahead a thread stages its inputs (1, or 2 for blocks of at most 256
@@ -172,8 +212,7 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int W = a.W, G = a.G, GR = a.G + 1, D = a.D, H = a.H, nf = a.nf;
-  const int KL = KLT > 0 ? KLT : a.KL;
-  const int KR = KRT > 0 ? KRT : a.KR;
+  constexpr int KL = KLT, KR = KRT;
   const float NEG = -CUDART_INF_F;
   // shared: hot ring [M, X, Y][H][W], match table, window-start ring
   float* hot = sh;
@@ -281,30 +320,6 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
                   int t) {
     stage(ahead);
     const int i = c.i, j = c.j;
-    auto lof = [&](int k) -> int {
-      if constexpr (KLT > 0) return c.loff[k];
-      else return __ldg(jb.loff + (size_t)i * KL + k);
-    };
-    auto llw = [&](int k) -> float {
-      if constexpr (KLT > 0) return c.llw[k];
-      else return __ldg(jb.llw + (size_t)i * KL + k);
-    };
-    auto lop = [&](int k) -> float {
-      if constexpr (KLT > 0) return c.lopen[k];
-      else return __ldg(jb.lopen + (size_t)i * KL + k);
-    };
-    auto rof = [&](int k) -> int {
-      if constexpr (KRT > 0) return c.roff[k];
-      else return __ldg(jb.roff + (size_t)j * KR + k);
-    };
-    auto rlw = [&](int k) -> float {
-      if constexpr (KRT > 0) return c.rlw[k];
-      else return __ldg(jb.rlw + (size_t)j * KR + k);
-    };
-    auto rop = [&](int k) -> float {
-      if constexpr (KRT > 0) return c.ropen[k];
-      else return __ldg(jb.ropen + (size_t)j * KR + k);
-    };
     float M = NEG, X = NEG, Y = NEG;
     uint32_t cm = BM_NONE, cx = BXY_NONE, cy = BXY_NONE;
     if (j >= c.bup && j <= c.blo) {
@@ -313,7 +328,7 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
       // (0, 0) are read together, without a branch; the other slots
       // read theirs behind a branch that a warp seldom takes.
       const bool ij = i > 0 && j > 0;
-      const int ol0 = lof(0), or0 = rof(0);
+      const int ol0 = c.loff[0], or0 = c.roff[0];
       float xm, xx, xy, ym, yx, yy, mm, mx, my;
       fetch(ol0 > 0 && ol0 <= G, ol0, i - ol0, xm, xx, xy);
       fetch(or0 > 0 && or0 <= G, or0, i, ym, yx, yy);
@@ -328,7 +343,7 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
         if (k == 0) {
           vm = xm; vx = xx; vy = xy;
         } else {
-          const int o = lof(k);
+          const int o = c.loff[k];
           if (o <= 0 || o > G) continue;
           fetch(true, o, i - o, vm, vx, vy);
         }
@@ -336,7 +351,7 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
         if (v > bestX) { bestX = v; codeX = 3 * k; }
         v = vy + lgo;
         if (v > bestX) { bestX = v; codeX = 3 * k + 1; }
-        v = (vm + lng) + lop(k);
+        v = (vm + lng) + c.lopen[k];
         if (v > bestX) { bestX = v; codeX = 3 * k + 2; }
       }
       // ---- Y: gap consuming right site j ----
@@ -347,7 +362,7 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
         if (k == 0) {
           vm = ym; vx = yx; vy = yy;
         } else {
-          const int o = rof(k);
+          const int o = c.roff[k];
           if (o <= 0 || o > G) continue;
           fetch(true, o, i, vm, vx, vy);
         }
@@ -355,7 +370,7 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
         if (v > bestY) { bestY = v; codeY = 3 * k; }
         v = vx + lgo;
         if (v > bestY) { bestY = v; codeY = 3 * k + 1; }
-        v = (vm + lng) + rop(k);
+        v = (vm + lng) + c.ropen[k];
         if (v > bestY) { bestY = v; codeY = 3 * k + 2; }
       }
       // ---- M: match (left slot outer, right slot inner) ----
@@ -364,18 +379,18 @@ __global__ void __launch_bounds__(MAXT) viterbi_fanin_kernel(FaninArgs a) {
       const float mbase = lng + tab[c.ls * nf + c.rs];
 #pragma unroll
       for (int kl = 0; kl < KL; ++kl) {
-        const int ol = lof(kl);
-        const float lb = mbase + llw(kl);
+        const int ol = c.loff[kl];
+        const float lb = mbase + c.llw[kl];
 #pragma unroll
         for (int kr = 0; kr < KR; ++kr) {
           if (kl + kr == 0) {
             vm = mm; vx = mx; vy = my;
           } else {
-            const int orr = rof(kr);
+            const int orr = c.roff[kr];
             if (!ij || ol <= 0 || orr <= 0 || ol + orr > G) continue;
             fetch(true, ol + orr, i - ol, vm, vx, vy);
           }
-          const float base = lb + rlw(kr);
+          const float base = lb + c.rlw[kr];
           const uint32_t pair = (uint32_t)((kl * KR + kr) * 3);
           v = (vm + lng) + base;
           if (v > bestM) { bestM = v; codeM = pair; }
@@ -515,8 +530,6 @@ int launch_k(const FaninArgs& a, int B, int threads, int ahead,
 
 int dispatch(const FaninArgs& a, int klt, int krt, int B, int threads,
              int ahead, size_t smem, cudaStream_t stream) {
-  if (klt == 0 && krt == 0)
-    return launch<0, 0, 1024>(a, B, threads, ahead, smem, stream);
   if (klt != a.KL || krt != a.KR) return (int)cudaErrorInvalidValue;
   switch (klt) {
     FANIN_ROW(1)
@@ -527,23 +540,363 @@ int dispatch(const FaninArgs& a, int klt, int krt, int B, int threads,
   }
 }
 
+// ---- the group build (design note 5) ----
+
+// the group build's tables, 16 bytes an entry: per row its band, state
+// and live-slot count (ls | n << 16) and gap extension; per column its
+// state and live-slot count, gap extension and the reciprocal of the
+// count (2^32 / n rounded up, for n > 1); per row KL and per column KR
+// slots, the live ones first, in slot order
+struct __align__(16) RowWords {
+  int bup, blo, ls_n;
+  float gext;
+};
+struct __align__(16) ColWords {
+  int rs_n;
+  float gext;
+  unsigned magic;
+  int pad;
+};
+struct __align__(16) Slot {
+  int off, k;
+  float lw, open;
+};
+
+// 16-byte entries of one job's tables
+__host__ __device__ inline size_t table_units(int Lr, int Rr, int KL,
+                                              int KR) {
+  return (size_t)Lr + Rr + (size_t)Lr * KL + (size_t)Rr * KR;
+}
+
+// floats before the tables in shared memory: hot ring, match table and
+// window-start ring, rounded up to 16 bytes
+__host__ __device__ inline size_t tables_at(int H, int W, int nf, int G) {
+  return ((size_t)3 * H * W + (size_t)nf * nf + G + 1 + 3) & ~(size_t)3;
+}
+
+// keep the better of two (value, code) candidates: the larger value,
+// the lower code on equal values
+__device__ __forceinline__ void better(float& v, uint32_t& c, float ov,
+                                       uint32_t oc) {
+  if (ov > v || (ov == v && oc < c)) {
+    v = ov;
+    c = oc;
+  }
+}
+
+// S: lanes a group (a power of two, 1..32). ALLSH: the whole ring in
+// shared memory. TABSH: the tables in shared memory (else in a.tabs).
+// Every thread runs `rows` cells a diagonal (a dummy one past the
+// window), so the group's shuffles always see the whole warp.
+template <int S, bool ALLSH, bool TABSH>
+__global__ void __launch_bounds__(1024)
+    viterbi_fanin_groups_kernel(FaninArgs a, int rows) {
+  extern __shared__ __align__(16) float sh[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid % S, grp = tid / S, ng = nt / S;
+  const int W = a.W, G = a.G, GR = a.G + 1, D = a.D, H = a.H, nf = a.nf;
+  const int Lr = a.Lr, Rr = a.Rr, KL = a.KL, KR = a.KR;
+  const float NEG = -CUDART_INF_F;
+  float* hot = sh;
+  float* tab = sh + (size_t)3 * H * W;
+  int* silo = reinterpret_cast<int*>(tab + nf * nf);
+  int4* tabs = TABSH ? reinterpret_cast<int4*>(sh + tables_at(H, W, nf, G))
+                     : a.tabs + (size_t)b * table_units(Lr, Rr, KL, KR);
+  RowWords* rw = reinterpret_cast<RowWords*>(tabs);
+  ColWords* cw = reinterpret_cast<ColWords*>(tabs + Lr);
+  Slot* lsl = reinterpret_cast<Slot*>(tabs + Lr + Rr);
+  Slot* rsl = lsl + (size_t)Lr * KL;
+  float* gr = H < GR ? a.gring + (size_t)b * 3 * GR * W : nullptr;
+  const float lng = a.fscal[b * 2 + 0];
+  const float lgo = a.fscal[b * 2 + 1];
+  const int L = a.iscal[b * 2 + 0];
+  const int R = a.iscal[b * 2 + 1];
+  const int cornerd = L + R - 2;
+  const int* ilo = a.ilo + (size_t)b * D;
+  uint32_t* bpb = a.bp + (size_t)b * D * W;
+  float* snapb = a.snap + (size_t)b * 3 * G * W;
+  const bool one_warp = nt <= 32;
+
+  // prologue: the match table and the tables, each row's and column's
+  // live slots (offset in 1..G) first
+  {
+    const float* table = a.table + (size_t)b * nf * nf;
+    for (int q = tid; q < nf * nf; q += nt) tab[q] = table[q];
+    const size_t lb = (size_t)b * Lr, rb = (size_t)b * Rr;
+    for (int q = tid; q < Lr + Rr; q += nt) {
+      const bool left = q < Lr;
+      const int x = left ? q : q - Lr;
+      const int K = left ? KL : KR;
+      const size_t base = (left ? lb + x : rb + x) * K;
+      const int* off = left ? a.loff : a.roff;
+      const float* lw = left ? a.llw : a.rlw;
+      const float* op = left ? a.lopen : a.ropen;
+      Slot* out = (left ? lsl : rsl) + (size_t)x * K;
+      int n = 0;
+      for (int k = 0; k < K; ++k) {
+        const int o = __ldg(off + base + k);
+        if (o > 0 && o <= G) {
+          out[n] = Slot{o, k, __ldg(lw + base + k), __ldg(op + base + k)};
+          ++n;
+        }
+      }
+      if (left) {
+        rw[x] = RowWords{__ldg(a.bup + lb + x), __ldg(a.blo + lb + x),
+                         (__ldg(a.lstate + lb + x) & 0xffff) | n << 16,
+                         __ldg(a.gexti + lb + x)};
+      } else {
+        cw[x] = ColWords{(__ldg(a.rstate + rb + x) & 0xffff) | n << 16,
+                         __ldg(a.gextj + rb + x),
+                         n > 1 ? 0xffffffffu / (unsigned)n + 1u : 0u, 0};
+      }
+    }
+  }
+  __syncthreads();
+
+  int sg = 0, shs = 0;   // slot of diagonal d in the full and hot rings
+  int d = 0;
+  // M/X/Y at diagonal d - o (1 <= o <= G), global row r: -inf where
+  // `ok` is false, before diagonal 0 or outside that diagonal's window.
+  // Slot sg, which step d writes, is never read (o >= 1).
+  auto fetch = [&](bool ok, int o, int r, float& vm, float& vx,
+                   float& vy) {
+    o = ok ? o : 1;
+    int s = sg - o;
+    s += s < 0 ? GR : 0;
+    const int rel = r - silo[s];
+    const bool in = ok && o <= d && rel >= 0 && rel < W;
+    if constexpr (ALLSH) {
+      const float* p = hot + s * W + (in ? rel : 0);
+      const float pm = p[0], px = p[H * W], py = p[2 * H * W];
+      vm = in ? pm : NEG;
+      vx = in ? px : NEG;
+      vy = in ? py : NEG;
+    } else {
+      vm = vx = vy = NEG;
+      if (in) {
+        if (o < H) {
+          int h = shs - o;
+          h += h < 0 ? H : 0;
+          const float* p = hot + h * W + rel;
+          vm = p[0]; vx = p[H * W]; vy = p[2 * H * W];
+        } else {
+          const float* p = gr + (size_t)s * W + rel;
+          vm = p[0]; vx = p[(size_t)GR * W]; vy = p[(size_t)2 * GR * W];
+        }
+      }
+    }
+  };
+
+  int ilo_d = ilo[0];
+  int ilo_n = D > 1 ? ilo[1] : 0;
+  for (d = 0; d < D; ++d) {
+    const int ilo_nn = d + 2 < D ? ilo[d + 2] : 0;
+    for (int rr = 0; rr < rows; ++rr) {
+      const int t = grp + rr * ng;
+      const int i = ilo_d + t, j = d - i;
+      float bX = NEG, bY = NEG, bM = NEG;
+      uint32_t cX = BXY_NONE, cY = BXY_NONE, cM = BM_NONE;
+      bool live = t < W && (unsigned)i < (unsigned)L &&
+                  (unsigned)j < (unsigned)R;
+      RowWords ri;
+      ColWords cj;
+      if (live) {
+        ri = rw[i];
+        cj = cw[j];
+        live = j >= ri.bup && j <= ri.blo;
+      }
+      if (live) {
+        const int nl = ri.ls_n >> 16, nr = cj.rs_n >> 16;
+        const int nx = nl + nr;
+        const float mbase = lng + tab[(ri.ls_n & 0xffff) * nf +
+                                      (cj.rs_n & 0xffff)];
+        // X and Y: the row's live slots, then the column's
+        for (int q = lane; q < nx; q += S) {
+          const bool xs = q < nl;
+          const Slot e = *(xs ? lsl + (size_t)i * KL + q
+                              : rsl + (size_t)j * KR + (q - nl));
+          float vm, vx, vy;
+          fetch(true, e.off, xs ? i - e.off : i, vm, vx, vy);
+          const float c0 = xs ? vx + cj.gext : vy + ri.gext;
+          const float c1 = (xs ? vy : vx) + lgo;
+          const float c2 = (vm + lng) + e.open;
+          const uint32_t code = 3u * e.k;
+          float bv = xs ? bX : bY;
+          uint32_t bc = xs ? cX : cY;
+          if (c0 > bv) { bv = c0; bc = code; }
+          if (c1 > bv) { bv = c1; bc = code + 1; }
+          if (c2 > bv) { bv = c2; bc = code + 2; }
+          if (xs) { bX = bv; cX = bc; } else { bY = bv; cY = bc; }
+        }
+        // M: slot pairs (left slot outer, right slot inner), two a
+        // lane in flight at a time
+        const int nm = nl * nr;
+        auto pair = [&](unsigned p, int& o, int& r, float& base,
+                        uint32_t& code) {
+          const unsigned al = nr == 1 ? p : __umulhi(p, cj.magic);
+          const Slot el = lsl[(size_t)i * KL + al];
+          const Slot er = rsl[(size_t)j * KR + (p - al * nr)];
+          o = el.off + er.off;
+          r = i - el.off;
+          base = (mbase + el.lw) + er.lw;
+          code = (uint32_t)((el.k * KR + er.k) * 3);
+        };
+        auto take = [&](float vm, float vx, float vy, float base,
+                        uint32_t code) {
+          const float c0 = (vm + lng) + base, c1 = vx + base,
+                      c2 = vy + base;
+          if (c0 > bM) { bM = c0; cM = code; }
+          if (c1 > bM) { bM = c1; cM = code + 1; }
+          if (c2 > bM) { bM = c2; cM = code + 2; }
+        };
+        for (int p = lane; p < nm; p += 2 * S) {
+          const bool two = p + S < nm;
+          int oa, ra, ob, rb;
+          float ba, bb;
+          uint32_t ca, cb;
+          pair(p, oa, ra, ba, ca);
+          pair(two ? p + S : p, ob, rb, bb, cb);
+          float ma, xa, ya, mb, xb, yb;
+          fetch(oa <= G, oa, ra, ma, xa, ya);
+          fetch(two && ob <= G, ob, rb, mb, xb, yb);
+          take(ma, xa, ya, ba, ca);
+          take(mb, xb, yb, bb, cb);
+        }
+      }
+#pragma unroll
+      for (int m = S / 2; m >= 1; m >>= 1) {
+        better(bX, cX, __shfl_xor_sync(0xffffffffu, bX, m, S),
+               __shfl_xor_sync(0xffffffffu, cX, m, S));
+        better(bY, cY, __shfl_xor_sync(0xffffffffu, bY, m, S),
+               __shfl_xor_sync(0xffffffffu, cY, m, S));
+        better(bM, cM, __shfl_xor_sync(0xffffffffu, bM, m, S),
+               __shfl_xor_sync(0xffffffffu, cM, m, S));
+      }
+      if (lane == 0 && t < W) {
+        float M = NEG, X = NEG, Y = NEG;
+        uint32_t cm = BM_NONE, cx = BXY_NONE, cy = BXY_NONE;
+        if (i > 0 && bX > NEG) { X = bX; cx = cX; }
+        if (j > 0 && bY > NEG) { Y = bY; cy = cY; }
+        if (i > 0 && j > 0 && bM > NEG) { M = bM; cm = cM; }
+        if (i == 0 && j == 0) M = 0.0f;     // seed cell on diagonal 0
+        if (H > 0) {
+          float* p = hot + (size_t)shs * W + t;
+          p[0] = M;
+          p[(size_t)H * W] = X;
+          p[(size_t)2 * H * W] = Y;
+        }
+        if (H < GR) {
+          float* p = gr + (size_t)sg * W + t;
+          p[0] = M;
+          p[(size_t)GR * W] = X;
+          p[(size_t)2 * GR * W] = Y;
+        }
+        bpb[(size_t)d * W + t] = cm | (cx << 16) | (cy << 24);
+      }
+    }
+    if (tid == 0) silo[sg] = ilo_d;
+    if (one_warp) __syncwarp(); else __syncthreads();
+    if (d == cornerd) {
+      const float* ring = H == GR ? hot : gr;
+      for (int q = tid; q < 3 * G * W; q += nt) {
+        const int mat = q / (G * W);
+        const int g = (q / W) % G;
+        const int t = q % W;
+        int s = sg - g;
+        if (s < 0) s += GR;
+        snapb[q] = d - g < 0 ? NEG
+                             : ring[((size_t)mat * GR + s) * W + t];
+      }
+    }
+    ilo_d = ilo_n;
+    ilo_n = ilo_nn;
+    sg = sg + 1 == GR ? 0 : sg + 1;
+    if (H > 0) shs = shs + 1 == H ? 0 : shs + 1;
+  }
+  if (cornerd < 0 || cornerd >= D) {
+    for (int q = tid; q < 3 * G * W; q += nt) snapb[q] = NEG;
+  }
+}
+
+template <int S, bool ALLSH, bool TABSH>
+int launch_groups1(const FaninArgs& a, int B, int threads, int rows,
+                   size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_fanin_groups_kernel<S, ALLSH, TABSH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_fanin_groups_kernel<S, ALLSH, TABSH>
+      <<<B, threads, smem, stream>>>(a, rows);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_groups(const FaninArgs& a, int B, int threads, int rows,
+                  bool tabsh, size_t smem, cudaStream_t stream) {
+  const bool allsh = a.H == a.G + 1;
+  if (allsh)
+    return tabsh ? launch_groups1<S, true, true>(a, B, threads, rows, smem,
+                                                 stream)
+                 : launch_groups1<S, true, false>(a, B, threads, rows, smem,
+                                                  stream);
+  return tabsh ? launch_groups1<S, false, true>(a, B, threads, rows, smem,
+                                                stream)
+               : launch_groups1<S, false, false>(a, B, threads, rows, smem,
+                                                 stream);
+}
+
+// the group build (launch_plan's for a fan-in past 4 x 4; it takes any
+// fan-in up to 1,024 a side): a plan of S lanes a group
+// (1..32, a power of two), whole warps of whole groups that cover the
+// window in `rows` cells a group, and shared memory for the ring, the
+// match table, the window-start ring and, with tabsh, the tables
+int dispatch_groups(const FaninArgs& a, int B, int threads, int group,
+                    int rows, int tabsh, size_t smem, cudaStream_t stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 || rows < 1 ||
+      group < 1 || group > 32 || (group & (group - 1)) ||
+      (long long)(threads / group) * rows < a.W ||
+      a.KL > 1024 || a.KR > 1024)
+    return (int)cudaErrorInvalidValue;
+  if (tabsh ? smem < 4 * tables_at(a.H, a.W, a.nf, a.G) +
+                         16 * table_units(a.Lr, a.Rr, a.KL, a.KR)
+            : a.tabs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  switch (group) {
+    case 1: return launch_groups<1>(a, B, threads, rows, tabsh, smem, stream);
+    case 2: return launch_groups<2>(a, B, threads, rows, tabsh, smem, stream);
+    case 4: return launch_groups<4>(a, B, threads, rows, tabsh, smem, stream);
+    case 8: return launch_groups<8>(a, B, threads, rows, tabsh, smem, stream);
+    case 16:
+      return launch_groups<16>(a, B, threads, rows, tabsh, smem, stream);
+    default:
+      return launch_groups<32>(a, B, threads, rows, tabsh, smem, stream);
+  }
+}
+
 }  // namespace
 
 // The launch plan, as viterbi_fanin.py::launch_plan computes it: klt,
-// krt: the templated fan-in to launch (0, 0: the runtime-K
-// instantiation); hot: diagonals kept in shared memory (G + 1: the
-// whole ring; fewer: the rest in gring); threads: the block; ahead:
-// cells a thread stages ahead (1 or 2); smem: dynamic shared bytes
-// (hot ring, table, window-start ring).
+// krt: the templated fan-in to launch (0, 0: the group build); hot:
+// diagonals kept in shared memory (G + 1: the whole ring; fewer: the
+// rest in gring); threads: the block; ahead: cells a thread stages
+// ahead (1 or 2; templated builds); group, rows: lanes a group and
+// cells a group a diagonal (group build); tabsh: the group build's
+// tables in shared memory (else in tabs, B x table_units entries);
+// smem: dynamic shared bytes (hot ring, table, window-start ring, and
+// the tables with tabsh).
 extern "C" int viterbi_fanin_launch(
     const void* lstate, const void* rstate, const void* table,
     const void* loff, const void* llw, const void* lopen,
     const void* gexti, const void* bup, const void* blo, const void* roff,
     const void* rlw, const void* ropen, const void* gextj, const void* ilo,
     const void* fscal, const void* iscal, void* bp, void* snap,
-    void* gring, int B, int D, int W, int G, int Lr, int Rr, int KL,
-    int KR, int nf, int hot, int klt, int krt, int threads, int ahead,
-    int smem, void* stream) {
+    void* gring, void* tabs, int B, int D, int W, int G, int Lr, int Rr,
+    int KL, int KR, int nf, int hot, int klt, int krt, int threads,
+    int ahead, int group, int rows, int tabsh, int smem, void* stream) {
   FaninArgs a;
   a.lstate = (const int*)lstate;
   a.rstate = (const int*)rstate;
@@ -564,6 +917,7 @@ extern "C" int viterbi_fanin_launch(
   a.bp = (uint32_t*)bp;
   a.snap = (float*)snap;
   a.gring = (float*)gring;
+  a.tabs = (int4*)tabs;
   a.D = D;
   a.W = W;
   a.G = G;
@@ -576,6 +930,9 @@ extern "C" int viterbi_fanin_launch(
   if (hot < 0 || hot > G + 1 || (hot <= G && gring == nullptr) ||
       (size_t)smem < ((size_t)3 * hot * W + (size_t)nf * nf + G + 1) * 4)
     return (int)cudaErrorInvalidValue;
+  if (klt == 0 && krt == 0)
+    return dispatch_groups(a, B, threads, group, rows, tabsh, (size_t)smem,
+                           (cudaStream_t)stream);
   return dispatch(a, klt, krt, B, threads, ahead, (size_t)smem,
                   (cudaStream_t)stream);
 }

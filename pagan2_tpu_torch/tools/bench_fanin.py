@@ -2,22 +2,36 @@
 it: chip_smoke.py's 16 x 1535 family (bench.py's generator, seed 5)
 through the CLI with default flags (7 calls, windowed and full width)
 and with --full-probability (3 full-width batches), then a batch of 16
-454-style K3/3 pairs of 2047 bp. Prints each call's B, D, W, G, K, ms
-(CUDA events over REPS launches after one warm-up) and us per diagonal,
-and last a JSON line with the mean and the sum of each run's calls.
+454-style K3/3 pairs of 2047 bp, then the pileup's calls: pileup_path's
+40 x 384 amplicon reads (tools/reads.py's amplicon_reads, default_rng(3))
+through the CLI with --pileup --homopolymer --output-consensus (39
+calls, all past the 4 x 4 templates: the group build) and with --pileup
+--454 (39 calls, most of them past the templates). Prints each call's
+B, D, W, G, K, launch plan, ms (CUDA events over REPS launches after one
+warm-up) and us per diagonal, and last a JSON line with the mean and
+the sum of each run's calls.
 
     python -m pagan2_tpu_torch.tools.bench_fanin [--device cpu --small]
     python pagan2_tpu_torch/tools/bench_fanin.py --root DIR [--save OUT]
     python pagan2_tpu_torch/tools/bench_fanin.py --check OUT
+    python -m pagan2_tpu_torch.tools.bench_fanin --groups 1,2,4,8,16,32
 
 Run as a file, --root times the pagan2_tpu_torch package of the
 checkout DIR instead of this one, so that two versions of the kernel
 compare on one card in one call (in turns: parent, change, change,
-parent). --save writes a digest of every call's codes and snapshots
-under OUT; --check holds this run's bit for bit against them
-(tools/replay.py).
+parent; a package without launch plans prints none). --save writes a
+digest of every call's codes and snapshots under OUT; --check holds
+this run's bit for bit against them (tools/replay.py).
+
+--groups S,... (a card, this checkout) then launches the group build at
+each group size S (lanes a window position) on every call whose plan is
+the group build, holds each bit for bit against the plan's own build
+and times it; a JSON line gives each run's sum and us per diagonal by
+group size.
 """
 from __future__ import annotations
+
+import json
 
 if __package__:
     from . import replay
@@ -51,10 +65,81 @@ def family(n, L, seed=5):
     return seqs, build(0, n) + ";"
 
 
+# the pileup runs: (run, the CLI flags besides --pileup)
+PILEUP_RUNS = (("pileup", ("--homopolymer", "--output-consensus")),
+               ("pileup454", ("--454",)))
+
+
+def plan_text(VF, kw):
+    """A call's launch plan as text ("" for a package without
+    call_plan)."""
+    if not hasattr(VF, "call_plan"):
+        return ""
+    p = VF.call_plan(kw)
+    if p["build"] == "templated":
+        return "templated %dx%d, ring %s, %d threads x %d rows" % (
+            p["KL"], p["KR"], p["placement"], p["threads"], p["rows"])
+    return ("group build, %d lanes a group, ring %s, tables %s, %d "
+            "threads x %d rows" % (p["group"], p["placement"], p["tables"],
+                                   p["threads"], p["rows"]))
+
+
+def group_sizes(text):
+    """--groups: "S,S,..." as [lanes]."""
+    return [int(v) for v in text.split(",") if v]
+
+
+def sweep_groups(args, torch, VF, calls):
+    """--groups: each call of the group build with each group size of
+    args.groups, held bit for bit against the plan's build and timed.
+    Returns the records; exits non-zero if one differs."""
+    recs = []
+    for k, (run, kw) in enumerate(calls):
+        if VF.call_plan(kw)["build"] != "groups":
+            continue
+        ref = replay.digest(VF.fanin_fill(**kw))
+        D = kw["ilo"].shape[1]
+        for S in args.groups:
+            plan = VF.call_plan(kw, group=S)
+
+            def forced(**a):
+                return VF.launch_fanin(plan, **a)
+            same = replay.digest(forced(**kw)) == ref
+            ms = replay.time_call(torch, forced, kw, replay.REPS)
+            recs.append(dict(run=run, call=k, group=S, D=D, ms=ms,
+                             same=same))
+            print("groups   %-9s call %2d, S %2d (%d threads x %d rows): "
+                  "%9.4f ms, %.4f us per diagonal%s"
+                  % (run, k, S, plan["threads"], plan["rows"], ms,
+                     1e3 * ms / D, "" if same else ", DIFFERS from the "
+                     "plan's build"), flush=True)
+    summary = {}
+    for r in recs:
+        node = summary.setdefault(r["run"], {}).setdefault(
+            str(r["group"]), dict(calls=0, sum_ms=0.0, diagonals=0))
+        node["calls"] += 1
+        node["sum_ms"] += r["ms"]
+        node["diagonals"] += r["D"]
+    for by_group in summary.values():
+        for node in by_group.values():
+            node["us_per_diagonal"] = 1e3 * node["sum_ms"] / node["diagonals"]
+    print(json.dumps(dict(groups=summary)))
+    if not all(r["same"] for r in recs):
+        raise SystemExit("a forced group size differs from the plan's build")
+    return recs
+
+
 def main(argv=None):
-    args = replay.parser(
+    p = replay.parser(
         __doc__.splitlines()[0], "kernel B",
-        "a 4 x 200 family and 2 454 pairs (for the CPU)").parse_args(argv)
+        "a 4 x 200 family, 2 454 pairs and 6 x 96 reads (for the CPU)")
+    p.add_argument("--groups", type=group_sizes, default=[],
+                   help="also force the group build at each of these "
+                        "lanes a group (a card only)")
+    args = p.parse_args(argv)
+    if args.groups and args.device != "cuda":
+        raise SystemExit("--groups launches kernel B's group build: a card "
+                         "only")
     torch, dev, root = replay.start(args)
     import numpy as np
     from pagan2_tpu_torch import cli as CLI
@@ -62,6 +147,7 @@ def main(argv=None):
     from pagan2_tpu_torch.align import viterbi_fanin as VF
     from pagan2_tpu_torch.graph import build_leaf_graph
     from pagan2_tpu_torch.models import ModelFactory, alphabets as alph
+    from pagan2_tpu_torch.tools.reads import amplicon_reads
 
     seqs, tree = family(*((4, 200) if args.small else (16, 1535)))
     calls = [(run, kw) for run, flags in (("main", ()), (
@@ -84,6 +170,11 @@ def main(argv=None):
             build_leaf_graph("".join(mut), alph.DNA, mode454=True),
             model, AlignSettings(), np.float32))
     calls.append(("454", VF.fanin_batch_args(inps, dev)))
+    reads = amplicon_reads(*((6, 96, 110) if args.small else (40, 384, 420)))
+    for run, flags in PILEUP_RUNS:
+        calls += [(run, kw) for _n, kw in replay.record_cli(
+            CLI, VF, ("fanin_fill",), reads, None, "bench_fanin",
+            args.device, ("--pileup",) + flags)]
 
     runs = []
     for k, kw, ms, same in replay.replay(
@@ -92,12 +183,16 @@ def main(argv=None):
         nb, D = kw["ilo"].shape
         rec = dict(run=calls[k][0], B=nb, D=D, W=kw["W"], G=kw["G"],
                    K="%d/%d" % (kw["loff"].shape[2], kw["roff"].shape[2]),
-                   ms=ms, us_per_diagonal=1e3 * ms / D, same=same)
+                   plan=plan_text(VF, kw), ms=ms,
+                   us_per_diagonal=1e3 * ms / D, same=same)
         runs.append(rec)
-        print("%-8s B %2d, D %d, W %4d, G %2d, K %s: %9.4f ms, %.4f us per "
-              "diagonal%s" % (rec["run"], nb, D, kw["W"], kw["G"], rec["K"],
-                              ms, rec["us_per_diagonal"],
-                              replay.same_text(same)), flush=True)
+        print("%-9s B %2d, D %d, W %4d, G %2d, K %s: %9.4f ms, %.4f us per "
+              "diagonal%s%s" % (rec["run"], nb, D, kw["W"], kw["G"],
+                                rec["K"], ms, rec["us_per_diagonal"],
+                                "; " + rec["plan"] if rec["plan"] else "",
+                                replay.same_text(same)), flush=True)
+    if args.groups:
+        sweep_groups(args, torch, VF, calls)
     return replay.finish(args, torch, dev, root, runs, ("run",))
 
 

@@ -73,7 +73,9 @@ def start(args):
 def record_cli(CLI, module, names, seqs, tree, work, device, flags=()):
     """The calls that one CLI run on (seqs, tree) with `flags` makes to
     the named wrappers of `module`, recorded in their places as
-    (name, kwargs). The inputs and outputs go under build/<work>."""
+    (name, kwargs). With tree None, seqs are a --pileup run's reads
+    (given with -q; `flags` holds --pileup). The inputs and outputs go
+    under build/<work>."""
     calls = []
     real = {n: getattr(module, n) for n in names}
 
@@ -87,13 +89,16 @@ def record_cli(CLI, module, names, seqs, tree, work, device, flags=()):
     fas, nh = os.path.join(work, "seqs.fas"), os.path.join(work, "tree.nh")
     with open(fas, "w") as f:
         f.writelines(">%s\n%s\n" % s for s in seqs)
-    with open(nh, "w") as f:
-        f.write(tree + "\n")
+    inputs = ["-q", fas]
+    if tree is not None:
+        with open(nh, "w") as f:
+            f.write(tree + "\n")
+        inputs = ["-s", fas, "-t", nh]
     for n in names:
         setattr(module, n, recorder(n))
     try:
-        rc = CLI.main(["-s", fas, "-t", nh, "-o", os.path.join(work, "out"),
-                       "--silent", "--device", device, *flags])
+        rc = CLI.main(inputs + ["-o", os.path.join(work, "out"), "--silent",
+                                "--device", device, *flags])
         if rc:
             raise SystemExit("the CLI returned %d" % rc)
     finally:

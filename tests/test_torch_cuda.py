@@ -379,9 +379,24 @@ def _window(inp, W, step=2, jump=1):
 
 def _largest_shared_g(W, nf):
     G = 1
-    while tf.launch_plan(W, G + 1, 1, 1, nf)["placement"] == "shared":
+    while tf.launch_plan(W, G + 1, 1, 1, nf, W, W)["placement"] == "shared":
         G += 1
     return G
+
+
+def _amplicon_graph(rng, n, longest, seq=None):
+    """A homopolymer leaf graph of n sites made of runs of 1-4 bases
+    (as in tools/reads.py's amplicon genome) with one run of `longest`
+    a third of the way in: many rows of two to four live slots, and one
+    of `longest`. `seq`: the sequence to use instead."""
+    if seq is None:
+        s = []
+        while len(s) < n:
+            c = str(rng.choice([c for c in "ACGT" if not s or c != s[-1]]))
+            s += c * (longest if n // 3 - 4 <= len(s) < n // 3
+                      else int(rng.integers(1, 5)))
+        seq = "".join(s[:n])
+    return build_leaf_graph(seq, alph.DNA, homopolymer=True), seq
 
 
 def _fanin_shape_case(case, rng):
@@ -434,6 +449,38 @@ def _fanin_shape_case(case, rng):
     if case == "corner_beyond_d":
         inp = prep(100, 2, 90, 2)
         return [inp], dict(D=inp["L"] + inp["R"] - 6), {}
+    # the group build (fan-ins past 4 x 4)
+    groups = dict(KL=0, KR=0, build="groups")
+    if case in ("pileup_k11x10", "ties"):
+        g1, s1 = _amplicon_graph(rng, 400, 11)
+        g2, _s = _amplicon_graph(rng, 390, 10, s1 if case == "ties"
+                                 else None)
+        inp = tf.prepare_fanin(g1, g2, MODEL, S, np.float32)
+        if case == "ties":
+            # one weight on every edge: sources tie across slots
+            inp["llw"][:] = 0.0
+            inp["rlw"][:] = 0.0
+        return [inp], _window(inp, 64), dict(groups, tables="shared",
+                                             group=tf.group_size(64))
+    if case == "groups_hot":
+        inp = prep(700, 6, 40, 2)
+        G = _largest_shared_g(inp["L"], 15) + 1
+        return [inp], dict(G=G), dict(groups, placement="hot")
+    if case == "groups_global":
+        inp = prep(6600, 6, 8, 1)
+        return [inp], {}, dict(groups, placement="global", hot=0,
+                               tables="global")
+    if case == "groups_tables_global":
+        # L = R: the window follows the diagonal to the corner
+        inp = prep(2500, 6, 2500, 3)
+        return [inp], _window(inp, 64), dict(groups, placement="shared",
+                                             tables="global")
+    if case == "groups_batch":
+        return [prep(200, 6, 150, 2), prep(130, 2, 190, 7),
+                prep(60, 1, 70, 1)], {}, dict(groups, KL=0)
+    if case == "groups_w1100":                   # two cells a group
+        inp = prep(1100, 6, 60, 3)
+        return [inp], {}, dict(groups, rows=2, group=1)
     raise ValueError(case)
 
 
@@ -441,7 +488,10 @@ FANIN_SHAPES = (["w32", "w50", "w1100", "ring_shared", "ring_hot",
                  "hot_split", "global", "g1", "offsets_past_g", "ilo_jumps",
                  "ragged_batch", "corner_beyond_d", "k6x2"]
                 + ["k%dx%d" % (kl, kr) for kl in range(1, 5)
-                   for kr in range(1, 5)])
+                   for kr in range(1, 5)]
+                + ["k6x3", "k13x1", "k1x13", "pileup_k11x10", "ties",
+                   "groups_hot", "groups_global", "groups_tables_global",
+                   "groups_batch", "groups_w1100"])
 
 
 @pytest.mark.parametrize("case", FANIN_SHAPES)
@@ -451,14 +501,14 @@ def test_fanin_kernel_shape_classes(cuda, case):
     rng = np.random.default_rng(sum(map(ord, case)))
     inps, kw, want = _fanin_shape_case(case, rng)
     args = tf.fanin_batch_args(inps, cuda, **kw)
-    plan = tf.launch_plan(args["W"], args["G"], args["loff"].shape[2],
-                          args["roff"].shape[2], args["table"].shape[1])
+    plan = tf.call_plan(args)
     assert {k: plan[k] for k in want} == want
-    n0 = tf.LAUNCHES
+    n0, g0 = tf.LAUNCHES, tf.GROUP_LAUNCHES
     bp, snap = tf.fanin_fill(**args)
     pb, ps = tf.fanin_fill_plain(**args)
     torch.cuda.synchronize()
     assert tf.LAUNCHES == n0 + 1
+    assert tf.GROUP_LAUNCHES == g0 + (plan["build"] == "groups")
     assert torch.equal(bp, pb), int((bp != pb).sum())
     assert torch.equal(_bits(snap), _bits(ps))
     assert bool(torch.isfinite(snap).any()) == (case != "corner_beyond_d")
@@ -491,6 +541,47 @@ def test_fanin_kernel_takes_only_plans_it_has_built(cuda, monkeypatch, W,
     assert tf.LAUNCHES == n0 + 1
     assert torch.equal(bp, pb)
     assert torch.equal(_bits(snap), _bits(ps))
+
+
+def _pileup_like_args(device, W=64):
+    rng = np.random.default_rng(19)
+    g1, _s = _amplicon_graph(rng, 400, 11)
+    g2, _s = _amplicon_graph(rng, 390, 10)
+    inp = tf.prepare_fanin(g1, g2, MODEL, AlignSettings(), np.float32)
+    return tf.fanin_batch_args([inp], device, **_window(inp, W))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_fanin_group_build_every_group_size(cuda, group):
+    """The group build forced to each group size on a pileup-like call
+    (K 11 x 10, W 64; 32 lanes take two cells a group): bit-equal."""
+    args = _pileup_like_args(cuda)
+    plan = tf.call_plan(args, group=group)
+    assert plan["group"] == group and plan["build"] == "groups"
+    assert plan["rows"] == (2 if group == 32 else 1)
+    bp, snap = tf.launch_fanin(plan, **args)
+    pb, ps = tf.fanin_fill_plain(**args)
+    torch.cuda.synchronize()
+    assert torch.equal(bp, pb), int((bp != pb).sum())
+    assert torch.equal(_bits(snap), _bits(ps))
+
+
+@pytest.mark.parametrize("change", [
+    dict(group=3), dict(group=64), dict(rows=0), dict(threads=48),
+    dict(threads=2048), dict(threads=256, rows=1), dict(smem=4096),
+    dict(tables="none")])
+def test_fanin_group_build_refuses_plans_it_lacks(cuda, change):
+    """A group-build plan the kernel has no build for (a group that is
+    not a power of two up to 32, too few rows or threads to cover the
+    window, a block that is not whole warps or past 1,024 threads,
+    tables in shared memory that the shared bytes do not hold, tables
+    in no scratch) raises and counts no launch."""
+    args = _pileup_like_args(cuda, W=96)
+    plan = dict(tf.call_plan(args), **change)
+    n0, g0 = tf.LAUNCHES, tf.GROUP_LAUNCHES
+    with pytest.raises(RuntimeError, match="viterbi_fanin launch"):
+        tf.launch_fanin(plan, **args)
+    assert (tf.LAUNCHES, tf.GROUP_LAUNCHES) == (n0, g0)
 
 
 @pytest.mark.parametrize("half", [20, 300])
